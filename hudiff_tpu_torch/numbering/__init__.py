@@ -1,0 +1,5 @@
+"""Host-side antibody numbering: AHo alignment + IMGT grid placement.
+
+Copies of the JAX package's numbering modules (consensus, align, imgt); the
+port imports nothing from hudiff_tpu.
+"""

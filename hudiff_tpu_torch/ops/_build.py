@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``hudiff_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
+compiled on first use into ``build/hudiff_tpu_torch/lib<name>-<hash>.so``
+beside the package (the hash is of the source and flags, so an edited source
+rebuilds). Nothing here runs at import time: the CPU tests import every
+module on machines without ``nvcc``.
+
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
+them; ``load(name)`` builds one source if needed and returns the library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / 'csrc'
+BUILD_DIR = PKG_DIR.parent / 'build' / 'hudiff_tpu_torch'
+SOURCES = ('rope_attention', 'bytenet_block')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else
+    ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    if home and os.path.exists(os.path.join(home, 'bin', 'nvcc')):
+        return os.path.join(home, 'bin', 'nvcc')
+    return shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f'{name}.cu'
+    digest = hashlib.sha1(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:12]}.so'
+
+
+def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path]]:
+    """Start nvcc for one source into a temporary file; None if built."""
+    if library_path(name).exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = library_path(name).with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC_DIR / f'{name}.cu')]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every named source in parallel; returns seconds per source
+    (0.0 where the library was already built)."""
+    t0 = time.perf_counter()
+    started = {n: _start(n) for n in names}
+    took, failed = {}, []
+    for n, job in started.items():  # wait for every nvcc, even after a failure
+        took[n] = 0.0
+        if job is None:
+            continue
+        proc, tmp = job
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}')
+            continue
+        os.replace(tmp, library_path(n))  # atomic: concurrent builders agree
+        took[n] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return took
+
+
+def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+
+    ``signatures`` maps each C entry to its ctypes argtypes; every entry
+    returns an int (a ``cudaError_t`` code)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry returned a nonzero ``cudaError_t``."""
+    if code != 0:
+        raise RuntimeError(f'{what}: CUDA error {code} at launch')

@@ -1,0 +1,433 @@
+"""Paired-antibody humanization (HuDiff-Ab) on the card.
+
+Counterpart of hudiff_tpu/sampling/humanize.py (the ``ab`` path: host prep
+``pair_input``, packed batching, ``PairHumanizer`` and the CLI). The host
+helpers are copied, the device work is the port's sampler and denoiser.
+Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
+without a card they raise rather than fall back.
+
+Usage:
+  python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt \
+      --data-fpath humanization_pair_data_filter.csv --batch-size 64
+  python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt --hseq ... --lseq ...
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..numbering import align as AL
+from ..numbering import imgt as IMGT
+from ..tokenizer import Tokenizer
+from ..training import checkpoints as CKPT
+from ..training.logger import get_logger, get_new_log_dir, seed_all
+from . import sampler as S
+
+_TOK = Tokenizer()
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises when CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda.is_available() "
+                           "is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Input construction (copied from hudiff_tpu/sampling/humanize.py:50-99)
+# ---------------------------------------------------------------------------
+
+def pair_input(h_seq: str, l_seq: str, finetune: bool = False
+               ) -> Optional[Dict[str, np.ndarray]]:
+    """Build the 291-grid input for one antibody
+    (reference batch_input_element, sample.py:142-179)."""
+    # reject fragments / non-antibody chains the way ANARCI numbering
+    # failure would in the reference (scores: real domains ~500, junk <10)
+    try:
+        h_scores = AL.profile_scores(h_seq)
+        _, _, h_score = AL.detect_chain_type(h_seq, h_scores)
+        l_scores = AL.profile_scores(l_seq)
+        _, _, l_score = AL.detect_chain_type(l_seq, l_scores)
+        # kappa/lambda by direct K-vs-L profile comparison
+        l_group, l_margin = AL.classify_light(l_seq, l_scores)
+    except (ValueError, TypeError):
+        return None  # unalignable / non-string input (NaN CSV cells etc.)
+    if h_score < AL.MIN_CHAIN_SCORE or l_score < AL.MIN_CHAIN_SCORE:
+        return None
+    if AL.is_confident_heavy(l_scores) or AL.is_confident_light(h_scores):
+        return None  # a true heavy chain in the light slot or the reverse
+    AL.warn_ambiguous_light(l_group, l_margin)
+    h = IMGT.grid_string(h_seq, heavy=True, chain_hint='H')
+    l = IMGT.grid_string(l_seq, heavy=False, chain_hint=l_group)
+    if h is None or l is None:
+        return None
+
+    tokens = np.concatenate([_TOK.seq2idx(h['grid']), _TOK.seq2idx(l['grid'])])
+    region = np.concatenate([C.HEAVY_REGION_INDEX, C.LIGHT_REGION_INDEX])
+    chain = np.asarray([C.CHAIN_TYPES['H'], C.CHAIN_TYPES[l_group]], np.int32)
+
+    if finetune:
+        cdr = np.concatenate([C.HEAVY_CDR_KABAT_NO_VERNIER,
+                              C.LIGHT_CDR_KABAT_NO_VERNIER])
+        mask = (cdr == 0) & (tokens != C.IDX_PAD)
+    else:
+        cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX])
+        mask = cdr == 0
+    positions = np.nonzero(mask)[0].astype(np.int32)
+    src = tokens.copy()
+    src[mask] = C.IDX_MSK
+    # pad_to: per-mode upper bound on masked slots
+    return {'tokens': src, 'clean': tokens, 'region': region, 'chain': chain,
+            'positions': positions, 'pad_to': int(np.count_nonzero(cdr == 0)),
+            'aho_h': h['aho'], 'aho_l': l['aho'],
+            'h_grid': h['grid'], 'l_grid': l['grid'], 'l_group': l_group}
+
+
+def grid_identity(a: np.ndarray, b: np.ndarray) -> float:
+    """Fraction of identical residues over slots occupied in either grid."""
+    occ = (a != C.IDX_PAD) | (b != C.IDX_PAD)
+    if occ.sum() == 0:
+        return 0.0
+    return float(((a == b) & occ).sum() / occ.sum())
+
+
+def select_most_similar(parental: np.ndarray, candidates: np.ndarray) -> int:
+    """Index of the candidate grid most similar to the parental grid
+    (reference select_the_most_similarity_seq, sample.py:352-367)."""
+    scores = [grid_identity(parental, cand) for cand in candidates]
+    return int(np.argmax(scores))
+
+
+# ---------------------------------------------------------------------------
+# Model loading
+# ---------------------------------------------------------------------------
+
+def load_denoiser(ckpt_path: str, device='cuda', use_bf16: bool = True):
+    """(model, finetuned) from a port checkpoint (training/checkpoints.save)."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if use_bf16 else torch.float32
+    model, config = CKPT.load(ckpt_path, dtype=dtype, device=dev)
+    return model, bool(config.get('finetuned', False))
+
+
+# ---------------------------------------------------------------------------
+# Packed batching (copied from hudiff_tpu/sampling/humanize.py:303-370)
+# ---------------------------------------------------------------------------
+
+def load_mouse_pairs(data_fpath: str):
+    """(name, h_seq, l_seq) rows from a mouse-pair CSV; rows with missing
+    sequences are skipped."""
+    with open(data_fpath, newline='') as f:
+        mouse = [r for r in csv.DictReader(f) if r.get('type', 'mouse') == 'mouse']
+    return [(str(r.get('name', i)), r['h_seq'], r['l_seq'])
+            for i, r in enumerate(mouse) if r.get('h_seq') and r.get('l_seq')]
+
+
+def _bucket_order_width(k_used: int, cap: int) -> int:
+    """Order width for a batch: its real masked-slot maximum rounded up to a
+    multiple of 32, capped at the mode maximum (every order column costs a
+    full forward, padded or not)."""
+    if k_used >= cap:
+        return cap
+    return min(cap, ((max(k_used, 1) + 31) // 32) * 32)
+
+
+def _packed_pad_to(inputs) -> int:
+    """Bucketed order width for a packed batch."""
+    live = [inp for inp in inputs if inp is not None]
+    return _bucket_order_width(
+        max((len(inp['positions']) for inp in live), default=0),
+        max((inp['pad_to'] for inp in live), default=1))
+
+
+def _bucket_batch(n: int, cap: int) -> int:
+    """Power-of-two bucketed device batch for a packed stream, capped."""
+    b = 1
+    while b < n:
+        b *= 2
+    return max(1, min(b, cap))
+
+
+def iter_packed_chunks(humanizer, stream, pad_to: int):
+    """Drive a packed ``(key, inp)`` stream through bucketed
+    ``device_batch``-capped rounds, yielding ``(chunk, sampled_rows)``.
+
+    Batch policy: the smallest already-used bucket that fits, else the
+    stream's own power-of-two bucket, so shrinking retry waves keep the
+    first wave's batch shape.
+    """
+    if not stream:
+        return
+    need = _bucket_batch(len(stream), humanizer.device_batch)
+    used = getattr(humanizer, '_used_batches', None)
+    if used is None:
+        used = humanizer._used_batches = set()
+    fits = [b for b, p in used if p == pad_to and b >= need]
+    B = min(fits) if fits else need
+    for s in range(0, len(stream), B):
+        chunk = stream[s: s + B]
+        yield chunk, humanizer.sample_rows([inp for _, inp in chunk], pad_to,
+                                           batch=B)
+        # registered only after a successful round
+        used.add((B, pad_to))
+
+
+def _result(inp: Dict, out: np.ndarray) -> Dict:
+    h_seqs = [_TOK.idx2seq(row[: C.HEAVY_LEN]) for row in out]
+    l_seqs = [_TOK.idx2seq(row[C.HEAVY_LEN:]) for row in out]
+    best = select_most_similar(inp['clean'], out)
+    return {'h_seqs': h_seqs, 'l_seqs': l_seqs, 'grids': out,
+            'best_idx': best, 'best': (h_seqs[best], l_seqs[best])}
+
+
+class PairHumanizer:
+    """Humanizes paired antibodies with one ``AntiTFNet`` on ``device``.
+
+    The model is moved to ``device``; a bf16 model gets its parameters cast
+    to bf16 once, in place (sampler.cast_params_once). Orders are drawn
+    from a numpy generator and tokens from a ``torch.Generator`` on the
+    device, both seeded with ``seed``."""
+
+    def __init__(self, model, batch_size: int = 16, shuffle: bool = True,
+                 seed: int = 2023, device='cuda',
+                 device_batch: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.device_batch = device_batch or batch_size
+        self.shuffle = shuffle
+        self.order_rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.run = S.make_model_sampler(model.to(self.device))
+
+    def _sample(self, rows: List[Dict], pad_to: int) -> np.ndarray:
+        put = lambda key: torch.as_tensor(  # noqa: E731
+            np.stack([r[key] for r in rows]), dtype=torch.long, device=self.device)
+        order = S.build_order_rows([r['positions'] for r in rows],
+                                   rng=self.order_rng, shuffle=self.shuffle,
+                                   pad_to=pad_to)
+        out = self.run(put('tokens'), put('region'), put('chain'),
+                       torch.as_tensor(order, dtype=torch.long, device=self.device),
+                       self.generator)
+        return out.cpu().numpy().astype(np.int32)
+
+    def __call__(self, h_seq: str, l_seq: str, finetune: bool = False
+                 ) -> Optional[Dict[str, object]]:
+        inp = pair_input(h_seq, l_seq, finetune=finetune)
+        if inp is None:
+            return None
+        out = self._sample([inp] * self.batch_size, _bucket_order_width(
+            len(inp['positions']), inp['pad_to']))
+        return _result(inp, out)
+
+    def sample_rows(self, rows: List[Dict], pad_to: int,
+                    batch: Optional[int] = None) -> np.ndarray:
+        """One round over heterogeneous packed rows (each row dict carries
+        its own tokens/region/chain/positions). A short chunk is padded by
+        repeating its last row; the extra outputs are dropped."""
+        n = len(rows)
+        B = batch or self.device_batch
+        if not 0 < n <= B:
+            raise ValueError(f'sample_rows: {n} rows for a batch of {B}')
+        return self._sample(rows + [rows[-1]] * (B - n), pad_to)[:n]
+
+    def humanize_many(self, inputs: List[Optional[Dict]], rows_per_input: int,
+                      pad_to: Optional[int] = None) -> List[Optional[Dict]]:
+        """Every antibody gets ``rows_per_input`` candidate rows; rows from
+        many antibodies share rounds of ``device_batch`` rows."""
+        stream: List[Tuple[int, Dict]] = []
+        for i, inp in enumerate(inputs):
+            if inp is not None:
+                stream.extend([(i, inp)] * rows_per_input)
+        pad_to = pad_to or _packed_pad_to(inputs)
+        grids: Dict[int, List[np.ndarray]] = {}
+        for chunk, out in iter_packed_chunks(self, stream, pad_to):
+            for (i, _), row in zip(chunk, out):
+                grids.setdefault(i, []).append(row)
+        return [None if inp is None or i not in grids
+                else _result(inp, np.stack(grids[i]))
+                for i, inp in enumerate(inputs)]
+
+
+# ---------------------------------------------------------------------------
+# CLI (the ab subcommand of hudiff_tpu/sampling/humanize.py:584-760)
+# ---------------------------------------------------------------------------
+
+def collect_unique(sample_fn, target: int, max_retry: int):
+    """Resample until ``target`` unique candidates or the retry cap; a None
+    round is not terminal. Returns ``(unique, failed)``."""
+    unique: list = []
+    seen: set = set()
+    failed = False
+    for _ in range(max_retry):
+        cands = sample_fn()
+        if cands is None:
+            failed = True
+            continue
+        _dedup_into(seen, unique, cands, target)
+        if len(unique) >= target:
+            break
+    return unique, failed
+
+
+def _dedup_into(seen: set, unique: list, cands, target: int) -> None:
+    for c in cands:
+        if c not in seen and len(unique) < target:
+            seen.add(c)
+            unique.append(c)
+
+
+def _write_csv_header(path: str) -> None:
+    with open(path, 'w', encoding='UTF-8') as f:
+        f.write('Specific,name,hseq,lseq,\n')
+
+
+def run_ab(args) -> str:
+    model, finetuned = load_denoiser(args.ckpt, device=args.device,
+                                     use_bf16=not args.fp32)
+    finetune = (args.ckpt_version == 'finetune') if args.ckpt_version else finetuned
+    log_dir = get_new_log_dir(args.logdir, prefix=f'ab_humanize_{args.seed}')
+    logger = get_logger('humanize', log_dir)
+    save_fpath = os.path.join(log_dir, 'sample_humanization_result.csv')
+    _write_csv_header(save_fpath)
+
+    hum = PairHumanizer(model, batch_size=args.batch_size,
+                        shuffle=(args.sample_order == 'shuffle'),
+                        seed=args.seed, device=args.device,
+                        device_batch=max(args.pack_size, args.batch_size))
+
+    if args.fasta:
+        from ..eval.biophi import pair_from_fasta
+        h_seq, l_seq = pair_from_fasta(args.fasta)
+        pairs = [(os.path.basename(args.fasta), h_seq, l_seq)]
+    elif args.hseq and args.lseq:
+        pairs = [('input', args.hseq, args.lseq)]
+    elif args.data_fpath:
+        pairs = load_mouse_pairs(args.data_fpath)
+    else:
+        raise SystemExit('ab needs --hseq/--lseq, --fasta or --data-fpath')
+
+    if len(pairs) > 1:
+        _packed_pair_loop(hum, pairs, finetune, args, logger, save_fpath)
+    else:
+        for name, h_seq, l_seq in pairs:
+            with open(save_fpath, 'a', encoding='UTF-8') as f:
+                f.write(f'mouse,{name},{h_seq},{l_seq}\n')
+
+            def round_fn():
+                res = hum(h_seq, l_seq, finetune=finetune)
+                if res is None:
+                    return None
+                return ([res['best']] if args.similarity_search
+                        else list(zip(res['h_seqs'], res['l_seqs'])))
+
+            target = 1 if args.similarity_search else args.sample_number
+            unique, failed = collect_unique(round_fn, target, args.max_retry)
+            if failed and not unique:
+                logger.warning('could not align %s; skipped', name)
+                continue
+            with open(save_fpath, 'a', encoding='UTF-8') as f:
+                for g_h, g_l in unique:
+                    f.write(f'humanization,{name}human_sample,{g_h},{g_l}\n')
+            logger.info('humanized %s (%d candidates)', name, len(unique))
+    _ab_epilogue(save_fpath, args, logger)
+    logger.info('results: %s', save_fpath)
+    return save_fpath
+
+
+def _ab_epilogue(save_fpath: str, args, logger) -> None:
+    """A paired FASTA for BioPhi OASis next to the CSV, and per-antibody
+    FASTAs with --structure-fasta."""
+    from ..eval import biophi as BP
+    base = os.path.dirname(save_fpath)
+    BP.sample_csv_to_fasta(save_fpath, os.path.join(base, 'sample_identity.fa'),
+                           version=args.fa_version)
+    if args.structure_fasta:
+        fa_dir = os.path.join(base, 'sample_human_fa')
+        os.makedirs(fa_dir, exist_ok=True)
+        with open(save_fpath, newline='') as f:
+            human = [r for r in csv.DictReader(f) if r['Specific'] == 'humanization']
+        for i, r in enumerate(human):
+            BP.write_pair_fasta([(r['name'], r['hseq'], r['lseq'])],
+                                os.path.join(fa_dir, f'human_{i}.fasta'))
+
+
+def _packed_pair_loop(hum: PairHumanizer, pairs, finetune: bool, args,
+                      logger, save_fpath: str) -> None:
+    """Dataset-scale humanization: candidate rows of every unfinished
+    antibody share rounds (PairHumanizer.humanize_many); per-antibody
+    semantics are those of the single-antibody loop."""
+    n = len(pairs)
+    inputs = [pair_input(h_seq, l_seq, finetune=finetune) for _, h_seq, l_seq in pairs]
+    target = 1 if args.similarity_search else args.sample_number
+    unique: List[list] = [[] for _ in range(n)]
+    seen: List[set] = [set() for _ in range(n)]
+    run_pad_to = _packed_pad_to(inputs)
+    for _ in range(args.max_retry):
+        active = [i for i in range(n)
+                  if inputs[i] is not None and len(unique[i]) < target]
+        if not active:
+            break
+        results = hum.humanize_many([inputs[i] for i in active],
+                                    rows_per_input=args.batch_size,
+                                    pad_to=run_pad_to)
+        for i, res in zip(active, results):
+            if res is None:
+                continue
+            cands = ([res['best']] if args.similarity_search
+                     else list(zip(res['h_seqs'], res['l_seqs'])))
+            _dedup_into(seen[i], unique[i], cands, target)
+    with open(save_fpath, 'a', encoding='UTF-8') as f:
+        for i, (name, h_seq, l_seq) in enumerate(pairs):
+            f.write(f'mouse,{name},{h_seq},{l_seq}\n')
+            if inputs[i] is None:
+                logger.warning('could not align %s; skipped', name)
+                continue
+            for g_h, g_l in unique[i]:
+                f.write(f'humanization,{name}human_sample,{g_h},{g_l}\n')
+            logger.info('humanized %s (%d candidates)', name, len(unique[i]))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    sub = p.add_subparsers(dest='cmd', required=True)
+    q = sub.add_parser('ab')
+    q.add_argument('--ckpt', required=True, help='port checkpoint (.pt)')
+    q.add_argument('--ckpt-version', choices=['pretrain', 'finetune'], default=None)
+    q.add_argument('--data-fpath', default=None)
+    q.add_argument('--batch-size', type=int, default=16)
+    q.add_argument('--sample-number', type=int, default=1)
+    q.add_argument('--max-retry', type=int, default=8,
+                   help='resampling rounds to reach --sample-number unique candidates')
+    q.add_argument('--seed', type=int, default=2023)
+    q.add_argument('--sample-order', default='shuffle', choices=['shuffle', 'sequential'])
+    q.add_argument('--similarity-search', action='store_true', default=True)
+    q.add_argument('--no-similarity-search', dest='similarity_search',
+                   action='store_false')
+    q.add_argument('--logdir', default='./logs')
+    q.add_argument('--fp32', action='store_true')
+    q.add_argument('--pack-size', type=int, default=256,
+                   help='device batch for dataset-mode packed sampling')
+    q.add_argument('--device', default='cuda',
+                   help="torch device; 'cpu' runs the plain versions of the kernels")
+    q.add_argument('--fasta', default=None, help='humanize the chain pair in this FASTA')
+    q.add_argument('--hseq', default=None)
+    q.add_argument('--lseq', default=None)
+    q.add_argument('--fa-version', default='v001',
+                   help='name prefix for the exported BioPhi FASTA')
+    q.add_argument('--structure-fasta', action='store_true',
+                   help='also write per-antibody FASTAs for structure prediction')
+    args = p.parse_args(argv)
+    seed_all(args.seed)
+    return run_ab(args)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,170 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU and nvcc, is marked ``cuda`` and skips
+without a card. The file imports neither JAX nor ``hudiff_tpu``, so on a
+machine with a card and no JAX it runs without the suite's conftest:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+Tolerances: f32 runs the same arithmetic in another summation order
+(errors ~1e-6), held to an absolute limit. bf16 is held elementwise to
+|out - ref| <= 2**-7 |ref| + atol: both sides round the output to bf16 and
+may round it one spacing apart (the 2**-7 |ref| term); atol bounds the
+rest, which comes from P (K1) or the intermediates p, q (K2) rounded to
+bf16 at nearby points. chip_smoke.py holds the main path's shapes to the
+same limits.
+"""
+import numpy as np
+import pytest
+import torch
+
+from hudiff_tpu_torch import constants as C
+from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig
+from hudiff_tpu_torch.ops import fused_attention as FA
+from hudiff_tpu_torch.ops import fused_bytenet as FB
+from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
+from hudiff_tpu_torch.ops.rope import rope_tables
+from hudiff_tpu_torch.sampling import humanize as HZ
+
+pytestmark = pytest.mark.cuda
+
+BF16_RTOL = 2.0 ** -7
+
+
+def excess(out, ref, rtol):
+    """max(|out - ref| - rtol |ref|): 0 where the output is within rtol."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs() - rtol * ref.abs()).max().item()
+
+
+H1 = ('QVQLQQPGAELVKPGASVKLSCKASGYTFTSYWMHWVKQRPGQGLEWIGEINPSNGRTNY'
+      'NEKFKSKATLTVDKSSSTAYMQLSSLTSEDSAVYYCARGGYYFDYWGQGTTLTVSS')
+L1 = ('DIVMTQSQKFMSTSVGDRVSVTCKASQNVGTNVAWYQQKPGQSPKALIYSASYRYSGVPD'
+      'RFTGSGSGTDFTLTISNVQSEDLAEYFCQQYNSYPLTFGAGTKLELK')
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU mode)')
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yield torch.device('cuda')
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('L', [17, 291])
+def test_k1_matches_plain(dev, dtype, rtol, atol, L):
+    gen = torch.Generator().manual_seed(L)
+    qkv = torch.randn(3, L, 8 * 3 * 64, generator=gen).to(dev, dtype)
+    cos, sin = rope_tables(64, L, device=dev)
+    before = FA.launches
+    out = FA.rope_attention_qkv(qkv, cos, sin, 0.125, 8)
+    ref = FA.rope_attention_qkv_reference(qkv, cos, sin, 0.125, 8)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    assert torch.isfinite(out).all()
+    err = excess(out, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+
+
+def _block(d, h, k, dil, act, gen):
+    torch.manual_seed(int(torch.randint(2 ** 31, (1,), generator=gen)))
+    blk = ByteNetBlock(d, h, k, dilation=dil, activation=act)
+    with torch.no_grad():
+        for ln in (blk.ln1, blk.ln2, blk.ln3):
+            ln.weight.add_(0.1 * torch.randn(ln.weight.shape, generator=gen))
+            ln.bias.add_(0.1 * torch.randn(ln.bias.shape, generator=gen))
+    return blk
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 2e-5),
+                                             (torch.bfloat16, BF16_RTOL, 2.5e-2)])
+@pytest.mark.parametrize('d,h,k,act,L,dil', [(768, 384, 7, 'relu', 152, 1),
+                                             (768, 384, 7, 'relu', 139, 32),
+                                             (256, 128, 7, 'gelu', 152, 16),
+                                             (192, 96, 13, 'relu', 139, 2),
+                                             (64, 32, 13, 'gelu', 152, 1)])
+def test_k2_matches_plain(dev, dtype, rtol, atol, d, h, k, act, L, dil):
+    gen = torch.Generator().manual_seed(d + L + dil)
+    blk = _block(d, h, k, dil, act, gen).to(dev)
+    args = [t.detach().to(dtype) if t.dim() >= 2 else t.detach()
+            for t in (blk.ln1.weight, blk.ln1.bias, blk.fc1.weight, blk.fc1.bias,
+                      blk.ln2.weight, blk.ln2.bias, blk.conv.weight, blk.conv.bias,
+                      blk.ln3.weight, blk.ln3.bias, blk.fc2.weight, blk.fc2.bias)]
+    x = torch.randn(3, L, d, generator=gen).to(dev, dtype)
+    before = FB.launches
+    out = FB.bytenet_block(x, *args, dilation=dil, activation_name=act)
+    ref = FB.bytenet_block_reference(x, *args, dilation=dil, activation_name=act)
+    torch.cuda.synchronize()
+    assert FB.launches == before + 6   # three LayerNorm row passes, three GEMMs
+    assert torch.isfinite(out).all()
+    err = excess(out, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+
+
+def test_counters_match_the_kernels_the_profiler_sees(dev):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(0)
+    qkv = torch.randn(2, 33, 8 * 3 * 64, generator=gen).to(dev, torch.bfloat16)
+    cos, sin = rope_tables(64, 33, device=dev)
+    blk = _block(64, 32, 7, 2, 'gelu', gen).to(dev)
+    x = torch.randn(2, 33, 64, generator=gen).to(dev, torch.bfloat16)
+    k1, k2 = FA.launches, FB.launches
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FA.rope_attention_qkv(qkv, cos, sin, 0.125, 8)
+        blk(x)
+        torch.cuda.synchronize()
+    seen = {'K1': 0, 'K2': 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if 'rope_attention_qkv_kernel' in e.key:
+                seen['K1'] += e.count
+            elif 'bytenet_gemm_kernel' in e.key or 'bytenet_ln_act_kernel' in e.key:
+                seen['K2'] += e.count
+    assert seen == {'K1': FA.launches - k1, 'K2': FB.launches - k2} == {'K1': 1, 'K2': 6}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    qkv = torch.randn(1, 5, 8 * 3 * 32, device=dev)
+    cos, sin = rope_tables(32, 5, device=dev)
+    with pytest.raises(ValueError, match='head dim'):
+        FA.rope_attention_qkv(qkv, cos, sin, 0.125, 8)
+    with pytest.raises(NotImplementedError, match='forward-only'):
+        FA.rope_attention_qkv(torch.randn(1, 5, 1536, device=dev, requires_grad=True),
+                              *rope_tables(64, 5, device=dev), 0.125, 8)
+    blk = _block(48, 24, 7, 1, 'relu', torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad(), pytest.raises(ValueError, match='multiples of 32'):
+        blk(torch.randn(1, 10, 48, device=dev))
+
+
+def test_test_size_forward_matches_cpu(dev):
+    """f32 logits of the test-size model (aa_kernel_size 13) on the card
+    against the CPU's plain path; atol 1e-4."""
+    torch.manual_seed(0)
+    model = AntiTFNet(DenoiserConfig().test_size()).eval()
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, C.N_TOKENS, (2, C.PAIR_LEN))).long()
+    region = torch.from_numpy(np.tile(np.concatenate(
+        [C.HEAVY_REGION_INDEX, C.LIGHT_REGION_INDEX]), (2, 1))).long()
+    chain = torch.tensor([[0, 1], [0, 2]])
+    with torch.inference_mode():
+        ref = model(tokens, region, chain)
+        out = model.to(dev)(tokens.to(dev), region.to(dev), chain.to(dev)).cpu()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_humanize_on_card_keeps_cdrs_and_runs_the_kernels(dev):
+    torch.manual_seed(1)
+    hum = HZ.PairHumanizer(AntiTFNet(DenoiserConfig().test_size(), dtype=torch.bfloat16),
+                           batch_size=4, seed=3, device='cuda')
+    inp = HZ.pair_input(H1, L1)
+    k1, k2 = FA.launches, FB.launches
+    res = hum(H1, L1)
+    steps = HZ._bucket_order_width(len(inp['positions']), inp['pad_to'])
+    assert FA.launches - k1 == 2 * steps          # cs_layers = 1: two attentions
+    # two chains x (1 aa + 2 dual) blocks, six kernels each
+    assert FB.launches - k2 == 2 * (1 + 2) * 6 * steps
+    cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0
+    assert (res['grids'] != C.IDX_MSK).all()
+    assert (res['grids'][:, cdr] == inp['clean'][cdr]).all()
