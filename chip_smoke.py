@@ -3,25 +3,36 @@
 
     python3 chip_smoke.py              # from the repository root
 
-Builds every kernel of the path (hudiff_tpu_torch/csrc/*.cu, one nvcc per
-source, in parallel), holds each kernel against its plain PyTorch version
-on the card, runs the full-width HuDiff-Ab model, then humanizes two
-antibodies at full width through ``PairHumanizer.humanize_many``, checks
-that the kernels carried that run, and profiles one forward
-(torch.profiler: device time by kernel group, idle share). One JSON object
-per line; the last line
-is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
-before that line. Without a CUDA device it exits 2 and prints no result.
+Builds every kernel of the two paths (hudiff_tpu_torch/csrc/*.cu, one nvcc
+per source, in parallel) and holds each kernel against its plain PyTorch
+version on the card. Then:
 
-Shapes: K1 at L = 291 (8 heads x 64), K2 at every tower shape of the Ab
-path (256/128 GELU and 768/384 ReLU, L = 152 and 139, dilations 1-32),
-each at the main path's batch (16 rows) and at B = 64. Times are medians
-of CUDA-event windows after a warm-up; inputs stay L2-resident, as they
-are on the main path where each kernel reads what the previous op wrote.
+- humanization (the first slice): the full-width HuDiff-Ab model f32 against
+  the CPU, two antibodies humanized at full width through
+  ``PairHumanizer.humanize_many``, the launch check and a profile of the
+  forward (K1, K2);
+- pretraining (the second slice): the backward kernels K3 and K4 against
+  their plain versions, one full-width f32 train step against the CPU,
+  ``pretrain.run`` at the full width of configs/antibody_train.yml (bf16,
+  B = 128, synthetic data: steps, one validation, a best-val checkpoint
+  that restores to the same logits) with its launch counts, and a profile
+  of one warm step (K1-K4).
+
+One JSON object per line; the last line is ``{"ok": true, "device":
+{...}}``. Any failed check exits non-zero before that line. Without a CUDA
+device it exits 2 and prints no result.
+
+Shapes: K1 and K3 at L = 291 (8 heads x 64); K2 and K4 at every tower shape
+of the Ab path (256/128 GELU and 768/384 ReLU, L = 152 and 139, dilations
+1-32). K1/K2 at the sampler's batch (16 rows) and B = 64, K3/K4 at the
+training batch (128) and B = 16. Times are medians of CUDA-event windows
+after a warm-up; inputs stay L2-resident, as they are on the main path
+where each kernel reads what the previous op wrote.
 """
 import copy
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,18 +52,57 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}  # f32 kernels use FMA, not tensor cores
 MAIN_B = 16          # rows per humanization round on the main path
 BIG_B = 64
+TRAIN_B = 128        # configs/antibody_train.yml's batch
 SEED = 2023
 # Tolerances. f32: |out - ref| <= TOL_F32, the same arithmetic in another
 # summation order. bf16: |out - ref| <= BF16_RTOL |ref| + TOL_BF16, elementwise.
 # BF16_RTOL is one bf16 spacing of the output (both sides round it, and may
 # round it apart); TOL_BF16 bounds the rest (the excess), which comes from P
-# (K1) or p, q (K2) rounded to bf16 at nearby points. Set above the largest
-# excess measured on an H100 at these shapes (K1 1.5e-3, K2 1.52e-2), with
-# room for the card tests' smaller shapes, which use the same limits.
-TOL_F32 = {'K1': 1e-5, 'K2': 2e-5}
+# (K1, K3), p, q (K2) or dq, dp (K4) rounded to bf16 at nearby points. Set
+# above the largest excess measured on an H100 at these shapes (K1 1.5e-3,
+# K2 1.52e-2, K3 1.6e-3, K4 dx 4.1e-3), with room for the card tests'
+# smaller shapes, which use the same limits. K4's parameter gradients are
+# f32 sums over B*L rows, held by max |err| <= K4_GRAD_RTOL max |ref| (the
+# largest readings: f32 4.0e-6, bf16 9.2e-4, where dq and dp round apart).
+TOL_F32 = {'K1': 1e-5, 'K2': 2e-5, 'K3': 1e-5, 'K4': 2e-5}
 BF16_RTOL = 2.0 ** -7
-TOL_BF16 = {'K1': 5e-3, 'K2': 2.5e-2}
+TOL_BF16 = {'K1': 5e-3, 'K2': 2.5e-2, 'K3': 5e-3, 'K4': 1.5e-2}
+K4_GRAD_RTOL = {'float32': 1e-5, 'bfloat16': 2e-3}
 FORWARD_ATOL = 1e-3   # full-width f32 logits, card vs CPU, 24 blocks + 10 attentions
+# Full-width f32 train step, card vs CPU (the same arithmetic through K1-K4
+# and cuBLAS in other summation orders). The gradients of the random-init
+# full-width model are ill-conditioned (ReLU kinks crossed through 24
+# blocks and 10 attentions): the phase scales the token embedding by
+# (1 + 1e-6) and reports how far the card's own gradients move: on an H100
+# as far as card and CPU lie apart (7.06e-3 of the max of the same
+# LayerNorm bias of the light dual tower). So each tensor is held by
+# max |err| / max |ref| <= TRAIN_STEP_RTOL, and the whole gradient by
+# ||err|| / ||ref|| <= TRAIN_STEP_GLOBAL_RTOL; the loss to
+# TRAIN_STEP_LOSS_RTOL. Readings for this batch: 7.06e-3, 3.0e-4 and 0.
+TRAIN_STEP_RTOL = 3e-2
+TRAIN_STEP_GLOBAL_RTOL = 1e-3
+TRAIN_STEP_LOSS_RTOL = 1e-5
+
+# configs/antibody_train.yml as a literal (the card machine may lack
+# PyYAML), with batch_acc lowered from 300 to 2 so that a few iterations
+# validate and save; tests/test_torch_training.py pins the rest to the file.
+PRETRAIN_CONFIG = {
+    'name': 'trans_oadm',
+    'model': {'n_tokens': 23, 'd_embedding': 256, 'd_model': 256, 'n_encoder_layers': 6,
+              'aa_kernel_size': 7, 'r': 128, 'n_side': 3, 's_embedding': 4,
+              's_model': 256, 'n_region': 7, 'r_embedding': 4, 'r_model': 256,
+              'n_pos_model': 256, 'max_len': 291, 'sum_d_model': 768, 'dual_layers': 6,
+              'att_model': 512, 'dim_feedforward': 256, 'nhead': 8, 'cs_layers': 5,
+              'dropout': 0.2, 'activation': 'gelu'},
+    'train': {'seed': 2023, 'max_iter': 1000000, 'batch_acc': 2, 'valid_step': 3,
+              'batch_size': TRAIN_B, 'clip_norm': 10, 'loss_type': 'merge',
+              'l_loss_weight': 3,
+              'optimizer': {'type': 'Adam', 'lr': 1.e-4, 'weight_decay': 1.e-4,
+                            'beta1': 0.95, 'beta2': 0.999},
+              'scheduler': {'type': 'plateau', 'factor': 0.6, 'patience': 10,
+                            'min_lr': 1.e-6, 'multiplier': 10, 'total_epoch': 10}},
+}
+PRETRAIN_ITERS = 3   # iterations of pretrain.run: 6 steps, validation and save at the 3rd
 
 
 def emit(obj):
@@ -192,16 +242,8 @@ def main():
                 for Lc in (C.HEAVY_LEN, C.LIGHT_LEN):
                     for dil in dilation_schedule(n_layers, cfg.r):
                         blk = ByteNetBlock(d, h, K, dilation=dil, activation=act)
-                        with torch.no_grad():
-                            for ln in (blk.ln1, blk.ln2, blk.ln3):
-                                ln.weight.add_(0.1 * torch.randn(ln.weight.shape, generator=gen))
-                                ln.bias.add_(0.1 * torch.randn(ln.bias.shape, generator=gen))
-                        blk = blk.to(dev)
-                        args = [t.detach().to(dtype) if t.dim() >= 2 else t.detach()
-                                for t in (blk.ln1.weight, blk.ln1.bias, blk.fc1.weight,
-                                          blk.fc1.bias, blk.ln2.weight, blk.ln2.bias,
-                                          blk.conv.weight, blk.conv.bias, blk.ln3.weight,
-                                          blk.ln3.bias, blk.fc2.weight, blk.fc2.bias)]
+                        args = [t.to(dev, dtype) if t.dim() >= 2 else t.to(dev)
+                                for t in _block_params(torch, gen, blk)]
                         x = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
                         kw = dict(dilation=dil, activation_name=act)
                         y = FB.bytenet_block(x, *args, **kw)
@@ -266,7 +308,7 @@ def main():
     if any(inp is None for inp in inputs):
         fail('pair_input rejected a test antibody')
     steps = HZ._packed_pad_to(inputs)
-    FA.launches = FB.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = hum.humanize_many(inputs, rows_per_input=MAIN_B // 2)
@@ -302,15 +344,27 @@ def main():
             or seen['K2'] % blocks):
         fail(f'kernel launches {launches} do not match the profiled forwards {seen}')
 
-    # -- phase 6: the kernels line --------------------------------------------
+    # -- phases 6-10: the pretraining slice ------------------------------------
+    results['K3'] = k3_phase(torch, gen, dev)
+    results['K4'] = k4_phase(torch, gen, dev, cfg)
+    train_step_f32(torch, cfg, dev)
+    pre = pretrain_phase(torch, dev)
+    per_step = profile_train(torch, pre['model'], dev)
+
+    # -- the kernels line ------------------------------------------------------
     k1, k1_f32 = results['K1'][(MAIN_B, 'bfloat16')], results['K1'][(MAIN_B, 'float32')]
     k2, k2_f32 = results['K2'][(MAIN_B, 'bfloat16')], results['K2'][(MAIN_B, 'float32')]
+    k3, k3_f32 = results['K3'][(TRAIN_B, 'bfloat16')], results['K3'][(TRAIN_B, 'float32')]
+    k4, k4_f32 = results['K4'][(TRAIN_B, 'bfloat16')], results['K4'][(TRAIN_B, 'float32')]
     n2 = k2['calls']   # tower shapes measured in phase 3: one per block of a forward
+    n4 = k4['calls']
+    trained = pre['launches']
     emit({'kernels': [
         {'name': 'K1 fused RoPE attention (merged head-major qkv)', 'route': 'cuda',
          'source': 'hudiff_tpu_torch/csrc/rope_attention.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:224',
          'launches': launches['K1'], 'launches_per_forward': launches['K1'] / steps,
+         'launches_pretrain': trained['K1'],
          'max_abs_err': k1['max_abs_err'], 'excess_over_rtol': k1['excess_over_rtol'],
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
@@ -320,16 +374,67 @@ def main():
          'source': 'hudiff_tpu_torch/csrc/bytenet_block.cu',
          'replaces': 'hudiff_tpu/ops/pallas_bytenet.py:162',
          'launches': launches['K2'], 'launches_per_forward': launches['K2'] / steps,
+         'launches_pretrain': trained['K2'],
          'max_abs_err': k2['max_abs_err'], 'excess_over_rtol': k2['excess_over_rtol'],
          'max_abs_err_f32': k2_f32['max_abs_err'], 'ms': k2['ms'] / n2,
          'plain_ms': k2['plain_ms'] / n2, 'bound_ms': k2['bound_ms'] / n2,
          'bound_by': k2['bound_by'], 'library_ms': None,
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
-                  'tower blocks of one forward, bf16'}]})
+                  'tower blocks of one forward, bf16'},
+        {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
+         'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
+         'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
+         'launches': trained['K3'], 'launches_per_step': per_step['K3'],
+         'max_abs_err': k3['max_abs_err'], 'excess_over_rtol': k3['excess_over_rtol'],
+         'max_abs_err_f32': k3_f32['max_abs_err'], 'ms': k3['ms'],
+         'plain_ms': k3['plain_ms'], 'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
+         'library_ms': k3['library_ms'],
+         'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call (two kernels)'},
+        {'name': 'K4 ByteNet block backward (row passes, data and weight GEMMs, '
+                 'fixed-order sums)',
+         'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/bytenet_block_bwd.cu',
+         'replaces': 'hudiff_tpu/ops/pallas_bytenet.py:192',
+         'launches': trained['K4'], 'launches_per_step': per_step['K4'],
+         'max_abs_err': k4['max_abs_err'], 'excess_over_rtol': k4['excess_over_rtol'],
+         'max_abs_err_f32': k4_f32['max_abs_err'], 'grad_rel_err': k4['grad_rel_err'],
+         'ms': k4['ms'] / n4, 'plain_ms': k4['plain_ms'] / n4,
+         'bound_ms': k4['bound_ms'] / n4, 'bound_by': k4['bound_by'], 'library_ms': None,
+         'ms_per_step': k4['ms'], 'bound_ms_per_step': k4['bound_ms'],
+         'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
+                  'tower blocks of one step, bf16'}]})
     emit({'phase': 'done', 'total_s': time.perf_counter() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
     return 0
+
+
+# CUDA kernel names by group, matched in this order
+KERNEL_GROUPS = (('K4', ('bytenet_bwd_',)), ('K3', ('rope_attention_bwd_',)),
+                 ('K1', ('rope_attention_qkv_kernel',)),
+                 ('K2', ('bytenet_gemm_kernel', 'bytenet_ln_act_kernel')),
+                 ('cublas', ('gemm', 'cutlass', 'nvjet', 'xmma')))
+
+
+def kernel_groups(torch, prof, n):
+    """From a torch.profiler run over ``n`` repeats: device ms per repeat by
+    group (K1-K4, cuBLAS, other), the number of K1-K4 kernels seen, and
+    every kernel with device time, largest first."""
+    dev_time = lambda e: getattr(e, 'self_device_time_total',  # noqa: E731
+                                 getattr(e, 'self_cuda_time_total', 0))
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0),
+                     key=dev_time, reverse=True)
+    groups = dict.fromkeys(('K1', 'K2', 'K3', 'K4', 'cublas', 'other'), 0.0)
+    seen = dict.fromkeys(('K1', 'K2', 'K3', 'K4'), 0)
+    for e in kernels:
+        key = e.key.lower()
+        g = next((g for g, names in KERNEL_GROUPS if any(s in key for s in names)), 'other')
+        groups[g] += dev_time(e) / n / 1e3
+        if g in seen:
+            seen[g] += e.count
+    top = [{'kernel': e.key[:90], 'calls': e.count, 'ms_per_repeat': dev_time(e) / n / 1e3}
+           for e in kernels]
+    return groups, seen, top
 
 
 def profile(torch, model, hum, inputs):
@@ -341,8 +446,6 @@ def profile(torch, model, hum, inputs):
     import numpy as np
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    from hudiff_tpu_torch.ops import fused_attention as FA
-    from hudiff_tpu_torch.ops import fused_bytenet as FB
     rows = [inputs[i % len(inputs)] for i in range(MAIN_B)]
     args = [torch.as_tensor(np.stack([r[k] for r in rows]), dtype=torch.long,
                             device='cuda') for k in ('tokens', 'region', 'chain')]
@@ -370,41 +473,373 @@ def profile(torch, model, hum, inputs):
         hum.run(*args, order, hum.generator)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / order.shape[1] * 1e3
-        FA.launches = FB.launches = 0
+        reset_counters()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 model(*args)
             torch.cuda.synchronize()
-        counted = {'K1': FA.launches, 'K2': FB.launches}
-    dev_time = lambda e: getattr(e, 'self_device_time_total',  # noqa: E731
-                                 getattr(e, 'self_cuda_time_total', 0))
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0]
-    groups = {'K1': 0.0, 'K2': 0.0, 'cublas': 0.0, 'other': 0.0}
-    seen = {'K1': 0, 'K2': 0}
-    for e in kernels:
-        key = e.key.lower()
-        g = ('K1' if 'rope_attention_qkv_kernel' in key else
-             'K2' if any(s in key for s in ('bytenet_gemm_kernel', 'bytenet_ln_act_kernel')) else
-             'cublas' if any(s in key for s in ('gemm', 'cutlass', 'nvjet', 'xmma')) else
-             'other')
-        groups[g] += dev_time(e) / n / 1e3
-        if g in seen:
-            seen[g] += e.count
+        counted = counters()
+    groups, seen, top = kernel_groups(torch, prof, n)
     busy = sum(groups.values())
-    top = sorted(kernels, key=dev_time, reverse=True)[:12]
     emit({'phase': 'profile', 'B': MAIN_B, 'forwards': n, 'wall_ms_per_forward': wall_ms,
           'wall_ms_per_sampler_step': step_ms, 'host_issue_ms_per_forward': host_ms,
           'device_busy_ms_per_forward': busy,
           'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
-          'kernels_per_forward': sum(e.count for e in kernels) / n,
+          'kernels_per_forward': sum(t['calls'] for t in top) / n,
           'device_ms_per_forward_by_group': groups,
-          'top': [{'kernel': e.key[:90], 'calls_per_forward': e.count / n,
-                   'ms_per_forward': dev_time(e) / n / 1e3} for e in top],
-          'counted_launches': counted, 'profiled_launches': seen})
+          'top': top[:12], 'counted_launches': counted, 'profiled_launches': seen})
     if counted != seen or any(v % n for v in seen.values()):
         fail(f'launch counters {counted} != kernels the profiler saw {seen}')
     return {k: v // n for k, v in seen.items()}
+
+
+def counters():
+    """The four wrappers' launch counters."""
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    return {'K1': FA.launches, 'K2': FB.launches, 'K3': FA.bwd_launches,
+            'K4': FB.bwd_launches}
+
+
+def reset_counters():
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    FA.launches = FB.launches = FA.bwd_launches = FB.bwd_launches = 0
+
+
+def k3_phase(torch, gen, dev):
+    """K3 against its plain version at L = 291, B = 16 and 128, f32 and
+    bf16; times beside the plain version and the backward alone of
+    scaled_dot_product_attention on pre-rotated q/k/v with the same dO."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops.rope import apply_rope, rope_tables
+    heads, hd, L = 8, 64, C.PAIR_LEN
+    cos, sin = rope_tables(hd, L, device=dev)
+    scale = 1.0 / hd ** 0.5
+    out = {}
+    for B in (MAIN_B, TRAIN_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
+            do = torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
+            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
+            ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
+            torch.cuda.synchronize()
+            errs, ok = check_err(torch, 'K3', got, ref)
+            rec = {'phase': 'K3', 'B': B, 'L': L, 'dtype': name, **errs}
+            if not ok:
+                emit(rec)
+                fail(f'K3 disagrees with its plain version ({name}, B={B})')
+            del got, ref
+            q, k, v = FA.split_qkv_heads(qkv, heads)
+            rot = lambda t: apply_rope(t.reshape(B, L, heads, hd), cos, sin)  # noqa: E731
+            qr, kr = (rot(t).transpose(1, 2).contiguous().requires_grad_() for t in (q, k))
+            vr = v.reshape(B, L, heads, hd).transpose(1, 2).contiguous().requires_grad_()
+            o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+            dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+            rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
+                o, (qr, kr, vr), dO, retain_graph=True))
+            del o, qr, kr, vr, dO, q, k, v
+            rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
+                qkv, cos, sin, do, scale, heads))
+            rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
+                qkv, cos, sin, do, scale, heads), reps=2, windows=3)
+            # read qkv and dO once, write dqkv once; five 2 L^2 D products
+            nbytes = (2 * qkv.numel() + do.numel()) * qkv.element_size() + 2 * cos.numel() * 4
+            flops = 5 * 2.0 * B * heads * L * L * hd
+            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+            emit(rec)
+            out[(B, name)] = rec
+            del qkv, do
+            torch.cuda.empty_cache()
+    return out
+
+
+def _block_params(torch, gen, blk):
+    with torch.no_grad():
+        for ln in (blk.ln1, blk.ln2, blk.ln3):
+            ln.weight.add_(0.1 * torch.randn(ln.weight.shape, generator=gen))
+            ln.bias.add_(0.1 * torch.randn(ln.bias.shape, generator=gen))
+    return [t.detach() for t in (blk.ln1.weight, blk.ln1.bias, blk.fc1.weight, blk.fc1.bias,
+                                 blk.ln2.weight, blk.ln2.bias, blk.conv.weight,
+                                 blk.conv.bias, blk.ln3.weight, blk.ln3.bias,
+                                 blk.fc2.weight, blk.fc2.bias)]
+
+
+def k4_phase(torch, gen, dev, cfg):
+    """K4 against its plain version at every Ab tower shape (the 24 blocks
+    of a step), B = 16 and 128, f32 and bf16: dx elementwise, each
+    parameter gradient by max |err| / max |ref|; per-call times summed
+    over the 24 blocks. The parameters are f32, as training holds them."""
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
+    towers = [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
+              (cfg.sum_d_model, 'relu', cfg.dual_layers)]
+    K = cfg.aa_kernel_size
+    out = {}
+    for B in (MAIN_B, TRAIN_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0, 'max_abs_err': 0.0,
+                   'excess_over_rtol': 0.0, 'grad_rel_err': 0.0, 'bytes_ms': 0.0,
+                   'ops_ms': 0.0}
+            for d, act, n_layers in towers:
+                h = d // 2
+                for Lc in (C.HEAVY_LEN, C.LIGHT_LEN):
+                    for dil in dilation_schedule(n_layers, cfg.r):
+                        torch.manual_seed(SEED + d + Lc + dil)
+                        blk = ByteNetBlock(d, h, K, dilation=dil, activation=act)
+                        params = [t.to(dev) for t in _block_params(torch, gen, blk)]
+                        x = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
+                        dy = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
+                        kw = dict(dilation=dil, activation_name=act)
+                        _, p, q = FB._forward(x, params, dil, act, keep=True)
+                        got = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
+                        ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+                        torch.cuda.synchronize()
+                        errs, ok = check_err(torch, 'K4', got[0], ref[0])
+                        rel = max(((a - b).abs().max() / b.abs().max()).item()
+                                  for a, b in zip(got[1:], ref[1:]))
+                        ok = ok and rel <= K4_GRAD_RTOL[name] and all(
+                            bool(torch.isfinite(g).all().item()) for g in got)
+                        rec = {'phase': 'K4', 'B': B, 'L': Lc, 'D': d, 'H': h, 'act': act,
+                               'dil': dil, 'dtype': name, **errs, 'grad_rel_err': rel,
+                               'grad_rtol': K4_GRAD_RTOL[name]}
+                        if not ok:
+                            emit(rec)
+                            fail(f'K4 disagrees with its plain version: {rec}')
+                        del got, ref
+                        s = dtype.itemsize
+                        # read x, p, q, dy and the f32 parameters; write dx and
+                        # the f32 gradients. Twice the forward's products.
+                        nbytes = (s * B * Lc * (3 * d + 2 * h)
+                                  + 2 * 4 * (2 * d * h + K * h * h + 5 * h + 4 * d))
+                        taps = sum(max(0, Lc - abs(t - (K - 1) // 2) * dil) for t in range(K))
+                        flops = 2 * 2.0 * B * (Lc * 2 * d * h + taps * h * h)
+                        rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+                        t_bytes, t_ops = bound_parts(nbytes, flops, name)
+                        tot['bytes_ms'] += t_bytes
+                        tot['ops_ms'] += t_ops
+                        rec['ms'] = time_ms(torch, lambda: FB.bytenet_block_backward(
+                            x, p, q, *params, dy, **kw), reps=5, windows=3)
+                        rec['plain_ms'] = time_ms(
+                            torch, lambda: FB.bytenet_block_backward_reference(
+                                x, p, q, *params, dy, **kw), reps=1, windows=3)
+                        emit(rec)
+                        for key in ('ms', 'plain_ms', 'bound_ms'):
+                            tot[key] += rec[key]
+                        tot['calls'] += 1
+                        for key in ('max_abs_err', 'excess_over_rtol', 'grad_rel_err'):
+                            tot[key] = max(tot[key], rec.get(key, 0.0))
+                        del x, dy, p, q
+            tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+            emit({'phase': 'K4_step_total', 'B': B, 'dtype': name, **tot})
+            out[(B, name)] = tot
+            torch.cuda.empty_cache()
+    return out
+
+
+def _pair_batch(torch, B, seed):
+    """(tokens, chain_type, fixed Corrupted) for a pair train step: about
+    half of each row's framework masked, the mean of OA-ARDM's draws."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import masking as M
+    rs = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rs.randint(0, C.N_AA, (B, C.PAIR_LEN)))
+    cdr = torch.from_numpy(np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0)
+    mask = torch.from_numpy(rs.rand(B, C.PAIR_LEN) < 0.5) & ~cdr
+    chain = torch.from_numpy(np.stack([np.zeros(B), rs.randint(1, 3, B)], 1)).long()
+    return tokens, chain, M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
+
+
+def train_step_f32(torch, cfg, dev):
+    """One full-width f32 train step (B = 2, dropout off, a fixed mask, TF32
+    off) on the card against the CPU: the loss and every parameter's
+    gradient, with the launches the card's step made. Beside it, how far
+    the card's own gradients move when the token embedding is scaled by
+    (1 + 1e-6): the model's conditioning, which the limits must allow for."""
+    from hudiff_tpu_torch.models.denoiser import AntiTFNet
+    from hudiff_tpu_torch.ops import masking as M
+    from hudiff_tpu_torch.training import train_step as T
+    torch.manual_seed(SEED)
+    cpu_model = AntiTFNet(cfg).eval()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    tokens, chain, cor = _pair_batch(torch, 2, SEED)
+
+    def step(model, d):
+        """(loss, {name: gradient on the CPU}, launches) of one step on d."""
+        kept = {}
+
+        class KeepGrads(torch.optim.Optimizer):
+            def step(self, closure=None):
+                kept.update((n, p.grad.detach().cpu().clone())
+                            for n, p in model.named_parameters())
+
+        state = T.TrainState(model, KeepGrads(model.parameters(), {}))
+        reset_counters()
+        m = T.make_pair_train_step(model)(state, tokens.to(d), chain.to(d), SEED,
+                                          M.Corrupted(*(t.to(d) for t in cor)))
+        return m['loss'].item(), kept, counters()
+
+    def rel_errs(got, ref):
+        return {n: ((got[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)).item()
+                for n in ref}
+
+    loss_c, g_c, _ = step(cpu_model, torch.device('cpu'))
+    loss_g, g_g, launched = step(gpu_model, dev)
+    with torch.no_grad():
+        gpu_model.aa_embed.weight.mul_(1 + 1e-6)
+    moved = rel_errs(step(gpu_model, dev)[1], g_g)
+    most_moved = max(moved, key=moved.get)
+    rel = rel_errs(g_g, g_c)
+    order = sorted(rel, key=rel.get, reverse=True)
+    worst = order[0]
+    glob = (sum(((g_g[n] - g_c[n]) ** 2).sum().item() for n in g_c)
+            / sum((g_c[n] ** 2).sum().item() for n in g_c)) ** 0.5
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    expected = {'K1': 2 * cfg.cs_layers, 'K3': 4 * cfg.cs_layers,
+                'K2': 6 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
+                'K4': 11 * 2 * (cfg.n_encoder_layers + cfg.dual_layers)}
+    emit({'phase': 'train_step_f32', 'B': 2, 'loss_cpu': loss_c, 'loss_card': loss_g,
+          'loss_rel_err': loss_rel, 'max_grad_rel_err': rel[worst], 'worst_param': worst,
+          'worst_five': {n: rel[n] for n in order[:5]}, 'global_grad_rel_err': glob,
+          'embed_scaled_1e-6_max_grad_rel_change': moved[most_moved],
+          'embed_scaled_1e-6_most_moved': most_moved,
+          'params': len(rel), 'tol': TRAIN_STEP_RTOL, 'global_tol': TRAIN_STEP_GLOBAL_RTOL,
+          'loss_tol': TRAIN_STEP_LOSS_RTOL, 'launches': launched,
+          'expected_launches': expected})
+    if not (sorted(g_c) == sorted(g_g) and loss_rel <= TRAIN_STEP_LOSS_RTOL
+            and rel[worst] <= TRAIN_STEP_RTOL and glob <= TRAIN_STEP_GLOBAL_RTOL
+            and launched == expected):
+        fail('full-width f32 train step on the card disagrees with the CPU')
+
+
+def pretrain_phase(torch, dev):
+    """``pretrain.run`` at the full width of configs/antibody_train.yml (bf16,
+    B = 128, synthetic data, batch_acc 2): the launch counts, finite losses,
+    changed parameters, a best-val checkpoint that restores to the same
+    logits, steps/s after a warm iteration and the peak memory."""
+    import numpy as np
+    from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    from hudiff_tpu_torch.training import pretrain as PT
+    from hudiff_tpu_torch.training import train_step as T
+    from hudiff_tpu_torch.utils.config import Namespace
+    cfg = Namespace.wrap(copy.deepcopy(PRETRAIN_CONFIG))
+    mcfg = DenoiserConfig.from_dict(cfg.model)
+    acc, B = cfg.train.batch_acc, cfg.train.batch_size
+    torch.manual_seed(SEED)
+    model = AntiTFNet(mcfg, dtype=torch.bfloat16, device=dev)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
+    shutil.rmtree(root, ignore_errors=True)
+    synthetic = 2 * B   # two validation batches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    log_dir = PT.run(cfg, synthetic=synthetic, max_iter=PRETRAIN_ITERS, logdir=root, seed=SEED,
+                     device='cuda', model=model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counters()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(log_dir, 'metrics.jsonl')) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if 'train/loss' in r]
+    val = [r for r in rows if 'val/loss' in r]
+    steps, val_forwards = PRETRAIN_ITERS * acc, max(1, min(4, synthetic // B))
+    blocks = 2 * (mcfg.n_encoder_layers + mcfg.dual_layers)
+    expected = {'K1': (steps + val_forwards) * 2 * mcfg.cs_layers,
+                'K2': (steps + val_forwards) * blocks * 6,
+                'K3': steps * 2 * mcfg.cs_layers * 2, 'K4': steps * blocks * 11}
+    # host time at the end of iteration i is i * acc / steps_per_sec(i);
+    # iteration 2 is warm and runs no validation
+    ends = [r['step'] * acc / r['train/steps_per_sec'] for r in train]
+    warm_sps = acc / (ends[1] - ends[0]) if len(ends) >= 2 else 'not measured'
+    changed = sum(not torch.equal(before[k], v.detach()) for k, v in model.named_parameters())
+    ckpt_dir = os.path.join(log_dir, 'checkpoints')
+    latest = CKPT.latest_step(ckpt_dir)
+    tokens, chain, _ = _pair_batch(torch, 2, SEED + 3)
+    region = torch.from_numpy(T.pair_region_batch(2))
+    args = [t.to(dev) for t in (tokens, region, chain)]
+    restored = AntiTFNet(mcfg, dtype=torch.bfloat16, device=dev)
+    restored.load_state_dict(CKPT.restore(ckpt_dir)['payload']['model'])
+    loaded, _ = CKPT.load(os.path.join(ckpt_dir, f'step_{latest}.pt'), dtype=torch.bfloat16)
+    with torch.inference_mode():
+        ref = model.eval()(*args)
+        diffs = [(m.eval()(*args) - ref).abs().max().item() for m in (restored, loaded)]
+    rec = {'phase': 'pretrain', 'B': B, 'batch_acc': acc, 'iterations': len(train),
+           'steps': steps, 'wall_s': wall,
+           'train_loss': [r['train/loss'] for r in train],
+           'opt_steps': [int(r['train/opt_steps']) for r in train],
+           'val_loss': [r['val/loss'] for r in val], 'saved_step': latest,
+           'steps_per_sec': train[-1]['train/steps_per_sec'] if train else 'not measured',
+           'steps_per_sec_warm': warm_sps, 'ms_per_step_warm': (
+               1e3 / warm_sps if isinstance(warm_sps, float) else 'not measured'),
+           'max_memory_allocated_gb': peak / 1e9,
+           'params_changed': changed, 'params': len(before),
+           'restore_max_abs_logit_diff': diffs, 'launches': launched,
+           'expected_launches': expected, 'launches_per_step': {
+               k: v / steps for k, v in launched.items()}}
+    emit(rec)
+    shutil.rmtree(root, ignore_errors=True)
+    ok = (rec['opt_steps'] == [acc * (i + 1) for i in range(PRETRAIN_ITERS)]
+          and all(np.isfinite(rec['train_loss'])) and len(val) == 1
+          and np.isfinite(rec['val_loss']).all() and latest == PRETRAIN_ITERS
+          and changed == len(before) and max(diffs) == 0.0 and launched == expected)
+    if not ok:
+        fail('full-width pretraining failed its checks')
+    return {'model': model, 'launches': launched}
+
+
+def profile_train(torch, model, dev):
+    """Device time by kernel group over one warm bf16 train step at B = 128
+    (torch.profiler), beside the host-clock time of warm steps; checks that
+    the launch counters rose by the K1-K4 kernels the profiler saw, and
+    returns those numbers per step."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from hudiff_tpu_torch.training import pretrain as PT
+    from hudiff_tpu_torch.training import schedules
+    from hudiff_tpu_torch.training import train_step as T
+    from hudiff_tpu_torch.utils.config import Namespace
+    cfg = Namespace.wrap(copy.deepcopy(PRETRAIN_CONFIG))
+    batch = next(PT.synthetic_batches('pair', TRAIN_B, SEED))
+    tokens, chain = (torch.as_tensor(batch[k], dtype=torch.long, device=dev)
+                     for k in ('tokens', 'chain_type'))
+    opt = schedules.make_optimizer(cfg.train.optimizer, model.parameters())
+    state = T.TrainState(model, opt, clip_norm=cfg.train.clip_norm)
+    step = T.make_pair_train_step(model, l_weight=cfg.train.l_loss_weight)
+    model.train()
+    step(state, tokens, chain, SEED)
+    torch.cuda.synchronize()
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, tokens, chain, SEED)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    reset_counters()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, tokens, chain, SEED)
+        torch.cuda.synchronize()
+    counted = counters()
+    groups, seen, top = kernel_groups(torch, prof, 1)
+    busy = sum(groups.values())
+    emit({'phase': 'profile_train', 'B': TRAIN_B, 'wall_ms_per_step': wall_ms,
+          'steps_per_sec': 1e3 / wall_ms, 'device_busy_ms_per_step': busy,
+          'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
+          'kernels_per_step': sum(t['calls'] for t in top),
+          'device_ms_per_step_by_group': groups,
+          'top': top[:15], 'counted_launches': counted, 'profiled_launches': seen})
+    if counted != seen or not all(seen.values()):
+        fail(f'launch counters {counted} != kernels the profiler saw {seen}')
+    return seen
 
 
 if __name__ == '__main__':

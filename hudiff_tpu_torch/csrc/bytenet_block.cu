@@ -333,15 +333,16 @@ template <typename T>
 int launch(const void* x, const float* g1, const float* b1, const void* w1,
            const float* c1, const float* g2, const float* b2, const void* wc,
            const float* cc, const float* g3, const float* b3, const void* w2,
-           const float* c2, void* sa, void* s1, void* s2, void* y, int B, int L, int D,
-           int H, int K, int dil, int gelu, cudaStream_t stream, int* launched) {
+           const float* c2, void* sa, void* sp, void* sq, void* s2, void* y, int B, int L,
+           int D, int H, int K, int dil, int gelu, cudaStream_t stream, int* launched) {
   const int M = B * L;
   const T* xt = static_cast<const T*>(x);
   T* at = static_cast<T*>(sa);   // act(LN1 x)
-  T* p_q = static_cast<T*>(s1);  // p, then q
+  T* pt = static_cast<T*>(sp);   // p
+  T* qt = static_cast<T*>(sq);   // q (may be p's buffer)
   T* b_e = static_cast<T*>(s2);  // act(LN2 p), then act(LN3 q)
-  GemmArgs<T> a1{at, static_cast<const T*>(w1), c1, nullptr, p_q, M, D, H, 0, 0, 0, 0};
-  GemmArgs<T> a2{b_e, static_cast<const T*>(wc), cc, nullptr, p_q, M, K * H, H, L, H, K, dil};
+  GemmArgs<T> a1{at, static_cast<const T*>(w1), c1, nullptr, pt, M, D, H, 0, 0, 0, 0};
+  GemmArgs<T> a2{b_e, static_cast<const T*>(wc), cc, nullptr, qt, M, K * H, H, L, H, K, dil};
   GemmArgs<T> a3{b_e, static_cast<const T*>(w2), c2, xt, static_cast<T*>(y), M, H, D,
                  0, 0, 0, 0};
   cudaError_t err;
@@ -350,11 +351,11 @@ int launch(const void* x, const float* g1, const float* b1, const void* w1,
   ++*launched;
   if ((err = gemm<T, A_ROWS>(a1, stream)) != cudaSuccess) return (int)err;
   ++*launched;
-  if ((err = ln_act_rows<T>(p_q, g2, b2, b_e, M, H, gelu, stream)) != cudaSuccess) return (int)err;
+  if ((err = ln_act_rows<T>(pt, g2, b2, b_e, M, H, gelu, stream)) != cudaSuccess) return (int)err;
   ++*launched;
   if ((err = gemm<T, A_CONV>(a2, stream)) != cudaSuccess) return (int)err;
   ++*launched;
-  if ((err = ln_act_rows<T>(p_q, g3, b3, b_e, M, H, gelu, stream)) != cudaSuccess) return (int)err;
+  if ((err = ln_act_rows<T>(qt, g3, b3, b_e, M, H, gelu, stream)) != cudaSuccess) return (int)err;
   ++*launched;
   if ((err = gemm<T, A_ROWS>(a3, stream)) != cudaSuccess) return (int)err;
   ++*launched;
@@ -364,30 +365,31 @@ int launch(const void* x, const float* g1, const float* b1, const void* w1,
 }  // namespace
 
 // x, y [B, L, D]; w1 [H, D]; wc [H, K, H] ([out][tap][in]); w2 [D, H] (all in
-// the activation type); g*/b*/c* f32; sa [B, L, D] and s1, s2 [B, L, H]
-// scratch. D and H multiples of 32, K odd. dtype 0 = float32, 1 = bfloat16;
+// the activation type); g*/b*/c* f32; p, q [B, L, H] out (p == q allowed:
+// q then overwrites p); sa [B, L, D] and s2 [B, L, H] scratch. D and H
+// multiples of 32, K odd. dtype 0 = float32, 1 = bfloat16;
 // act 0 = ReLU, 1 = GELU. Sets *launched to the number of kernels launched
 // (6 on success) and returns a cudaError_t code (0 = all launched).
 extern "C" int hd_bytenet_block_fwd(const void* x, const void* g1, const void* b1,
                                     const void* w1, const void* c1, const void* g2,
                                     const void* b2, const void* wc, const void* cc,
                                     const void* g3, const void* b3, const void* w2,
-                                    const void* c2, void* sa, void* s1, void* s2, void* y,
-                                    int B, int L, int D, int H, int K, int dil, int act,
+                                    const void* c2, void* sa, void* p, void* q, void* s2,
+                                    void* y, int B, int L, int D, int H, int K, int dil, int act,
                                     int dtype, void* stream, int* launched) {
   *launched = 0;
   if (B <= 0 || L <= 0 || D <= 0 || H <= 0 || D % 32 || H % 32 || K <= 0 || K % 2 == 0 ||
       dil <= 0 || (act != 0 && act != 1))
     return (int)cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto f = [](const void* v) { return static_cast<const float*>(v); };
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, f(g1), f(b1), w1, f(c1), f(g2), f(b2), wc, f(cc), f(g3),
-                         f(b3), w2, f(c2), sa, s1, s2, y, B, L, D, H, K, dil, act, s,
+                         f(b3), w2, f(c2), sa, p, q, s2, y, B, L, D, H, K, dil, act, s,
                          launched);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, f(g1), f(b1), w1, f(c1), f(g2), f(b2), wc, f(cc),
-                                 f(g3), f(b3), w2, f(c2), sa, s1, s2, y, B, L, D, H, K, dil,
+                                 f(g3), f(b3), w2, f(c2), sa, p, q, s2, y, B, L, D, H, K, dil,
                                  act, s, launched);
   return (int)cudaErrorInvalidValue;
 }

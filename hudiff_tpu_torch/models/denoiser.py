@@ -5,9 +5,21 @@ run through the port's kernels, routed by the tensors' device alone:
 RoPE attention (ops/fused_attention.py, K1) and the ByteNet blocks of all
 four towers (ops/fused_bytenet.py, K2). Everything else is plain torch.
 
-``dtype`` is the compute type (bf16 on the card for sampling). Parameters
-are created in f32; the sampler casts every >=2-D f32 parameter to bf16
-once. Dropout is active only in training mode.
+``dtype`` is the compute type (bf16 on the card for sampling and
+training). Parameters are created in f32; the sampler casts every >=2-D f32
+parameter to bf16 once, while training keeps them f32 and casts per call,
+so gradients reach the f32 parameters through the casts.
+
+Training (``model.train()`` with autograd on): dropout is active where the
+JAX package puts it, after each ByteNet block (p = ``cfg.dropout``) and in
+the positional ``GatedMLP`` (p = 0.5), nowhere in ``SelfAttNet``. The
+kernels' backwards are K3 (attention) and K4 (ByteNet block), through the
+autograd Functions of ops/fused_attention.py and ops/fused_bytenet.py. On
+the card all 24 tower blocks go through K2/K4, the 768/384 dual towers too:
+the JAX package's ``conv_pallas_policy`` (hudiff_tpu/models/denoiser.py:
+202-214) sends those to XLA in training only because of a TPU v5e
+measurement, which says nothing about this card, so the port has no such
+route.
 """
 from __future__ import annotations
 

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional, Tuple
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR.parent / 'build' / 'hudiff_tpu_torch'
-SOURCES = ('rope_attention', 'bytenet_block')
+SOURCES = ('rope_attention', 'rope_attention_bwd', 'bytenet_block', 'bytenet_block_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
@@ -79,18 +79,20 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return took
 
 
-def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+def load(name: str, signatures: Dict[str, list],
+         restypes: Optional[Dict[str, type]] = None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.
 
-    ``signatures`` maps each C entry to its ctypes argtypes; every entry
-    returns an int (a ``cudaError_t`` code)."""
+    ``signatures`` maps each C entry to its ctypes argtypes; an entry
+    returns an int (a ``cudaError_t`` code) unless ``restypes`` names its
+    return type."""
     lib = _LOADED.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
         _LOADED[name] = lib
     return lib
 

@@ -34,3 +34,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[:, None, :]
     s = sin[:, None, :]
     return torch.cat([a * c - b * s, a * s + b * c], dim=-1).to(x.dtype)
+
+
+def apply_rope_inverse(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The transposed rotation (hudiff_tpu/ops/pallas_attention.py:64-69,
+    ``_rot_inv``), which carries a gradient back through ``apply_rope``:
+    ``(a, b) -> (a cos + b sin, b cos - a sin)``, in f32; returns f32."""
+    xf = x.float()
+    d2 = x.shape[-1] // 2
+    a, b = xf[..., :d2], xf[..., d2:]
+    c = cos[:, None, :]
+    s = sin[:, None, :]
+    return torch.cat([a * c + b * s, b * c - a * s], dim=-1)

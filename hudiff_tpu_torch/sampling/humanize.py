@@ -27,18 +27,10 @@ from ..numbering import imgt as IMGT
 from ..tokenizer import Tokenizer
 from ..training import checkpoints as CKPT
 from ..training.logger import get_logger, get_new_log_dir, seed_all
+from ..utils.device import resolve_device
 from . import sampler as S
 
 _TOK = Tokenizer()
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; raises when CUDA is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda.is_available() "
-                           "is False; pass device='cpu' to run on the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------

@@ -10,16 +10,31 @@ order) keeps its column order.
 ``save``/``load`` handle the port's checkpoint: a ``torch.save`` of
 ``{'config': {'model': <DenoiserConfig fields>, 'finetuned': bool},
 'model': state_dict}``.
+
+``save_training``/``restore``/``latest_step`` handle pretraining's
+best-val checkpoints, with the JAX package's layout
+(hudiff_tpu/training/checkpoints.py:18-85) in ``torch.save`` form instead
+of Orbax: ``<dir>/step_<it>.pt`` holds the same ``config`` and ``model``
+entries plus ``'optimizer'`` (the optimizer's ``state_dict``), so ``load``
+reads its model part too; beside it ``step_<it>.json`` holds ``step``,
+``config``, ``val_loss``, ``opt_steps`` and ``scheduler``, and ``LATEST``
+names the newest step.
+
+``from_flax_params`` and ``load`` run on ``cuda`` unless the caller passes
+``device='cpu'``; without a card they raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+import json
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.denoiser import AntiTFNet, DenoiserConfig
+from ..utils.device import resolve_device
 
 _BLOCK = (('LayerNorm_0', 'ln1'), ('Dense_0', 'fc1'), ('LayerNorm_1', 'ln2'),
           ('LayerNorm_2', 'ln3'), ('Dense_1', 'fc2'))
@@ -83,27 +98,85 @@ def flax_to_state_dict(tree: Mapping[str, Any], cfg: DenoiserConfig) -> Dict[str
 
 def from_flax_params(tree: Mapping[str, Any], cfg: DenoiserConfig,
                      dtype: torch.dtype = torch.float32,
-                     device='cpu') -> AntiTFNet:
+                     device='cuda') -> AntiTFNet:
     """A loaded ``AntiTFNet`` (eval mode) computing in ``dtype`` on ``device``."""
+    device = resolve_device(device)
     model = AntiTFNet(cfg, dtype=dtype, device='cpu')
     model.load_state_dict(flax_to_state_dict(tree, cfg), strict=True)
     return model.to(device).eval()
 
 
+def _host_state(module) -> Dict[str, Any]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
 def save(path: str, model: AntiTFNet, cfg: DenoiserConfig,
          finetuned: bool = False) -> str:
     torch.save({'config': {'model': dataclasses.asdict(cfg), 'finetuned': finetuned},
-                'model': {k: v.detach().cpu() for k, v in model.state_dict().items()}},
-               path)
+                'model': _host_state(model)}, path)
     return path
 
 
 def load(path: str, dtype: torch.dtype = torch.float32,
-         device='cpu') -> Tuple[AntiTFNet, dict]:
-    """(model in eval mode on ``device``, the checkpoint's config dict)."""
+         device='cuda') -> Tuple[AntiTFNet, dict]:
+    """(model in eval mode on ``device``, the checkpoint's config dict), from
+    a ``save`` or a ``save_training`` file."""
+    device = resolve_device(device)
     payload = torch.load(path, map_location='cpu', weights_only=True)
     cfg = DenoiserConfig.from_dict(payload['config']['model'])
     model = AntiTFNet(cfg, dtype=dtype, device='cpu')
     model.load_state_dict({k: v.float() for k, v in payload['model'].items()},
                           strict=True)
     return model.to(device).eval(), payload['config']
+
+
+def save_training(ckpt_dir: str, step: int, model: AntiTFNet,
+                  optimizer: torch.optim.Optimizer, config: Optional[dict] = None,
+                  extra: Optional[dict] = None) -> str:
+    """Write ``step_<step>.pt`` (model and optimizer state), its
+    ``step_<step>.json`` metadata and the ``LATEST`` marker; returns the
+    ``.pt`` path. ``config`` is plain data: ``{'model': ..., 'train': ...,
+    'kind': ...}``."""
+    config = dict(config or {})
+    path = os.path.abspath(os.path.join(ckpt_dir, f'step_{step}.pt'))
+    torch.save({'config': {'model': dict(config.get('model', {})), 'finetuned': False},
+                'model': _host_state(model),
+                'optimizer': optimizer.state_dict()}, path)
+    meta = {'step': step, 'config': config, **(extra or {})}
+    with open(os.path.join(ckpt_dir, f'step_{step}.json'), 'w') as f:
+        json.dump(meta, f, indent=2, default=float)
+    with open(os.path.join(ckpt_dir, 'LATEST'), 'w') as f:
+        f.write(str(step))
+    return path
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The step named by ``LATEST``, else the largest ``step_<n>.pt``."""
+    marker = os.path.join(ckpt_dir, 'LATEST')
+    if os.path.exists(marker):
+        with open(marker) as f:
+            return int(f.read().strip())
+    steps = []
+    if os.path.isdir(ckpt_dir):
+        for name in os.listdir(ckpt_dir):
+            stem, ext = os.path.splitext(name)
+            if stem.startswith('step_') and ext == '.pt' and stem[5:].isdigit():
+                steps.append(int(stem[5:]))
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """``{'payload': {'config', 'model', 'optimizer'}, 'meta': ..., 'step':
+    ...}`` of ``step`` (default: the latest), tensors on the CPU."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f'no checkpoints under {ckpt_dir}')
+    payload = torch.load(os.path.join(ckpt_dir, f'step_{step}.pt'), map_location='cpu',
+                         weights_only=True)
+    meta_path = os.path.join(ckpt_dir, f'step_{step}.json')
+    meta = {'step': step}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return {'payload': payload, 'meta': meta, 'step': step}

@@ -1,12 +1,20 @@
-# Copied from hudiff_tpu/training/logger.py (run dirs, logging, seeding).
-"""Run directories, file+stream logging and global seeding."""
+# Copied from hudiff_tpu/training/logger.py.
+"""Run directories, file+stream logging, global seeding, the source
+snapshot, per-iteration JSONL metrics and the parameter count.
+
+``MetricsWriter`` writes the JSONL rows the JAX package's writes
+(``{"step": it, "<prefix>/<name>": value, ...}``); the JSONL file is the
+record, and there is no TensorBoard mirror.
+"""
 from __future__ import annotations
 
+import json
 import logging
 import os
 import random
+import shutil
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -42,3 +50,33 @@ def get_logger(name: str, log_dir: Optional[str] = None,
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+def snapshot_source(log_dir: str) -> None:
+    """Copy the port's source into the run dir."""
+    src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(log_dir, 'src_snapshot', 'hudiff_tpu_torch')
+    if not os.path.exists(dst):
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns('__pycache__'))
+
+
+class MetricsWriter:
+    """JSONL scalar writer: one row per ``write``."""
+
+    def __init__(self, log_dir: str, filename: str = 'metrics.jsonl'):
+        self.path = os.path.join(log_dir, filename)
+        self._f = open(self.path, 'a')
+
+    def write(self, step: int, scalars: Dict[str, float], prefix: str = '') -> None:
+        row = {'step': int(step)}
+        for k, v in scalars.items():
+            row[f'{prefix}/{k}' if prefix else k] = float(v)
+        self._f.write(json.dumps(row) + '\n')
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def count_parameters(model) -> int:
+    return sum(p.numel() for p in model.parameters())

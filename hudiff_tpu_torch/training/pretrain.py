@@ -1,0 +1,239 @@
+"""Pretraining CLI for HuDiff-Ab (paired), in PyTorch.
+
+Counterpart of hudiff_tpu/training/pretrain.py. The step (OA-ARDM
+corruption, forward, loss, backward, update) runs on the card through the
+port's kernels (training/train_step.py); the host keeps the plateau LR
+scheduler, full-split validation, best-val checkpoints and JSONL metrics,
+with the JAX CLI's iteration semantics: one iteration is ``batch_acc``
+optimizer steps, ``max_iter`` and ``valid_step`` count iterations, logged
+train metrics are window means, and a resume continues at
+``opt_steps // batch_acc`` with the scheduler's state.
+
+Usage:
+  # synthetic smoke run (no data needed), on the CPU:
+  python -m hudiff_tpu_torch.training.pretrain --config configs/antibody_test.yml \\
+      --synthetic 64 --max-iter 3 --device cpu
+  # full width on the card (the default device):
+  python -m hudiff_tpu_torch.training.pretrain --config configs/antibody_train.yml \\
+      --synthetic 1024 --max-iter 10
+
+Not ported yet, and refused with a message naming the ROADMAP.md item:
+``--data`` (the OAS loader), ``--kind heavy`` (NanoAntiTFNet), ``--tp`` and
+``--multihost`` (parallelism).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..data import pipeline
+from ..models.denoiser import AntiTFNet, DenoiserConfig
+from ..utils.config import Namespace, load_yaml
+from ..utils.device import resolve_device
+from . import checkpoints, schedules, train_step as T
+from .logger import (MetricsWriter, count_parameters, get_logger, get_new_log_dir,
+                     seed_all, snapshot_source)
+
+WAITS = {
+    'data': "--data: real OAS data waits for the port's OAS loader "
+            "(ROADMAP.md queue 1, 'OAS data loader'); use --synthetic N",
+    'heavy': "--kind heavy: the nanobody step waits for NanoAntiTFNet "
+             "(ROADMAP.md queue 1, 'heavy/nano training')",
+    'parallel': "--tp/--multihost: parallelism waits for its port "
+                "(ROADMAP.md queue 1, 'parallelism')",
+}
+
+
+def synthetic_batches(kind: str, batch_size: int, seed: int = 0
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+    """Random human-like grids for smoke testing without OAS data."""
+    rs = np.random.RandomState(seed)
+    L = C.PAIR_LEN if kind == 'pair' else C.HEAVY_LEN
+    while True:
+        tokens = rs.randint(0, C.N_AA, (batch_size, L)).astype(np.int32)
+        batch = {'tokens': tokens}
+        if kind == 'pair':
+            batch['chain_type'] = np.stack(
+                [np.zeros(batch_size, np.int32),
+                 rs.choice([1, 2], batch_size).astype(np.int32)], axis=1)
+        yield batch
+
+
+def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
+        logdir: str = './logs', synthetic: int = 0, max_iter: Optional[int] = None,
+        valid_step: Optional[int] = None, resume: Optional[str] = None,
+        seed: Optional[int] = None, use_bf16: bool = True, tag: str = '',
+        device='cuda', model: Optional[AntiTFNet] = None) -> str:
+    """Pretrain and return the run directory. ``model``, when given, is
+    trained in place (it must match ``cfg.model`` and lie on ``device``);
+    otherwise one is built from ``cfg.model`` after seeding torch."""
+    if kind != 'pair':
+        raise NotImplementedError(WAITS['heavy'])
+    if not synthetic:
+        raise NotImplementedError(WAITS['data'])
+    dev = resolve_device(device)
+    seed = seed if seed is not None else cfg.train.get('seed', 2023)
+    seed_all(seed)
+    torch.manual_seed(seed)
+
+    log_dir = get_new_log_dir(logdir, prefix=f'{kind}_pretrain', tag=tag)
+    logger = get_logger('pretrain', log_dir)
+    metrics_writer = MetricsWriter(log_dir)
+    snapshot_source(log_dir)
+
+    model_cfg = DenoiserConfig.from_dict(cfg.model)
+    if model is None:
+        model = AntiTFNet(model_cfg, dtype=torch.bfloat16 if use_bf16 else torch.float32,
+                          device=dev)
+    logger.info('parameters: %d', count_parameters(model))
+
+    batch_size = cfg.train.batch_size
+    max_iter = max_iter if max_iter is not None else cfg.train.max_iter
+    valid_step = valid_step if valid_step is not None else cfg.train.valid_step
+    batch_acc = cfg.train.get('batch_acc', 1)
+
+    train_feed = pipeline.device_feed(synthetic_batches(kind, batch_size, seed), dev)
+    val_feed = pipeline.device_feed(synthetic_batches(kind, batch_size, seed + 1), dev)
+    # synthetic data has no finite val split; use a small fixed pass
+    n_val_batches = max(1, min(4, synthetic // batch_size))
+
+    optimizer = schedules.make_optimizer(cfg.train.optimizer, model.parameters())
+    state = T.TrainState(model, optimizer, clip_norm=cfg.train.get('clip_norm'))
+    plateau = schedules.make_host_scheduler(cfg.train.scheduler,
+                                            init_lr=cfg.train.optimizer.lr)
+
+    best_val = float('inf')
+    if resume:
+        restored = checkpoints.restore(resume)
+        model.load_state_dict(restored['payload']['model'])
+        optimizer.load_state_dict(restored['payload']['optimizer'])
+        # checkpoints are labeled by iteration; state.step counts optimizer
+        # steps (batch_acc per iteration)
+        meta = restored['meta']
+        state.step = int(meta.get('opt_steps', restored['step']))
+        if meta.get('scheduler'):
+            plateau.load_state_dict(meta['scheduler'])
+            schedules.set_learning_rate(optimizer, plateau.lr)
+        if meta.get('val_loss') is not None:
+            best_val = float(meta['val_loss'])
+        logger.info('resumed from %s at step %d (lr %.3g, best val %.5f)',
+                    resume, restored['step'], plateau.lr, best_val)
+
+    loss_type = cfg.train.get('loss_type', 'merge')
+    l_weight = cfg.train.get('l_loss_weight', 1.0)
+    step_fn = T.make_pair_train_step(model, loss_type=loss_type, l_weight=l_weight)
+    eval_fn = T.make_eval_step(model, loss_type=loss_type, l_weight=l_weight, pair=True)
+
+    ckpt_dir = os.path.join(log_dir, 'checkpoints')
+    os.makedirs(ckpt_dir, exist_ok=True)
+    data_seed = seed + 17
+    config = {'model': dict(cfg.model), 'kind': kind,
+              'train': cfg.train.to_dict() if hasattr(cfg.train, 'to_dict')
+              else dict(cfg.train)}
+
+    start_it = state.step // batch_acc
+    t_start = time.time()
+    it = start_it
+    model.train()
+    while it < max_iter:
+        # one iteration = batch_acc optimizer steps; the logged train
+        # metrics are the window's means
+        sums: Dict[str, torch.Tensor] = {}
+        for _ in range(batch_acc):
+            batch = next(train_feed)
+            m = step_fn(state, batch['tokens'], batch['chain_type'], data_seed)
+            for k, v in m.items():
+                sums[k] = sums[k] + v if k in sums else v
+        it += 1
+        m = {k: float(v) / batch_acc for k, v in sums.items()}
+        m['lr'] = schedules.get_learning_rate(optimizer) or 0.0
+        m['opt_steps'] = float(state.step)
+        m['steps_per_sec'] = ((it - start_it) * batch_acc
+                              / max(time.time() - t_start, 1e-9))
+        metrics_writer.write(it, m, prefix='train')
+        logger.info('iter %d | %s', it,
+                    ' | '.join(f'{k}: {v:.5f}' for k, v in sorted(m.items())))
+
+        if it % max(valid_step, 1) == 0 or it >= max_iter:
+            # full-split validation: average over every val batch
+            def _val_step(vbatch, j, _it=it):
+                return eval_fn(vbatch['tokens'], vbatch['chain_type'],
+                               T.generator(dev, seed, _it, j))
+
+            vm = T.evaluate(_val_step, val_feed, n_val_batches)
+            metrics_writer.write(it, vm, prefix='val')
+            logger.info('valid %d | %s', it,
+                        ' | '.join(f'{k}: {v:.5f}' for k, v in sorted(vm.items())))
+            new_lr = plateau.update(vm['loss'])
+            schedules.set_learning_rate(optimizer, new_lr)
+            if vm['loss'] < best_val:
+                best_val = vm['loss']
+                checkpoints.save_training(ckpt_dir, it, model, optimizer, config=config,
+                                          extra={'val_loss': best_val,
+                                                 'opt_steps': state.step,
+                                                 'scheduler': plateau.state_dict()})
+                logger.info('saved best checkpoint at iter %d (val %.5f)', it, best_val)
+    metrics_writer.close()
+    return log_dir
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument('--config', required=True)
+    p.add_argument('--kind', choices=['pair', 'heavy'], default=None,
+                   help='inferred from config name if omitted')
+    p.add_argument('--data', default=None)
+    p.add_argument('--logdir', default='./logs')
+    p.add_argument('--synthetic', type=int, default=0,
+                   help='use N synthetic samples instead of real data')
+    p.add_argument('--max-iter', type=int, default=None)
+    p.add_argument('--valid-step', type=int, default=None)
+    p.add_argument('--resume', default=None)
+    p.add_argument('--seed', type=int, default=None)
+    p.add_argument('--fp32', action='store_true')
+    p.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
+    p.add_argument('--profile', action='store_true',
+                   help='trace the run with torch.profiler into <logdir>/profile')
+    p.add_argument('--tp', type=int, default=1)
+    p.add_argument('--multihost', action='store_true')
+    p.add_argument('--tag', default='')
+    args = p.parse_args(argv)
+
+    cfg = load_yaml(args.config)
+    kind = args.kind or ('heavy' if 'heavy' in os.path.basename(args.config)
+                         or cfg.get('name') == 'nano' else 'pair')
+    if args.data:
+        p.error(WAITS['data'])
+    if kind != 'pair':
+        p.error(WAITS['heavy'])
+    if args.tp != 1 or args.multihost:
+        p.error(WAITS['parallel'])
+    if not args.synthetic:
+        p.error('need --synthetic N (--data waits for the OAS loader)')
+    kw = dict(synthetic=args.synthetic, max_iter=args.max_iter, valid_step=args.valid_step,
+              resume=args.resume, seed=args.seed, use_bf16=not args.fp32, tag=args.tag,
+              device=args.device)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        trace_dir = os.path.join(args.logdir, 'profile')
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            out = run(cfg, kind, None, args.logdir, **kw)
+        prof.export_chrome_trace(os.path.join(trace_dir, 'trace.json'))
+        print(f'profiler trace written to {trace_dir}')
+        return out
+    return run(cfg, kind, None, args.logdir, **kw)
+
+
+if __name__ == '__main__':
+    main()

@@ -35,6 +35,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs in several xdist workers
+    at once, and torch's default of a thread per core oversubscribes the
+    cores, which slows these many small ops several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, seed):
     rs = np.random.RandomState(seed)
     tokens = rs.randint(0, C.N_TOKENS, (B, C.PAIR_LEN)).astype(np.int32)
@@ -76,7 +87,7 @@ def _port_logits(model, tokens, region, chain):
 def _check_parity(jcfg, tree, B, seed):
     tokens, region, chain = _inputs(B, seed)
     ref = np.asarray(JNet(jcfg).apply(tree, tokens, region, chain))
-    model = CK.from_flax_params(tree, DenoiserConfig(**jcfg.__dict__))
+    model = CK.from_flax_params(tree, DenoiserConfig(**jcfg.__dict__), device='cpu')
     out = _port_logits(model, tokens, region, chain)
     assert out.shape == (B, C.PAIR_LEN, C.N_TOKENS) and np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
@@ -98,7 +109,7 @@ def test_sinusoidal_table_matches():
 def test_embedders_match(small, which):
     jcfg, tree = small
     p = tree['params']
-    model = CK.from_flax_params(tree, DenoiserConfig(**jcfg.__dict__))
+    model = CK.from_flax_params(tree, DenoiserConfig(**jcfg.__dict__), device='cpu')
     tokens, region, chain = _inputs(3, 4)
     if which == 'side':
         ref = JE.SideEmbedder(jcfg.n_side, jcfg.s_embedding, jcfg.s_model, C.HEAVY_LEN,
@@ -144,9 +155,9 @@ def test_antitfnet_matches_demo_checkpoint():
 def test_port_checkpoint_roundtrip(small, tmp_path):
     jcfg, tree = small
     cfg = DenoiserConfig(**jcfg.__dict__)
-    model = CK.from_flax_params(tree, cfg)
+    model = CK.from_flax_params(tree, cfg, device='cpu')
     path = CK.save(str(tmp_path / 'ab.pt'), model, cfg, finetuned=True)
-    loaded, config = CK.load(path)
+    loaded, config = CK.load(path, device='cpu')
     assert config['finetuned'] is True and DenoiserConfig.from_dict(config['model']) == cfg
     args = _inputs(2, 10)
     np.testing.assert_array_equal(_port_logits(loaded, *args), _port_logits(model, *args))
@@ -160,7 +171,8 @@ def test_bf16_cast_once(small):
     bf16 at slightly different points. Each lies ~0.03 from the f32 logits
     (O(4) here), so atol 0.1."""
     jcfg, tree = small
-    model = CK.from_flax_params(tree, DenoiserConfig(**jcfg.__dict__), dtype=torch.bfloat16)
+    model = CK.from_flax_params(tree, DenoiserConfig(**jcfg.__dict__), dtype=torch.bfloat16,
+                                 device='cpu')
     S.cast_params_once(model)
     for name, prm in model.named_parameters():
         assert prm.dtype == (torch.bfloat16 if prm.dim() >= 2 else torch.float32), name

@@ -44,6 +44,17 @@ L2 = ('EIVLTQSPGTLSLSPGERATLSCRASQSVSSSYLAWYQQKPGQAPRLLIYGASSRATGIP'
 CDR = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs in several xdist workers
+    at once, and torch's default of a thread per core oversubscribes the
+    cores, which slows these many small ops several times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('finetune', [False, True])
 @pytest.mark.parametrize('pair', [(H1, L1), (H2, L2)])
 def test_pair_input_matches(pair, finetune):
@@ -158,7 +169,7 @@ def demo_ckpt(tmp_path_factory):
     cfg = DenoiserConfig(**JCfg.from_dict(restored['meta']['config']['model']).__dict__)
     tree = jax.tree_util.tree_map(np.asarray, restored['payload']['params'])
     path = str(tmp_path_factory.mktemp('port_ckpt') / 'demo_ab_tiny.pt')
-    return CK.save(path, CK.from_flax_params(tree, cfg), cfg)
+    return CK.save(path, CK.from_flax_params(tree, cfg, device='cpu'), cfg)
 
 
 def test_cuda_entry_points_raise_without_a_card(demo_ckpt):

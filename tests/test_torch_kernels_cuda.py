@@ -10,9 +10,10 @@ Tolerances: f32 runs the same arithmetic in another summation order
 (errors ~1e-6), held to an absolute limit. bf16 is held elementwise to
 |out - ref| <= 2**-7 |ref| + atol: both sides round the output to bf16 and
 may round it one spacing apart (the 2**-7 |ref| term); atol bounds the
-rest, which comes from P (K1) or the intermediates p, q (K2) rounded to
-bf16 at nearby points. chip_smoke.py holds the main path's shapes to the
-same limits.
+rest, which comes from P (K1, K3), the intermediates p, q (K2) or dq, dp
+(K4) rounded to bf16 at nearby points. K4's parameter gradients (f32 sums
+over B*L rows) are held by max |err| <= rtol max |ref|. chip_smoke.py
+holds the main path's shapes to the same limits.
 """
 import numpy as np
 import pytest
@@ -23,8 +24,10 @@ from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig
 from hudiff_tpu_torch.ops import fused_attention as FA
 from hudiff_tpu_torch.ops import fused_bytenet as FB
 from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
+from hudiff_tpu_torch.ops import masking as M
 from hudiff_tpu_torch.ops.rope import rope_tables
 from hudiff_tpu_torch.sampling import humanize as HZ
+from hudiff_tpu_torch.training import train_step as T
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +106,61 @@ def test_k2_matches_plain(dev, dtype, rtol, atol, d, h, k, act, L, dil):
     assert err <= atol, f'excess {err} over rtol {rtol}'
 
 
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 291)])
+def test_k3_matches_plain(dev, dtype, rtol, atol, B, L):
+    gen = torch.Generator().manual_seed(B * L)
+    qkv = torch.randn(B, L, 8 * 3 * 64, generator=gen).to(dev, dtype)
+    do = torch.randn(B, L, 8 * 64, generator=gen).to(dev, dtype)
+    cos, sin = rope_tables(64, L, device=dev)
+    before = FA.bwd_launches
+    out = FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, 8)
+    again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, 8)
+    ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, 0.125, 8)
+    torch.cuda.synchronize()
+    assert FA.bwd_launches == before + 4   # two passes per call: dq, then dk and dv
+    assert torch.isfinite(out).all() and torch.equal(out, again)   # no atomics
+    err = excess(out, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+
+
+K4_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 2e-5),
+                                             (torch.bfloat16, BF16_RTOL, 1.5e-2)])
+@pytest.mark.parametrize('d,h,k,act,B,L,dil', [(64, 32, 7, 'gelu', 3, 17, 2),
+                                               (96, 64, 13, 'relu', 3, 17, 1),
+                                               (768, 384, 7, 'relu', 4, 139, 32),
+                                               (256, 128, 7, 'gelu', 4, 152, 4)])
+def test_k4_matches_plain(dev, dtype, rtol, atol, d, h, k, act, B, L, dil):
+    gen = torch.Generator().manual_seed(d + L + dil)
+    blk = _block(d, h, k, dil, act, gen).to(dev)
+    params = [t.detach() for t in (blk.ln1.weight, blk.ln1.bias, blk.fc1.weight,
+                                   blk.fc1.bias, blk.ln2.weight, blk.ln2.bias,
+                                   blk.conv.weight, blk.conv.bias, blk.ln3.weight,
+                                   blk.ln3.bias, blk.fc2.weight, blk.fc2.bias)]
+    x = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    dy = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    kw = dict(dilation=dil, activation_name=act)
+    before = FB.launches, FB.bwd_launches
+    y, p, q = FB._forward(x, params, dil, act, keep=True)
+    grads = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
+    again = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
+    ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+    torch.cuda.synchronize()
+    assert (FB.launches, FB.bwd_launches) == (before[0] + 6, before[1] + 22)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))   # fixed-order sums
+    assert all(torch.isfinite(g).all() for g in grads)
+    err = excess(grads[0], ref[0], rtol)
+    assert err <= atol, f'dx excess {err} over rtol {rtol}'
+    for i, (got, want) in enumerate(zip(grads[1:], ref[1:])):
+        assert got.shape == params[i].shape and got.dtype == torch.float32
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel <= K4_GRAD_RTOL[dtype], f'parameter {i}: {rel}'
+
+
 def test_counters_match_the_kernels_the_profiler_sees(dev):
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator().manual_seed(0)
@@ -130,12 +188,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     cos, sin = rope_tables(32, 5, device=dev)
     with pytest.raises(ValueError, match='head dim'):
         FA.rope_attention_qkv(qkv, cos, sin, 0.125, 8)
-    with pytest.raises(NotImplementedError, match='forward-only'):
-        FA.rope_attention_qkv(torch.randn(1, 5, 1536, device=dev, requires_grad=True),
-                              *rope_tables(64, 5, device=dev), 0.125, 8)
+    qkv = torch.randn(1, 5, 1536, device=dev)
+    with pytest.raises(ValueError, match='do must be'):
+        FA.rope_attention_qkv_backward(qkv, *rope_tables(64, 5, device=dev),
+                                       torch.randn(1, 5, 256, device=dev), 0.125, 8)
     blk = _block(48, 24, 7, 1, 'relu', torch.Generator().manual_seed(0)).to(dev)
     with torch.no_grad(), pytest.raises(ValueError, match='multiples of 32'):
         blk(torch.randn(1, 10, 48, device=dev))
+    with pytest.raises(ValueError, match='multiples of 32'):   # the backward too
+        blk(torch.randn(1, 10, 48, device=dev, requires_grad=True))
 
 
 def test_test_size_forward_matches_cpu(dev):
@@ -168,3 +229,42 @@ def test_humanize_on_card_keeps_cdrs_and_runs_the_kernels(dev):
     cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0
     assert (res['grids'] != C.IDX_MSK).all()
     assert (res['grids'][:, cdr] == inp['clean'][cdr]).all()
+
+
+def test_test_size_train_step_matches_cpu(dev):
+    """One f32 train step of the test-size model (dropout off, a fixed
+    mask, TF32 off) on the card against the CPU: the loss to 1e-5 relative
+    and every parameter's gradient to max |err| <= 1e-4 max |ref| (the
+    same arithmetic through K1-K4 and cuBLAS in other summation orders)."""
+    torch.manual_seed(0)
+    cpu = AntiTFNet(DenoiserConfig().test_size()).eval()
+    card = AntiTFNet(DenoiserConfig().test_size()).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, C.N_AA, (2, C.PAIR_LEN)))
+    mask = torch.from_numpy(rs.rand(2, C.PAIR_LEN) < 0.5)
+    mask &= ~torch.from_numpy(np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0)
+    cor = M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
+    chain = torch.tensor([[0, 1], [0, 2]])
+    grads = []
+    for model, d in ((cpu, 'cpu'), (card, dev)):
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        state = T.TrainState(model, opt)
+        keep = {}
+        for n, prm in model.named_parameters():
+            prm.register_post_accumulate_grad_hook(
+                lambda t, n=n: keep.__setitem__(n, t.grad.detach().cpu().clone()))
+        k = (FA.launches, FA.bwd_launches, FB.launches, FB.bwd_launches)
+        m = T.make_pair_train_step(model)(state, tokens.to(d), chain.to(d), 0,
+                                          M.Corrupted(*(t.to(d) for t in cor)))
+        if d == dev:
+            assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 4)
+            assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (6 * 6, 6 * 11)
+        grads.append((m['loss'].item(), keep))
+    (loss_c, g_c), (loss_g, g_g) = grads
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    assert sorted(g_c) == sorted(g_g)
+    for n in g_c:
+        rel = ((g_g[n] - g_c[n]).abs().max() / g_c[n].abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-4, f'{n}: {rel}'
