@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py              # from the repository root
 
-Builds every kernel of the two paths (hudiff_tpu_torch/csrc/*.cu, one nvcc
-per source, in parallel) and holds each kernel against its plain PyTorch
+Builds every kernel of the port (hudiff_tpu_torch/csrc/*.cu, one nvcc per
+source, in parallel) and holds each kernel against its plain PyTorch
 version on the card. Then:
 
 - humanization (the first slice): the full-width HuDiff-Ab model f32 against
@@ -16,18 +16,29 @@ version on the card. Then:
   ``pretrain.run`` at the full width of configs/antibody_train.yml (bf16,
   B = 128, synthetic data: steps, one validation, a best-val checkpoint
   that restores to the same logits) with its launch counts, and a profile
-  of one warm step (K1-K4).
+  of one warm step (K1-K4);
+- the remaining entry points (the third slice): K5 (RoPE attention on
+  separate q, k, v) against its plain version and against K1 on the merged
+  input, K6 (its backward), ``attention_api`` (one full-width RoPE attention
+  layer through ``rope_attention``, forward and backward under autograd,
+  timed and profiled), K7 (plain attention through ``fused_attention`` and
+  ``attention``) and K8 (the fused attention layer of the probe
+  ``hudiff_tpu_torch.tools.fused_layer_probe``, driven through its
+  ``main()``, against its plain version and the production split).
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
 device it exits 2 and prints no result.
 
-Shapes: K1 and K3 at L = 291 (8 heads x 64); K2 and K4 at every tower shape
-of the Ab path (256/128 GELU and 768/384 ReLU, L = 152 and 139, dilations
-1-32). K1/K2 at the sampler's batch (16 rows) and B = 64, K3/K4 at the
-training batch (128) and B = 16. Times are medians of CUDA-event windows
-after a warm-up; inputs stay L2-resident, as they are on the main path
-where each kernel reads what the previous op wrote.
+Shapes: K1, K3, K5, K6 and K7 at L = 291 (8 heads x 64); K2 and K4 at
+every tower shape of the Ab path (256/128 GELU and 768/384 ReLU, L = 152
+and 139, dilations 1-32); K8 at the probe's shapes (B = 64, L = 291,
+d_model 768, att 512, 8 heads). K1/K2/K5/K7 at the sampler's batch (16
+rows) and B = 64, K3/K4/K6 at the training batch (128) and B = 16. Times
+are medians of CUDA-event windows after a warm-up (K8's: the probe's timer,
+each call's output fed back as the next call's input); inputs stay
+L2-resident, as they are on the main path where each kernel reads what the
+previous op wrote.
 """
 import copy
 import json
@@ -64,9 +75,35 @@ SEED = 2023
 # smaller shapes, which use the same limits. K4's parameter gradients are
 # f32 sums over B*L rows, held by max |err| <= K4_GRAD_RTOL max |ref| (the
 # largest readings: f32 4.0e-6, bf16 9.2e-4, where dq and dp round apart).
-TOL_F32 = {'K1': 1e-5, 'K2': 2e-5, 'K3': 1e-5, 'K4': 2e-5}
+# K5, K6 and K7 run K1's and K3's arithmetic in other layouts and take
+# their limits (readings on an H100 at these shapes: excess K5 1.3e-3, K6
+# 1.0e-3, K7 1.3e-3).
+TOL_F32 = {'K1': 1e-5, 'K2': 2e-5, 'K3': 1e-5, 'K4': 2e-5, 'K5': 1e-5, 'K6': 1e-5,
+           'K7': 1e-5}
 BF16_RTOL = 2.0 ** -7
-TOL_BF16 = {'K1': 5e-3, 'K2': 2.5e-2, 'K3': 5e-3, 'K4': 1.5e-2}
+TOL_BF16 = {'K1': 5e-3, 'K2': 2.5e-2, 'K3': 5e-3, 'K4': 1.5e-2, 'K5': 5e-3, 'K6': 5e-3,
+            'K7': 5e-3}
+# K8 is held on inputs that make attention peaked (x ~ N(0, 1), weights
+# ~ N(0, 1/fan_in)), where the rotation and the softmax move y by a large
+# share of max |y| (the phase reports how far the plain version moves
+# without RoPE and with a uniform softmax). Its limits are fractions of
+# max |ref|, in the form of tests/test_torch_fused_layer.py: f32 max |err|
+# <= K8_TOL['float32'] max |ref|; bf16 |err| <= BF16_RTOL |ref| +
+# K8_TOL['bfloat16'] max |ref|, the excess from qkv, P and o rounded to
+# bf16 on either side of a rounding boundary (readings on an H100 at B =
+# 64, max |ref| 0.94: f32 6.6e-7, bf16 3.3e-3).
+K8_TOL = {'float32': 1e-5, 'bfloat16': 5e-3}
+# K8 against the production split (cuBLAS projections around K1) on the
+# head-major permutation of the same weights: max |err| / max |ref|. Both
+# compute one function with the same rounding points; in bf16 they round qkv,
+# o and y at different summation orders, one bf16 spacing (2^-7 of the
+# largest output) and the excess it carries (readings on an H100: f32 4.7e-7
+# and bf16 4.1e-3 on k8_check_inputs, bf16 2.6e-3 on the probe's weights).
+K8_REL_ERR = {'float32': 1e-5, 'bfloat16': 1e-2}
+# attention_api in f32: the layer's parameter gradients through K5/K6 against
+# the same layer through the plain attention under autograd, max |err| /
+# max |ref| per tensor (sums over B*L = 37,248 rows in other orders).
+ATTN_API_F32_RTOL = 1e-4
 K4_GRAD_RTOL = {'float32': 1e-5, 'bfloat16': 2e-3}
 FORWARD_ATOL = 1e-3   # full-width f32 logits, card vs CPU, 24 blocks + 10 attentions
 # Full-width f32 train step, card vs CPU (the same arithmetic through K1-K4
@@ -168,7 +205,7 @@ def main():
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops import fused_bytenet as FB
     from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
-    from hudiff_tpu_torch.ops.rope import apply_rope, rope_tables
+    from hudiff_tpu_torch.ops.rope import rope_tables
     from hudiff_tpu_torch.sampling import humanize as HZ
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,10 +246,7 @@ def main():
             if not ok:
                 emit(rec)
                 fail(f'K1 disagrees with its plain version ({name}, B={B})')
-            q, k, v = FA.split_qkv_heads(qkv, heads)
-            qr = apply_rope(q.reshape(B, L, heads, hd), cos, sin).transpose(1, 2).contiguous()
-            kr = apply_rope(k.reshape(B, L, heads, hd), cos, sin).transpose(1, 2).contiguous()
-            vr = v.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+            qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
             nbytes = qkv.numel() * qkv.element_size() * 4 // 3 + 2 * cos.numel() * 4
             flops = 4.0 * B * heads * L * L * hd
             rec.update(
@@ -350,6 +384,16 @@ def main():
     train_step_f32(torch, cfg, dev)
     pre = pretrain_phase(torch, dev)
     per_step = profile_train(torch, pre['model'], dev)
+    trained = pre['launches']
+    del pre
+    torch.cuda.empty_cache()
+
+    # -- phases 11-15: the remaining entry points ------------------------------
+    results['K5'] = k5_phase(torch, gen, dev)
+    results['K6'] = k6_phase(torch, gen, dev)
+    api = attention_api_phase(torch, gen, dev)
+    results['K7'] = k7_phase(torch, gen, dev)
+    results['K8'] = k8_phase(torch, dev)
 
     # -- the kernels line ------------------------------------------------------
     k1, k1_f32 = results['K1'][(MAIN_B, 'bfloat16')], results['K1'][(MAIN_B, 'float32')]
@@ -358,7 +402,6 @@ def main():
     k4, k4_f32 = results['K4'][(TRAIN_B, 'bfloat16')], results['K4'][(TRAIN_B, 'float32')]
     n2 = k2['calls']   # tower shapes measured in phase 3: one per block of a forward
     n4 = k4['calls']
-    trained = pre['launches']
     emit({'kernels': [
         {'name': 'K1 fused RoPE attention (merged head-major qkv)', 'route': 'cuda',
          'source': 'hudiff_tpu_torch/csrc/rope_attention.cu',
@@ -401,7 +444,8 @@ def main():
          'bound_ms': k4['bound_ms'] / n4, 'bound_by': k4['bound_by'], 'library_ms': None,
          'ms_per_step': k4['ms'], 'bound_ms_per_step': k4['bound_ms'],
          'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
-                  'tower blocks of one step, bf16'}]})
+                  'tower blocks of one step, bf16'},
+        *later_kernels(results, api)]})
     emit({'phase': 'done', 'total_s': time.perf_counter() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
@@ -410,22 +454,26 @@ def main():
 
 # CUDA kernel names by group, matched in this order
 KERNEL_GROUPS = (('K4', ('bytenet_bwd_',)), ('K3', ('rope_attention_bwd_',)),
+                 ('K6', ('rope_attention_sep_bwd_',)),
+                 ('K5', ('rope_attention_sep_fwd_kernel',)),
                  ('K1', ('rope_attention_qkv_kernel',)),
+                 ('K7', ('plain_attention_kernel',)), ('K8', ('fused_layer_',)),
                  ('K2', ('bytenet_gemm_kernel', 'bytenet_ln_act_kernel')),
                  ('cublas', ('gemm', 'cutlass', 'nvjet', 'xmma')))
+KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7', 'K8')
 
 
 def kernel_groups(torch, prof, n):
     """From a torch.profiler run over ``n`` repeats: device ms per repeat by
-    group (K1-K4, cuBLAS, other), the number of K1-K4 kernels seen, and
+    group (K1-K8, cuBLAS, other), the number of K1-K8 kernels seen, and
     every kernel with device time, largest first."""
     dev_time = lambda e: getattr(e, 'self_device_time_total',  # noqa: E731
                                  getattr(e, 'self_cuda_time_total', 0))
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0),
                      key=dev_time, reverse=True)
-    groups = dict.fromkeys(('K1', 'K2', 'K3', 'K4', 'cublas', 'other'), 0.0)
-    seen = dict.fromkeys(('K1', 'K2', 'K3', 'K4'), 0)
+    groups = dict.fromkeys(KERNELS + ('cublas', 'other'), 0.0)
+    seen = dict.fromkeys(KERNELS, 0)
     for e in kernels:
         key = e.key.lower()
         g = next((g for g, names in KERNEL_GROUPS if any(s in key for s in names)), 'other')
@@ -494,17 +542,21 @@ def profile(torch, model, hum, inputs):
 
 
 def counters():
-    """The four wrappers' launch counters."""
+    """The eight wrappers' launch counters."""
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.tools import fused_layer_probe as FL
     return {'K1': FA.launches, 'K2': FB.launches, 'K3': FA.bwd_launches,
-            'K4': FB.bwd_launches}
+            'K4': FB.bwd_launches, 'K5': FA.rope_launches, 'K6': FA.rope_bwd_launches,
+            'K7': FA.attention_launches, 'K8': FL.launches}
 
 
 def reset_counters():
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.tools import fused_layer_probe as FL
     FA.launches = FB.launches = FA.bwd_launches = FB.bwd_launches = 0
+    FA.rope_launches = FA.rope_bwd_launches = FA.attention_launches = FL.launches = 0
 
 
 def k3_phase(torch, gen, dev):
@@ -514,7 +566,7 @@ def k3_phase(torch, gen, dev):
     import torch.nn.functional as F
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
-    from hudiff_tpu_torch.ops.rope import apply_rope, rope_tables
+    from hudiff_tpu_torch.ops.rope import rope_tables
     heads, hd, L = 8, 64, C.PAIR_LEN
     cos, sin = rope_tables(hd, L, device=dev)
     scale = 1.0 / hd ** 0.5
@@ -533,15 +585,13 @@ def k3_phase(torch, gen, dev):
                 emit(rec)
                 fail(f'K3 disagrees with its plain version ({name}, B={B})')
             del got, ref
-            q, k, v = FA.split_qkv_heads(qkv, heads)
-            rot = lambda t: apply_rope(t.reshape(B, L, heads, hd), cos, sin)  # noqa: E731
-            qr, kr = (rot(t).transpose(1, 2).contiguous().requires_grad_() for t in (q, k))
-            vr = v.reshape(B, L, heads, hd).transpose(1, 2).contiguous().requires_grad_()
+            qr, kr, vr = (t.requires_grad_() for t in _rotated_bhld(
+                torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads))
             o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
             dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
             rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
                 o, (qr, kr, vr), dO, retain_graph=True))
-            del o, qr, kr, vr, dO, q, k, v
+            del o, qr, kr, vr, dO
             rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
                 qkv, cos, sin, do, scale, heads))
             rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
@@ -703,7 +753,8 @@ def train_step_f32(torch, cfg, dev):
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     expected = {'K1': 2 * cfg.cs_layers, 'K3': 4 * cfg.cs_layers,
                 'K2': 6 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
-                'K4': 11 * 2 * (cfg.n_encoder_layers + cfg.dual_layers)}
+                'K4': 11 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
+                'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
     emit({'phase': 'train_step_f32', 'B': 2, 'loss_cpu': loss_c, 'loss_card': loss_g,
           'loss_rel_err': loss_rel, 'max_grad_rel_err': rel[worst], 'worst_param': worst,
           'worst_five': {n: rel[n] for n in order[:5]}, 'global_grad_rel_err': glob,
@@ -756,7 +807,8 @@ def pretrain_phase(torch, dev):
     blocks = 2 * (mcfg.n_encoder_layers + mcfg.dual_layers)
     expected = {'K1': (steps + val_forwards) * 2 * mcfg.cs_layers,
                 'K2': (steps + val_forwards) * blocks * 6,
-                'K3': steps * 2 * mcfg.cs_layers * 2, 'K4': steps * blocks * 11}
+                'K3': steps * 2 * mcfg.cs_layers * 2, 'K4': steps * blocks * 11,
+                'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
     # host time at the end of iteration i is i * acc / steps_per_sec(i);
     # iteration 2 is warm and runs no validation
     ends = [r['step'] * acc / r['train/steps_per_sec'] for r in train]
@@ -800,8 +852,8 @@ def pretrain_phase(torch, dev):
 def profile_train(torch, model, dev):
     """Device time by kernel group over one warm bf16 train step at B = 128
     (torch.profiler), beside the host-clock time of warm steps; checks that
-    the launch counters rose by the K1-K4 kernels the profiler saw, and
-    returns those numbers per step."""
+    the launch counters rose by the K1-K8 kernels the profiler saw (K5-K8
+    none), and returns those numbers per step."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     from hudiff_tpu_torch.training import pretrain as PT
@@ -837,9 +889,449 @@ def profile_train(torch, model, dev):
           'kernels_per_step': sum(t['calls'] for t in top),
           'device_ms_per_step_by_group': groups,
           'top': top[:15], 'counted_launches': counted, 'profiled_launches': seen})
-    if counted != seen or not all(seen.values()):
+    if counted != seen or not all(seen[k] for k in ('K1', 'K2', 'K3', 'K4')):
         fail(f'launch counters {counted} != kernels the profiler saw {seen}')
     return seen
+
+
+def _rotated_bhld(torch, q, k, v, cos, sin, heads):
+    """RoPE applied to q and k, and q, k, v as contiguous [B, H, L, D]: the
+    input of scaled_dot_product_attention for the same function as K5."""
+    from hudiff_tpu_torch.ops.rope import apply_rope
+    B, L, A = q.shape
+    hd = A // heads
+
+    def bhld(t):
+        return t.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+
+    rot = lambda t: apply_rope(t.reshape(B, L, heads, hd), cos, sin).reshape(B, L, A)  # noqa: E731
+    return bhld(rot(q)), bhld(rot(k)), bhld(v)
+
+
+def k5_phase(torch, gen, dev):
+    """K5 against its plain version and against K1 on the merged input
+    (one body: the same bits expected) at L = 291, B = 16 and 64, f32 and
+    bf16; times beside the plain version and scaled_dot_product_attention
+    on pre-rotated q/k/v."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    heads, hd, L = 8, 64, C.PAIR_LEN
+    cos, sin = rope_tables(hd, L, device=dev)
+    scale = 1.0 / hd ** 0.5
+    out = {}
+    for B in (MAIN_B, BIG_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            q, k, v = (torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            got = FA.rope_attention(q, k, v, cos, sin, scale, heads)
+            ref = FA.rope_attention_reference(q, k, v, cos, sin, scale, heads)
+            k1 = FA.rope_attention_qkv(FA.merge_qkv_heads(q, k, v, heads), cos, sin, scale,
+                                       heads)
+            torch.cuda.synchronize()
+            errs, ok = check_err(torch, 'K5', got, ref)
+            vs_k1, ok_k1 = check_err(torch, 'K5', got, k1)
+            rec = {'phase': 'K5', 'B': B, 'L': L, 'dtype': name, **errs,
+                   'max_abs_diff_vs_K1': vs_k1['max_abs_err'],
+                   'identical_to_K1': torch.equal(got, k1)}
+            if not (ok and ok_k1):
+                emit(rec)
+                fail(f'K5 disagrees with its plain version or with K1 ({name}, B={B})')
+            qr, kr, vr = _rotated_bhld(torch, q, k, v, cos, sin, heads)
+            # read q, k, v and the tables once, write out once; QK^T and PV
+            nbytes = 4 * q.numel() * q.element_size() + 2 * cos.numel() * 4
+            flops = 4.0 * B * heads * L * L * hd
+            rec.update(
+                ms=time_ms(torch, lambda: FA.rope_attention(q, k, v, cos, sin, scale, heads)),
+                plain_ms=time_ms(torch, lambda: FA.rope_attention_reference(
+                    q, k, v, cos, sin, scale, heads), reps=3),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qr, kr, vr, scale=scale)))
+            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+            emit(rec)
+            out[(B, name)] = rec
+    return out
+
+
+def k6_phase(torch, gen, dev):
+    """K6 against its plain version at L = 291, B = 16 and 128, f32 and
+    bf16, with a repeated call that must give the same bits (no atomics);
+    times beside the plain version and the backward alone of
+    scaled_dot_product_attention on pre-rotated q/k/v with the same dO."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    heads, hd, L = 8, 64, C.PAIR_LEN
+    cos, sin = rope_tables(hd, L, device=dev)
+    scale = 1.0 / hd ** 0.5
+    out = {}
+    for B in (MAIN_B, TRAIN_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            q, k, v, do = (torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
+                           for _ in range(4))
+            got = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads)
+            again = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads)
+            ref = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, scale, heads)
+            torch.cuda.synchronize()
+            errs, ok = check_err(torch, 'K6', torch.stack(got), torch.stack(ref))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            rec = {'phase': 'K6', 'B': B, 'L': L, 'dtype': name, **errs,
+                   'repeat_identical': same}
+            if not (ok and same):
+                emit(rec)
+                fail(f'K6 disagrees with its plain version or repeats apart ({name}, B={B})')
+            del got, again, ref
+            qr, kr, vr = (t.requires_grad_()
+                          for t in _rotated_bhld(torch, q, k, v, cos, sin, heads))
+            o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+            dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+            rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
+                o, (qr, kr, vr), dO, retain_graph=True))
+            del o, qr, kr, vr, dO
+            rec['ms'] = time_ms(torch, lambda: FA.rope_attention_backward(
+                q, k, v, cos, sin, do, scale, heads))
+            rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_backward_reference(
+                q, k, v, cos, sin, do, scale, heads), reps=2, windows=3)
+            # read q, k, v and dO once, write dq, dk, dv once; five 2 L^2 D products
+            nbytes = 7 * q.numel() * q.element_size() + 2 * cos.numel() * 4
+            flops = 5 * 2.0 * B * heads * L * L * hd
+            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+            emit(rec)
+            out[(B, name)] = rec
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    return out
+
+
+def attention_api_phase(torch, gen, dev):
+    """One full-width RoPE attention layer through the public entry point
+    ``rope_attention``, as a user builds it: x [128, 291, 768], separate
+    q, k, v Linear 768 -> 512 and an out Linear 512 -> 768 over f32
+    parameters, loss = mean(y^2), the backward through autograd (K5
+    forward, K6 backward). In f32 the parameters' gradients are held
+    against the same layer through the plain attention (torch autograd
+    through ``rope_attention_reference``); in bf16 (the parameters cast per
+    call) the loss and gradients must be finite, warm steps are timed, and
+    the launch counters, set to 0 before a profiled window of steps, must
+    equal the K5 and K6 kernels torch.profiler saw."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    heads, hd, L, dm, att = 8, 64, C.PAIR_LEN, 768, 512
+    cos, sin = rope_tables(hd, L, device=dev)
+    scale = 1.0 / hd ** 0.5
+    torch.manual_seed(SEED)
+    lin = torch.nn.ModuleDict({'q': torch.nn.Linear(dm, att), 'k': torch.nn.Linear(dm, att),
+                               'v': torch.nn.Linear(dm, att),
+                               'o': torch.nn.Linear(att, dm)}).to(dev)
+    x32 = torch.randn(TRAIN_B, L, dm, generator=gen).to(dev)
+
+    def step(x, attn=FA.rope_attention):
+        """One forward and backward; returns the loss and the gradients."""
+        lin.zero_grad(set_to_none=True)
+        cast = {n: (m.weight.to(x.dtype), m.bias.to(x.dtype)) for n, m in lin.items()}
+        q, k, v = (F.linear(x, *cast[n]) for n in 'qkv')
+        y = F.linear(attn(q, k, v, cos, sin, scale, heads), *cast['o'])
+        loss = y.float().square().mean()
+        loss.backward()
+        return loss.detach(), {n: p.grad for n, p in lin.named_parameters()}
+
+    loss_k, g_k = step(x32)
+    loss_p, g_p = step(x32, FA.rope_attention_reference)
+    rel = {n: ((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max()).item() for n in g_p}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    del g_k, g_p
+    x = x32.to(torch.bfloat16)
+    step(x)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loss, grads = step(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    finite = bool(torch.isfinite(loss).item()) and all(
+        bool(torch.isfinite(g).all().item()) for g in grads.values())
+    reset_counters()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(x)
+        torch.cuda.synchronize()
+    counted = counters()
+    groups, seen, top = kernel_groups(torch, prof, n)
+    busy = sum(groups.values())
+    rec = {'phase': 'attention_api', 'B': TRAIN_B, 'L': L, 'd_model': dm, 'att': att,
+           'heads': heads, 'f32_loss_rel_err': loss_rel, 'f32_max_grad_rel_err': rel[worst],
+           'f32_worst_param': worst, 'f32_grad_rtol': ATTN_API_F32_RTOL,
+           'bf16_finite': finite, 'steps': n, 'wall_ms_per_step': wall_ms,
+           'device_busy_ms_per_step': busy,
+           'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
+           'device_ms_per_step_by_group': groups, 'top': top[:8],
+           'counted_launches': counted, 'profiled_launches': seen}
+    emit(rec)
+    if not (finite and rel[worst] <= ATTN_API_F32_RTOL and loss_rel <= ATTN_API_F32_RTOL):
+        fail('the RoPE attention layer through rope_attention fails its checks')
+    if counted != seen or seen['K5'] != n or seen['K6'] != 2 * n:
+        fail(f'launch counters {counted} != kernels the profiler saw {seen}')
+    return {'launches': counted, 'steps': n}
+
+
+def k7_phase(torch, gen, dev):
+    """K7 through ``fused_attention`` ([B, H, L, D]) against its plain
+    version and through ``attention`` ([B, L, H, D], the same bits
+    expected) at L = 291, 8 heads x 64, B = 16 and 64, f32 and bf16; times
+    beside the plain version and scaled_dot_product_attention, which
+    computes the same function on the same inputs. Then both entry points
+    once with the counters set to 0, and the refusal of a CUDA input that
+    needs a gradient (K7 has no backward)."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    heads, hd, L = 8, 64, C.PAIR_LEN
+    scale = 1.0 / hd ** 0.5
+    out = {}
+
+    def t(x):
+        return x.transpose(1, 2)
+
+    for B in (MAIN_B, BIG_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            q, k, v = (torch.randn(B, heads, L, hd, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            got = FA.fused_attention(q, k, v, scale)
+            ref = t(FA.attention_reference(t(q), t(k), t(v), scale))
+            blhd = FA.attention(*(t(x).contiguous() for x in (q, k, v)), scale)
+            torch.cuda.synchronize()
+            errs, ok = check_err(torch, 'K7', got, ref)
+            rec = {'phase': 'K7', 'B': B, 'L': L, 'dtype': name, **errs,
+                   'blhd_identical': torch.equal(t(blhd), got)}
+            if not (ok and rec['blhd_identical']):
+                emit(rec)
+                fail(f'K7 disagrees with its plain version or across layouts ({name}, B={B})')
+            nbytes = 4 * q.numel() * q.element_size()
+            flops = 4.0 * B * heads * L * L * hd
+            rec.update(
+                ms=time_ms(torch, lambda: FA.fused_attention(q, k, v, scale)),
+                plain_ms=time_ms(torch, lambda: t(FA.attention_reference(
+                    t(q), t(k), t(v), scale)), reps=3),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale)))
+            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+            emit(rec)
+            out[(B, name)] = rec
+    q, k, v = (torch.randn(MAIN_B, L, heads, hd, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    reset_counters()
+    FA.attention(q, k, v, scale)
+    FA.fused_attention(t(q).contiguous(), t(k).contiguous(), t(v).contiguous(), scale)
+    torch.cuda.synchronize()
+    launched = counters()
+    try:
+        FA.attention(q.clone().requires_grad_(), k, v, scale)
+        refused = False
+    except RuntimeError:
+        refused = True
+    emit({'phase': 'K7_entry_points', 'B': MAIN_B, 'launches': launched,
+          'refuses_grad': refused})
+    if launched['K7'] != 2 or not refused:
+        fail(f'K7 entry points: launches {launched}, refused under autograd: {refused}')
+    return {'records': out, 'launches': launched['K7']}
+
+
+def k8_check_inputs(torch, B, dev, dtype):
+    """x ~ N(0, 1), column-blocked weights ~ N(0, 1/fan_in) and biases ~
+    N(0, 0.01), numpy seed SEED, at the probe's widths: inputs on which
+    attention is peaked, so that QK^T, the rotation and the softmax move y.
+    (On the probe's own weights y is almost all bias, within 0.05.)"""
+    import numpy as np
+    rs = np.random.RandomState(SEED)
+    dm, att = 768, 512
+    draws = (rs.randn(B, 291, dm), rs.randn(dm, 3 * att) / np.sqrt(dm),
+             rs.randn(3 * att) * 0.1, rs.randn(att, dm) / np.sqrt(att), rs.randn(dm) * 0.1)
+    return [torch.tensor(a, dtype=torch.float32).to(dev, dtype) for a in draws]
+
+
+def k8_phase(torch, dev):
+    """K8 at the probe's shapes (B = 64, L = 291, d_model 768, att 512, 8
+    heads). On ``k8_check_inputs``, in f32 and bf16: against its plain
+    version, against the production split (cuBLAS projections around K1) on
+    the head-major permutation of the same weights, and a repeated call for
+    the same bits. Then the probe's CLI ``main()`` with the counters set to
+    0 (the probe's seed-0 numpy weights in bf16): its fused_ms, current_ms,
+    speedup and rel_err are K8's numbers. On the probe's inputs, the plain
+    version, the same layer composed of torch.matmul, RoPE in torch, SDPA
+    and torch.matmul, and a profile of three calls (each kernel's device
+    time; the counters must equal the kernels seen)."""
+    import contextlib
+    import io
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    from hudiff_tpu_torch.tools import fused_layer_probe as FL
+    heads, B, L, att = FL.HEADS, 64, FL.L, FL.ATT
+    out = {}
+    cos, sin = rope_tables(att // heads, L, device=dev)
+    scale = (att // heads) ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        x, wqkv, bqkv, wout, bout = k8_check_inputs(torch, B, dev, dtype)
+        w_hm, b_hm = FL.column_blocked_to_head_major(wqkv, bqkv, heads)
+        before = FL.launches
+        y = FL.fused_layer(x, wqkv, bqkv, wout, bout, cos, sin, scale, heads)
+        per_call = FL.launches - before
+        again = FL.fused_layer(x, wqkv, bqkv, wout, bout, cos, sin, scale, heads)
+        ref = FL.fused_layer_reference(x, wqkv, bqkv, wout, bout, cos, sin, scale, heads)
+        cur = FL.current_layer(x, w_hm, b_hm, wout, bout, cos, sin, scale, heads)
+        torch.cuda.synchronize()
+        diff = (y.float() - ref.float()).abs()
+        peak = ref.float().abs().max().item()
+        held = (diff - (BF16_RTOL * ref.float().abs() if dtype == torch.bfloat16 else 0)).max()
+        rel = ((y.float() - cur.float()).abs().max() / cur.float().abs().max()).item()
+        # the plain version against the production split: how far two routes
+        # to the same function lie apart without K8 (reported, not held)
+        floor = ((ref.float() - cur.float()).abs().max() / cur.float().abs().max()).item()
+        # what the check can see: the plain version without the rotation
+        # and with a uniform softmax (scale 0), as fractions of max |ref|
+        moved = {}
+        for what, tables, s in (('without_rope', (torch.ones_like(cos), torch.zeros_like(sin)),
+                                 scale), ('uniform_softmax', (cos, sin), 0.0)):
+            other = FL.fused_layer_reference(x, wqkv, bqkv, wout, bout, *tables, s, heads)
+            moved[what] = ((other.float() - ref.float()).abs().max() / peak).item()
+            del other
+        rec = {'phase': 'K8', 'inputs': 'k8_check_inputs', 'B': B, 'L': L,
+               'd_model': FL.D_MODEL, 'att': att, 'heads': heads, 'dtype': name,
+               'max_abs_err': diff.max().item(), 'max_abs_ref': peak,
+               'held_over_max_ref': held.item() / peak, 'tol_over_max_ref': K8_TOL[name],
+               'rel_err_vs_current': rel, 'rel_err_tol': K8_REL_ERR[name],
+               'plain_rel_err_vs_current': floor, 'plain_moves_over_max_ref': moved,
+               'repeat_identical': torch.equal(y, again), 'launches_per_call': per_call}
+        if dtype == torch.bfloat16:
+            rec.update(excess_over_rtol=held.item(), rtol=BF16_RTOL)
+        ok = held.item() <= K8_TOL[name] * peak and bool(torch.isfinite(y).all().item())
+        emit(rec)
+        if not (ok and rel <= K8_REL_ERR[name] and rec['repeat_identical'] and per_call == 2):
+            fail(f'K8 fails its checks ({name})')
+        out[name] = rec
+        del x, y, again, ref, cur, diff
+        torch.cuda.empty_cache()
+
+    reset_counters()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        FL.main([])
+    launched = counters()
+    probe = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rec = {'phase': 'K8_probe_cli', **probe, 'launches': launched,
+           'rel_err_tol': K8_REL_ERR['bfloat16']}
+    if launched['K8'] <= 0 or not probe['rel_err'] <= K8_REL_ERR['bfloat16']:
+        emit(rec)
+        fail(f'the probe CLI: launches {launched}, rel_err {probe["rel_err"]}')
+    out['launches'] = launched['K8']
+
+    x, wqkv, bqkv, wout, bout, cos, sin, scale = FL.probe_inputs(B, dev, torch.bfloat16)
+
+    def fused():
+        return FL.fused_layer(x, wqkv, bqkv, wout, bout, cos, sin, scale, heads)
+
+    def composed():
+        q, k, v = (torch.matmul(x, wqkv) + bqkv).split(att, dim=-1)
+        o = F.scaled_dot_product_attention(
+            *_rotated_bhld(torch, q, k, v, cos, sin, heads), scale=scale)
+        return torch.matmul(o.transpose(1, 2).reshape(*x.shape[:2], att), wout) + bout
+
+    rec['ms'] = probe['fused_ms']
+    rec['plain_ms'] = time_ms(torch, lambda: FL.fused_layer_reference(
+        x, wqkv, bqkv, wout, bout, cos, sin, scale, heads), reps=2, windows=3)
+    rec['library_ms'] = time_ms(torch, composed)
+    rec['library'] = 'composition: torch.matmul, RoPE in torch, SDPA, torch.matmul'
+    # read x and the weights once, write y once; the two projections and
+    # QK^T, PV
+    nbytes = (2 * x.numel() + wqkv.numel() + bqkv.numel() + wout.numel()
+              + bout.numel()) * x.element_size() + 2 * cos.numel() * 4
+    flops = (2.0 * B * L * FL.D_MODEL * 3 * att + 4.0 * B * heads * L * L * (att // heads)
+             + 2.0 * B * L * att * FL.D_MODEL)
+    rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, 'bfloat16')
+
+    # device time of each of the two kernels over three calls, between
+    # stretches of cuBLAS work: in a window that starts or ends with them,
+    # the profiler missed one or two of the K8 kernels (on an H100 it saw 4
+    # and 5 of 6)
+    def cublas_work():
+        for _ in range(50):
+            torch.matmul(x, wqkv)
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cublas_work()
+        torch.cuda.synchronize()
+        reset_counters()
+        for _ in range(3):
+            fused()
+        cublas_work()
+        torch.cuda.synchronize()
+    counted = counters()
+    _, seen, top = kernel_groups(torch, prof, 3)
+    rec['kernels'] = [{'kernel': t['kernel'][:60], 'calls': t['calls'],
+                       'ms_per_call': t['ms_per_repeat']}
+                      for t in top if 'fused_layer_' in t['kernel']]
+    emit(rec)
+    if counted != seen or seen['K8'] != 6:
+        fail(f'K8: launch counters {counted} != kernels the profiler saw {seen}')
+    out['probe'] = rec
+    return out
+
+
+def later_kernels(results, api):
+    """The kernels line's entries for K5-K8."""
+    k5, k5_f32 = results['K5'][(MAIN_B, 'bfloat16')], results['K5'][(MAIN_B, 'float32')]
+    k6, k6_f32 = results['K6'][(TRAIN_B, 'bfloat16')], results['K6'][(TRAIN_B, 'float32')]
+    k7 = results['K7']['records'][(MAIN_B, 'bfloat16')]
+    k7_f32 = results['K7']['records'][(MAIN_B, 'float32')]
+    k8, k8_f32 = results['K8']['bfloat16'], results['K8']['float32']
+    probe = results['K8']['probe']
+
+    def entry(rec, rec_f32, timed=None, **kw):
+        timed = timed or rec
+        return {**kw, 'max_abs_err': rec['max_abs_err'],
+                'excess_over_rtol': rec['excess_over_rtol'],
+                'max_abs_err_f32': rec_f32['max_abs_err'], 'ms': timed['ms'],
+                'plain_ms': timed['plain_ms'], 'bound_ms': timed['bound_ms'],
+                'bound_by': timed['bound_by'], 'library_ms': timed['library_ms']}
+
+    return [
+        entry(k5, k5_f32, name='K5 fused RoPE attention (separate q, k, v)', route='cuda',
+              source='hudiff_tpu_torch/csrc/rope_attention.cu',
+              replaces='hudiff_tpu/ops/pallas_attention.py:76',
+              launches=api['launches']['K5'], launches_per_step=api['launches']['K5'] / api['steps'],
+              max_abs_diff_vs_K1=k5['max_abs_diff_vs_K1'],
+              shape=f'B={MAIN_B} L=291 H=8 D=64 bf16'),
+        entry(k6, k6_f32, name='K6 fused RoPE attention backward (separate dq, dk, dv)',
+              route='cuda', source='hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
+              replaces='hudiff_tpu/ops/pallas_attention.py:100',
+              launches=api['launches']['K6'], launches_per_step=api['launches']['K6'] / api['steps'],
+              shape=f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call (two kernels)'),
+        entry(k7, k7_f32, name='K7 softmax attention without RoPE ([B, H, L, D])', route='cuda',
+              source='hudiff_tpu_torch/csrc/rope_attention.cu',
+              replaces='hudiff_tpu/ops/pallas_attention.py:443',
+              launches=results['K7']['launches'], shape=f'B={MAIN_B} H=8 L=291 D=64 bf16'),
+        entry(k8, k8_f32, probe, name='K8 fused attention layer (qkv projection, RoPE '
+                                      'attention, out projection)', route='cuda',
+              source='hudiff_tpu_torch/csrc/fused_layer.cu',
+              replaces='tools/fused_layer_probe.py:34', launches=results['K8']['launches'],
+              launches_per_call=k8['launches_per_call'], library=probe['library'],
+              current_ms=probe['current_ms'], speedup=probe['speedup'],
+              rel_err_vs_current=probe['rel_err'],
+              shape='B=64 L=291 d_model=768 att=512 H=8 bf16, one call (two kernels); '
+                    'errors on k8_check_inputs, times on the probe\'s weights')]
 
 
 if __name__ == '__main__':

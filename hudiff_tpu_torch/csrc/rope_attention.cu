@@ -1,18 +1,33 @@
-// K1: fused rotate-half RoPE + softmax attention over a head-major merged
-// qkv projection, forward only.
+// K1, K5 and K7: one hand-written attention forward, instantiated three
+// times for three layouts.
 //
-// Replaces hudiff_tpu/ops/pallas_attention.py::_rope_fwd_kernel_qkv (called
-// through _pallas_fwd_qkv / rope_attention_qkv).
+// Replaces, in hudiff_tpu/ops/pallas_attention.py:
+//   K1 _rope_fwd_kernel_qkv (via _pallas_fwd_qkv / rope_attention_qkv):
+//      RoPE attention over a head-major merged qkv [B, L, H*3*64];
+//   K5 _rope_fwd_kernel (via _pallas_fwd / rope_attention): the same on
+//      separate q, k, v [B, L, H*64];
+//   K7 _attn_kernel (via fused_attention / attention): softmax attention
+//      without RoPE on [B, H, L, 64] (or [B, L, H, 64]), forward only.
 //
 // What it computes, per batch row b and head h (D = 64):
-//   q, k = rope(qkv[b, :, h*3D + {0, D}])        rotate-half, in f32
+//   q, k = rope(q), rope(k)                      rotate-half, in f32, rounded
+//                                                to the input type (K1, K5;
+//                                                K7 takes q, k as they are)
 //   S    = (q k^T in the input type, f32 accumulation) * scale
 //   P    = softmax(S) over all L keys (no mask: the pad token is a token)
-//   out[b, :, h*D:(h+1)*D] = P v                  f32 accumulation
+//   out  = P v, P rounded to v's type, f32 accumulation
+// K7's TPU kernel casts q and k to f32 before the product; a product of two
+// bf16 values is exact in f32, so bf16 WMMA with f32 accumulation computes
+// the same sums.
 //
-// What bounds it on an H100: bytes. At B=64, L=291, bf16 one call reads the
-// 57 MB qkv block and writes 19 MB, about 23 us at 3.35 TB/s, against about
-// 11 GFLOP (11 us) of tensor-core work.
+// Layout: each operand is reached through a base pointer and a Layout
+// (batch stride, row stride, per-head offset); q, k and v share one, out has
+// its own. K1 points q, k, v at columns 0, 64, 128 of the merged qkv.
+//
+// What bounds it on an H100 (data-sheet peaks of the NVIDIA H100 80GB HBM3 at
+// 700 W): bytes. At B=64, L=291, bf16 one K1 call reads
+// the 57 MB qkv block and writes 19 MB, about 23 us at 3.35 TB/s, against
+// about 11 GFLOP (11 us) of tensor-core work; K5 and K7 move the same bytes.
 //
 // Design: the TPU kernel held one batch row's whole [L, L] score block in
 // VMEM. An f32 [291, 291] block is 339 KB, more than a block's 227 KB of
@@ -26,129 +41,94 @@
 // of every row (no shared-memory bank conflicts). bf16 products run on WMMA
 // 16x16x16 fragments with f32 accumulators; f32 inputs (the tests'
 // reference type) take a plain FMA path so they stay exact. Each query tile
-// reads its head's K/V again; the repeats hit L2.
+// reads its head's K/V again; the repeats hit L2. The three instantiations
+// have their own kernel names, so a profiler tells them apart.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "attention_tiles.cuh"
 
-#include <cmath>
-#include <type_traits>
-
-using namespace nvcuda;
+using namespace hd;
 
 namespace {
 
-constexpr int HD = 64;       // head dim
-constexpr int D2 = HD / 2;
 constexpr int BQ = 64;       // queries per block
 constexpr int BKV = 64;      // keys per tile
-constexpr int WARPS = 4;     // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDF = 64 + 4;  // f32 tile row stride (WMMA: multiple of 4)
-
-template <typename T> struct Cfg { static constexpr int PAD = 4, VEC = 4; };
-template <> struct Cfg<__nv_bfloat16> { static constexpr int PAD = 8, VEC = 8; };
-
-// 16 bytes of T
-template <typename T> struct Pack {
-  uint4 u;
-  __device__ __forceinline__ T& operator[](int i) { return reinterpret_cast<T*>(&u)[i]; }
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 template <typename T>
 struct Smem {
-  static constexpr int LDT = HD + Cfg<T>::PAD;   // q/k/v tile row stride
-  static constexpr int LDP = BKV + Cfg<T>::PAD;  // probability tile row stride
+  static constexpr int LDT = ldt<T>();  // q/k/v and probability tile row stride
   static constexpr int Q = 0;
   static constexpr int K = round_up(Q + BQ * LDT * (int)sizeof(T), 128);
   static constexpr int V = round_up(K + BKV * LDT * (int)sizeof(T), 128);
   static constexpr int P = round_up(V + BKV * LDT * (int)sizeof(T), 128);
-  static constexpr int S = round_up(P + BQ * LDP * (int)sizeof(T), 128);
+  static constexpr int S = round_up(P + BQ * LDT * (int)sizeof(T), 128);
   static constexpr int O = round_up(S + BQ * LDF * 4, 128);
   static constexpr int BYTES = round_up(O + BQ * LDF * 4, 128);
 };
 
-// One 64-row tile of q or k (rotated) and v, held in registers between the
-// global loads and the shared-memory stores. Rotated item: one row's
-// columns [c, c + V) and [c + 32, c + 32 + V) with their cos/sin.
-template <typename T> struct TileRegs {
+// One 64-row tile of q or k (rotated when ROPE) and v, held in registers
+// between the global loads and the shared-memory stores. Rotated item: one
+// row's columns [c, c + V) and [c + 32, c + 32 + V) with their cos/sin.
+template <typename T, bool ROPE> struct TileRegs {
   static constexpr int V = Cfg<T>::VEC;
   static constexpr int NR = 64 * (D2 / V) / THREADS;  // rotated items per thread
   static constexpr int NV = 64 * (HD / V) / THREADS;  // plain vectors per thread
   Pack<T> x0[NR], x1[NR], v[NV];
   float cs[NR][V], sn[NR][V];
 
-  // rows [row0, row0 + 64) of one batch row; `col` is the q or k column
-  // group, `vcol` the v group (< 0: no v)
-  __device__ void load(const T* qkv, const float* cos_t, const float* sin_t, int b,
-                       int row0, int L, int col, int vcol, int row_stride) {
+  // rows [row0, row0 + 64) of one (b, h) slice: `src` is its q or k row 0,
+  // `vsrc` its v row 0 (nullptr: no v); rows are `row_stride` apart
+  __device__ void load(const T* src, const T* vsrc, const float* cos_t, const float* sin_t,
+                       int row0, int L, int row_stride) {
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const int idx = threadIdx.x + i * THREADS;
       const int r = idx / (D2 / V), c0 = (idx % (D2 / V)) * V, l = row0 + r;
       x0[i].u = x1[i].u = make_uint4(0, 0, 0, 0);
+      if (ROPE) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) cs[i][e] = sn[i][e] = 0.f;
+        for (int e = 0; e < V; ++e) cs[i][e] = sn[i][e] = 0.f;
+      }
       if (l < L) {
-        const T* src = qkv + ((size_t)b * L + l) * row_stride + col + c0;
-        x0[i].u = *reinterpret_cast<const uint4*>(src);
-        x1[i].u = *reinterpret_cast<const uint4*>(src + D2);
+        const T* p = src + (size_t)l * row_stride + c0;
+        x0[i].u = *reinterpret_cast<const uint4*>(p);
+        x1[i].u = *reinterpret_cast<const uint4*>(p + D2);
+        if (ROPE) {
 #pragma unroll
-        for (int e = 0; e < V; e += 4) {
-          const float4 cc = *reinterpret_cast<const float4*>(cos_t + l * D2 + c0 + e);
-          const float4 ss = *reinterpret_cast<const float4*>(sin_t + l * D2 + c0 + e);
-          cs[i][e] = cc.x, cs[i][e + 1] = cc.y, cs[i][e + 2] = cc.z, cs[i][e + 3] = cc.w;
-          sn[i][e] = ss.x, sn[i][e + 1] = ss.y, sn[i][e + 2] = ss.z, sn[i][e + 3] = ss.w;
+          for (int e = 0; e < V; e += 4) {
+            const float4 cc = *reinterpret_cast<const float4*>(cos_t + l * D2 + c0 + e);
+            const float4 ss = *reinterpret_cast<const float4*>(sin_t + l * D2 + c0 + e);
+            cs[i][e] = cc.x, cs[i][e + 1] = cc.y, cs[i][e + 2] = cc.z, cs[i][e + 3] = cc.w;
+            sn[i][e] = ss.x, sn[i][e + 1] = ss.y, sn[i][e + 2] = ss.z, sn[i][e + 3] = ss.w;
+          }
         }
       }
     }
-    if (vcol < 0) return;
+    if (vsrc == nullptr) return;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int idx = threadIdx.x + i * THREADS;
       const int r = idx / (HD / V), c0 = (idx % (HD / V)) * V, l = row0 + r;
       v[i].u = make_uint4(0, 0, 0, 0);
-      if (l < L)
-        v[i].u = *reinterpret_cast<const uint4*>(qkv + ((size_t)b * L + l) * row_stride +
-                                                  vcol + c0);
+      if (l < L) v[i].u = *reinterpret_cast<const uint4*>(vsrc + (size_t)l * row_stride + c0);
     }
   }
 
-  // rotate in f32 and round to T: (a, b) -> (a cos - b sin, a sin + b cos)
+  // rotate in f32 and round to T, (a, b) -> (a cos - b sin, a sin + b cos),
+  // or (without ROPE) store as loaded
   __device__ void store(T* s_rot, T* s_v) {
     constexpr int LDT = Smem<T>::LDT;
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const int idx = threadIdx.x + i * THREADS;
       const int r = idx / (D2 / V), c0 = (idx % (D2 / V)) * V;
-      Pack<T> lo, hi;
+      Pack<T> lo = x0[i], hi = x1[i];
+      if (ROPE) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float x = to_f(x0[i][e]), y = to_f(x1[i][e]);
-        lo[e] = from_f<T>(x * cs[i][e] - y * sn[i][e]);
-        hi[e] = from_f<T>(x * sn[i][e] + y * cs[i][e]);
+        for (int e = 0; e < V; ++e) {
+          const float x = to_f(x0[i][e]), y = to_f(x1[i][e]);
+          lo[e] = from_f<T>(x * cs[i][e] - y * sn[i][e]);
+          hi[e] = from_f<T>(x * sn[i][e] + y * cs[i][e]);
+        }
       }
       *reinterpret_cast<uint4*>(s_rot + r * LDT + c0) = lo.u;
       *reinterpret_cast<uint4*>(s_rot + r * LDT + c0 + D2) = hi.u;
@@ -163,88 +143,17 @@ template <typename T> struct TileRegs {
   }
 };
 
-// S[16 rows of this warp][64 keys] = Q K^T (unscaled), into sS.
-template <typename T>
-__device__ void scores(const T* sQ, const T* sK, float* sS, int warp, int lane) {
-  constexpr int LDT = Smem<T>::LDT;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BKV / 16];
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sQ + warp * 16 * LDT + kk, LDT);
-#pragma unroll
-      for (int j = 0; j < BKV / 16; ++j) {
-        // B[d][key] = K[key][d]: column-major view of the K tile
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, sK + j * 16 * LDT + kk, LDT);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j)
-      wmma::store_matrix_sync(sS + warp * 16 * LDF + j * 16, acc[j], LDF,
-                              wmma::mem_row_major);
-  } else {
-    const int r = warp * 16 + (lane >> 1), c0 = (lane & 1) * 32;
-    const float* q = sQ + r * LDT;
-    for (int c = c0; c < c0 + 32; ++c) {
-      const float* k = sK + c * LDT;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) s = fmaf(q[d], k[d], s);
-      sS[r * LDF + c] = s;
-    }
-  }
-}
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  Layout in, o;             // q, k, v share `in`
+  const float *cos_t, *sin_t;  // [L, 32] f32 (unused without RoPE)
+  int L;
+  float scale;
+};
 
-// O[16 rows][64] += P[16 rows][64 keys] V[64 keys][64], O kept in sO.
-template <typename T>
-__device__ void accumulate_pv(const T* sP, const T* sV, float* sO, int warp, int lane) {
-  constexpr int LDT = Smem<T>::LDT;
-  constexpr int LDP = Smem<T>::LDP;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[HD / 16];
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j)
-      wmma::load_matrix_sync(acc[j], sO + warp * 16 * LDF + j * 16, LDF, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BKV; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sP + warp * 16 * LDP + kk, LDP);
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sV + kk * LDT + j * 16, LDT);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j)
-      wmma::store_matrix_sync(sO + warp * 16 * LDF + j * 16, acc[j], LDF, wmma::mem_row_major);
-  } else {
-    const int r = warp * 16 + (lane >> 1), d0 = (lane & 1) * 32;
-    float o[32];
-#pragma unroll
-    for (int d = 0; d < 32; ++d) o[d] = sO[r * LDF + d0 + d];
-    for (int c = 0; c < BKV; ++c) {
-      const float p = sP[r * LDP + c];
-      const float* v = sV + c * LDT + d0;
-#pragma unroll
-      for (int d = 0; d < 32; ++d) o[d] = fmaf(p, v[d], o[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < 32; ++d) sO[r * LDF + d0 + d] = o[d];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rope_attention_qkv_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
-                          const float* __restrict__ sin_t, T* __restrict__ out, int L, int H,
-                          float scale) {
+template <typename T, bool ROPE>
+__device__ __forceinline__ void attention_fwd(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using SM = Smem<T>;
   T* sQ = reinterpret_cast<T*>(smem + SM::Q);
@@ -255,13 +164,15 @@ rope_attention_qkv_kernel(const T* __restrict__ qkv, const float* __restrict__ c
   float* sO = reinterpret_cast<float*>(smem + SM::O);
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_stride = 3 * H * HD, qcol = h * 3 * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, L = a.L;
+  const T* q = static_cast<const T*>(a.q) + a.in.at(b, h);
+  const T* k = static_cast<const T*>(a.k) + a.in.at(b, h);
+  const T* v = static_cast<const T*>(a.v) + a.in.at(b, h);
 
-  TileRegs<T> regs;
-  regs.load(qkv, cos_t, sin_t, b, q0, L, qcol, -1, row_stride);
+  TileRegs<T, ROPE> regs;
+  regs.load(q, nullptr, a.cos_t, a.sin_t, q0, L, a.in.row);
   regs.store(sQ, nullptr);
-  regs.load(qkv, cos_t, sin_t, b, 0, L, qcol + HD, qcol + 2 * HD, row_stride);
+  regs.load(k, v, a.cos_t, a.sin_t, 0, L, a.in.row);
   for (int idx = threadIdx.x; idx < BQ * LDF; idx += THREADS) sO[idx] = 0.f;
 
   // every lane of a warp tracks the running max / sum of the warp's 16 rows
@@ -269,63 +180,54 @@ rope_attention_qkv_kernel(const T* __restrict__ qkv, const float* __restrict__ c
 #pragma unroll
   for (int r = 0; r < 16; ++r) m_run[r] = -INFINITY, l_run[r] = 0.f;
 
+  Acc<T> acc;
   for (int k0 = 0; k0 < L; k0 += BKV) {
     __syncthreads();  // previous tile's sK / sV fully read
     regs.store(sK, sV);
     __syncthreads();
     if (k0 + BKV < L)  // next tile's loads overlap this tile's compute
-      regs.load(qkv, cos_t, sin_t, b, k0 + BKV, L, qcol + HD, qcol + 2 * HD, row_stride);
+      regs.load(k, v, a.cos_t, a.sin_t, k0 + BKV, L, a.in.row);
 
-    scores<T>(sQ, sK, sS, warp, lane);
+    acc.zero();
+    acc.abt(sQ, sK, warp, lane);  // S = Q K^T, unscaled
+    acc.store(sS, warp, lane);
     __syncwarp();
-
-    // online softmax; lane owns columns lane and lane + 32 of each row
-    const bool ok0 = k0 + lane < L, ok1 = k0 + lane + 32 < L;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const float s0 = ok0 ? sS[row * LDF + lane] * scale : -INFINITY;
-      const float s1 = ok1 ? sS[row * LDF + lane + 32] * scale : -INFINITY;
-      const float m_new = fmaxf(m_run[r], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m_run[r] - m_new);
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      l_run[r] = l_run[r] * alpha + warp_sum(p0 + p1);
-      m_run[r] = m_new;
-      sP[row * SM::LDP + lane] = from_f<T>(p0);
-      sP[row * SM::LDP + lane + 32] = from_f<T>(p1);
-      sO[row * LDF + lane] *= alpha;
-      sO[row * LDF + lane + 32] *= alpha;
-    }
+    softmax_tile(sS, sP, sO, m_run, l_run, k0, L, a.scale, warp, lane);
     __syncwarp();
-    accumulate_pv<T>(sP, sV, sO, warp, lane);
+    acc.load(sO, warp, lane);     // O += P V
+    acc.ab(sP, sV, warp, lane);
+    acc.store(sO, warp, lane);
   }
   __syncwarp();
-
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r, l = q0 + row;
-    if (l < L) {
-      const float inv = 1.f / l_run[r];
-      T* dst = out + ((size_t)b * L + l) * (H * HD) + h * HD;
-      dst[lane] = from_f<T>(sO[row * LDF + lane] * inv);
-      dst[lane + 32] = from_f<T>(sO[row * LDF + lane + 32] * inv);
-    }
-  }
+  store_rows(static_cast<T*>(a.out) + a.o.at(b, h), a.o.row, sO, l_run, q0, L, warp, lane);
 }
 
 template <typename T>
-int launch(const void* qkv, const float* cos_t, const float* sin_t, void* out, int B, int L,
-           int H, float scale, cudaStream_t stream) {
-  auto kernel = rope_attention_qkv_kernel<T>;
+__global__ void __launch_bounds__(THREADS) rope_attention_qkv_kernel(Args a) {
+  attention_fwd<T, true>(a);
+}
+template <typename T>
+__global__ void __launch_bounds__(THREADS) rope_attention_sep_fwd_kernel(Args a) {
+  attention_fwd<T, true>(a);
+}
+template <typename T>
+__global__ void __launch_bounds__(THREADS) plain_attention_kernel(Args a) {
+  attention_fwd<T, false>(a);
+}
+
+template <typename T, void (*KERNEL)(Args)>
+int launch(const Args& a, int B, int H, cudaStream_t stream) {
   // set once per instantiation: the port drives one card per process
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T>::BYTES);
+      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T>::BYTES);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, Smem<T>::BYTES, stream>>>(
-      static_cast<const T*>(qkv), cos_t, sin_t, static_cast<T*>(out), L, H, scale);
+  dim3 grid((a.L + BQ - 1) / BQ, H, B);
+  KERNEL<<<grid, THREADS, Smem<T>::BYTES, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int B, int L, int H, int head_dim) {
+  return head_dim != HD || B <= 0 || L <= 0 || H <= 0 || H > 65535 || B > 65535;
 }
 
 }  // namespace
@@ -335,12 +237,46 @@ int launch(const void* qkv, const float* cos_t, const float* sin_t, void* out, i
 extern "C" int hd_rope_attention_qkv(const void* qkv, const void* cos_t, const void* sin_t,
                                      void* out, int B, int L, int H, int head_dim,
                                      float scale, int dtype, void* stream) {
-  if (head_dim != HD || B <= 0 || L <= 0 || H <= 0 || H > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, L, H, head_dim)) return (int)cudaErrorInvalidValue;
+  const int es = dtype == 0 ? 4 : 2;
+  const char* base = static_cast<const char*>(qkv);
+  const Args a{base, base + HD * es, base + 2 * HD * es, out,
+               Layout{L * 3 * H * HD, 3 * H * HD, 3 * HD}, Layout{L * H * HD, H * HD, HD},
+               static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), L, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  auto c = static_cast<const float*>(cos_t);
-  auto n = static_cast<const float*>(sin_t);
-  if (dtype == 0) return launch<float>(qkv, c, n, out, B, L, H, scale, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(qkv, c, n, out, B, L, H, scale, s);
+  if (dtype == 0) return launch<float, rope_attention_qkv_kernel<float>>(a, B, H, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, rope_attention_qkv_kernel<__nv_bfloat16>>(a, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k, v, out [B, L, H*64] (K5), cos/sin [L, 32] f32; dtype as above.
+extern "C" int hd_rope_attention(const void* q, const void* k, const void* v,
+                                 const void* cos_t, const void* sin_t, void* out, int B, int L,
+                                 int H, int head_dim, float scale, int dtype, void* stream) {
+  if (bad_shape(B, L, H, head_dim)) return (int)cudaErrorInvalidValue;
+  const Layout lay{L * H * HD, H * HD, HD};
+  const Args a{q, k, v, out, lay, lay, static_cast<const float*>(cos_t),
+               static_cast<const float*>(sin_t), L, scale};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, rope_attention_sep_fwd_kernel<float>>(a, B, H, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, rope_attention_sep_fwd_kernel<__nv_bfloat16>>(a, B, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7: q, k, v with element (b, h, l, c) at b*in_batch + h*in_head + l*in_row + c,
+// out likewise with the out_* strides; no RoPE; dtype as above.
+extern "C" int hd_attention(const void* q, const void* k, const void* v, void* out, int B,
+                            int L, int H, int head_dim, int in_batch, int in_row, int in_head,
+                            int out_batch, int out_row, int out_head, float scale, int dtype,
+                            void* stream) {
+  if (bad_shape(B, L, H, head_dim)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, out, Layout{in_batch, in_row, in_head},
+               Layout{out_batch, out_row, out_head}, nullptr, nullptr, L, scale};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, plain_attention_kernel<float>>(a, B, H, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, plain_attention_kernel<__nv_bfloat16>>(a, B, H, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,12 @@
-// K3: backward of the fused rotate-half RoPE attention over a head-major
-// merged qkv projection (K1), as two launches.
+// K3 and K6: backward of the fused rotate-half RoPE attention, as two
+// launches, instantiated for two layouts.
 //
-// Replaces hudiff_tpu/ops/pallas_attention.py::_rope_bwd_kernel_qkv (called
-// through _pallas_bwd_qkv, the backward of the custom VJP around K1).
+// Replaces, in hudiff_tpu/ops/pallas_attention.py:
+//   K3 _rope_bwd_kernel_qkv (via _pallas_bwd_qkv, the backward of the custom
+//      VJP around K1): q, k, v and their gradients in one head-major merged
+//      [B, L, H*3*64] tensor each;
+//   K6 _rope_bwd_kernel (via _pallas_bwd, the backward of the custom VJP
+//      around K5): separate q, k, v and dq, dk, dv, each [B, L, H*64].
 //
 // What it computes, per batch row b and head h (D = 64), with T the input
 // type (f32 or bf16) and every product of T values accumulated in f32:
@@ -12,84 +16,50 @@
 //   dP     = dO v^T ; delta = rowsum(dP o P)
 //   dS     = T(P o (dP - delta))
 //   dq     = rope^T(dS kh * scale), dk = rope^T(dS^T qh * scale), in f32
-//   dqkv[b, :, h*3D + {0, D, 2D}] = T(dq), T(dk), T(dv)
+//   dq, dk, dv rounded to T
+// q, k, v and dq, dk, dv share one Layout (batch stride, row stride,
+// per-head offset); dO is [B, L, H*64] in both.
 //
-// What bounds it on an H100: at B=128, L=291, bf16 one call reads qkv and
-// dO (143 MB) and writes dqkv (114 MB), 0.080 ms at 3.35 TB/s, against five
-// 2*L^2*D products per (row, head), 55.5 GFLOP or 0.056 ms at 989 TFLOP/s:
-// bytes, narrowly.
+// What bounds it on an H100 (data-sheet peaks of the NVIDIA H100 80GB HBM3 at
+// 700 W): at B=128, L=291, bf16 one call reads q, k, v
+// and dO (143 MB) and writes dq, dk, dv (114 MB), 0.080 ms at 3.35 TB/s,
+// against five 2*L^2*D products per (row, head), 55.5 GFLOP or 0.056 ms at
+// 989 TFLOP/s: bytes, narrowly.
 //
 // Design: the TPU kernel held a row's whole [L, L] score block per head in
 // VMEM; an f32 [291, 291] block is 339 KB, more than a block's 227 KB of
 // shared memory, and dK, dV are sums over all query rows, which Hopper
 // blocks cannot carry across a grid. So two passes, with no atomics and the
 // same bits every run:
-//   (a) rope_attention_bwd_dq_kernel: one block per (b, h, 64 queries)
-//       walks the keys in 64-wide tiles twice. The first walk keeps the
-//       running max m, sum l and sum of exp(s - m) * dP per row (online, as
-//       K1 does), so delta = that sum / l; the second recomputes P exactly,
-//       forms dS and accumulates dQ = dS K. It writes dq and the row
-//       statistics (m, l, delta) [3][B, H, L] f32.
-//   (b) rope_attention_bwd_dkv_kernel: one block per (b, h, 64 keys) walks
-//       the query tiles, recomputes P from the saved statistics and
-//       accumulates dV = P^T dO and dK = dS^T Q in registers.
+//   (a) the dq kernel: one block per (b, h, 64 queries) walks the keys in
+//       64-wide tiles twice. The first walk keeps the running max m, sum l
+//       and sum of exp(s - m) * dP per row (online, as K1 does), so delta =
+//       that sum / l; the second recomputes P exactly, forms dS and
+//       accumulates dQ = dS K. It writes dq and the row statistics
+//       (m, l, delta) [3][B, H, L] f32.
+//   (b) the dkv kernel: one block per (b, h, 64 keys) walks the query
+//       tiles, recomputes P from the saved statistics and accumulates
+//       dV = P^T dO and dK = dS^T Q in registers.
 // Keys >= L are masked, rows >= L never written. bf16 products run on WMMA
 // 16x16x16 fragments with f32 accumulators (the transposed products load a
 // column-major A fragment); f32 inputs take a plain FMA path so they stay
 // exact. Tiles are staged synchronously; each pass recomputes S (and dP)
 // instead of keeping them, so the block's shared memory stays at 91 KB in
-// bf16.
+// bf16. K3's kernels are rope_attention_bwd_{dq,dkv}_kernel, K6's
+// rope_attention_sep_bwd_{dq,dkv}_kernel: one body, two names.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "attention_tiles.cuh"
 
-#include <cmath>
-
-using namespace nvcuda;
+using namespace hd;
 
 namespace {
 
-constexpr int HD = 64;       // head dim
-constexpr int D2 = HD / 2;
 constexpr int BT = 64;       // queries or keys per tile
-constexpr int WARPS = 4;     // each warp owns 16 rows of a tile
-constexpr int THREADS = WARPS * 32;
-constexpr int LDF = 64 + 4;  // f32 tile row stride (WMMA: multiple of 4)
-
-template <typename T> struct Cfg { static constexpr int PAD = 4, VEC = 4; };
-template <> struct Cfg<__nv_bfloat16> { static constexpr int PAD = 8, VEC = 8; };
-
-template <typename T> struct Pack {
-  uint4 u;
-  __device__ __forceinline__ T& operator[](int i) { return reinterpret_cast<T*>(&u)[i]; }
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Shared memory: six T tiles [64][LDT] and two f32 tiles [64][LDF], plus
 // three per-row statistics of a query tile.
 template <typename T> struct Smem {
-  static constexpr int LDT = HD + Cfg<T>::PAD;
+  static constexpr int LDT = ldt<T>();
   static constexpr int TILE = round_up(BT * LDT * (int)sizeof(T), 128);
   static constexpr int FTILE = round_up(BT * LDF * 4, 128);
   static constexpr int T0 = 0;                       // 6 T tiles
@@ -98,18 +68,18 @@ template <typename T> struct Smem {
   static constexpr int BYTES = ST + 3 * BT * 4;
 };
 
-// rows [row0, row0 + 64) of q or k (column group `col`), rotated in f32 and
-// rounded to T; zero rows past L
+// rows [row0, row0 + 64) of one (b, h) slice of q or k (`src` its row 0,
+// rows `row_stride` apart), rotated in f32 and rounded to T; zero rows past L
 template <typename T>
 __device__ void load_rot(T* dst, const T* src, const float* cos_t, const float* sin_t,
-                         int b, int row0, int L, int col, int row_stride) {
+                         int row0, int L, int row_stride) {
   constexpr int V = Cfg<T>::VEC, LDT = Smem<T>::LDT;
   for (int idx = threadIdx.x; idx < BT * (D2 / V); idx += THREADS) {
     const int r = idx / (D2 / V), c0 = (idx % (D2 / V)) * V, l = row0 + r;
     Pack<T> lo, hi;
     lo.u = hi.u = make_uint4(0, 0, 0, 0);
     if (l < L) {
-      const T* p = src + ((size_t)b * L + l) * row_stride + col + c0;
+      const T* p = src + (size_t)l * row_stride + c0;
       Pack<T> x0, x1;
       x0.u = *reinterpret_cast<const uint4*>(p);
       x1.u = *reinterpret_cast<const uint4*>(p + D2);
@@ -126,120 +96,17 @@ __device__ void load_rot(T* dst, const T* src, const float* cos_t, const float* 
   }
 }
 
-// rows [row0, row0 + 64) of a 64-wide column group as they are
+// rows [row0, row0 + 64) of one (b, h) slice as they are
 template <typename T>
-__device__ void load_plain(T* dst, const T* src, int b, int row0, int L, int col,
-                           int row_stride) {
+__device__ void load_plain(T* dst, const T* src, int row0, int L, int row_stride) {
   constexpr int V = Cfg<T>::VEC, LDT = Smem<T>::LDT;
   for (int idx = threadIdx.x; idx < BT * (HD / V); idx += THREADS) {
     const int r = idx / (HD / V), c0 = (idx % (HD / V)) * V, l = row0 + r;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (l < L)
-      v = *reinterpret_cast<const uint4*>(src + ((size_t)b * L + l) * row_stride + col + c0);
+    if (l < L) v = *reinterpret_cast<const uint4*>(src + (size_t)l * row_stride + c0);
     *reinterpret_cast<uint4*>(dst + r * LDT + c0) = v;
   }
 }
-
-// A warp's 16 x 64 f32 accumulator over rows [16 warp, 16 warp + 16) of C.
-// Every operand is a 64 x 64 T tile with row stride LDT; depth 64.
-//   abt: C += A B^T     ab: C += A B     atb: C += A^T B
-template <typename T> struct Acc;
-
-template <> struct Acc<__nv_bfloat16> {
-  using bf16 = __nv_bfloat16;
-  static constexpr int LD = Smem<bf16>::LDT;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[4];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(f[j], 0.f);
-  }
-  __device__ void abt(const bf16* A, const bf16* B, int warp, int) {
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + warp * 16 * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, B + j * 16 * LD + kk, LD);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-  __device__ void ab(const bf16* A, const bf16* B, int warp, int) {
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + warp * 16 * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + kk * LD + j * 16, LD);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-  __device__ void atb(const bf16* A, const bf16* B, int warp, int) {
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      // A^T[m][k] = A[k][m]: a column-major view of A's rows kk..kk+15
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, A + kk * LD + warp * 16, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + kk * LD + j * 16, LD);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-  __device__ void store(float* C, int warp, int) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(C + warp * 16 * LDF + j * 16, f[j], LDF, wmma::mem_row_major);
-  }
-};
-
-// f32: lane owns row 16 warp + lane / 2, columns [32 (lane & 1), +32).
-template <> struct Acc<float> {
-  static constexpr int LD = Smem<float>::LDT;
-  float c[32];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < 32; ++j) c[j] = 0.f;
-  }
-  __device__ void abt(const float* A, const float* B, int warp, int lane) {
-    const int r = warp * 16 + (lane >> 1), c0 = (lane & 1) * 32;
-    for (int d = 0; d < 64; ++d) {
-      const float a = A[r * LD + d];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) c[j] = fmaf(a, B[(c0 + j) * LD + d], c[j]);
-    }
-  }
-  __device__ void ab(const float* A, const float* B, int warp, int lane) {
-    const int r = warp * 16 + (lane >> 1), c0 = (lane & 1) * 32;
-    for (int k = 0; k < 64; ++k) {
-      const float a = A[r * LD + k];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) c[j] = fmaf(a, B[k * LD + c0 + j], c[j]);
-    }
-  }
-  __device__ void atb(const float* A, const float* B, int warp, int lane) {
-    const int r = warp * 16 + (lane >> 1), c0 = (lane & 1) * 32;
-    for (int k = 0; k < 64; ++k) {
-      const float a = A[k * LD + r];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) c[j] = fmaf(a, B[k * LD + c0 + j], c[j]);
-    }
-  }
-  __device__ void store(float* C, int warp, int lane) {
-    const int r = warp * 16 + (lane >> 1), c0 = (lane & 1) * 32;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) C[r * LDF + c0 + j] = c[j];
-  }
-};
 
 // One output row's 64 columns from an f32 tile row: rotated back by the
 // inverse RoPE after scaling (rot = true), or as they are.
@@ -257,12 +124,18 @@ __device__ void write_row(T* dst, const float* row, const float* cos_t, const fl
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *dout;
+  void *dq, *dk, *dv;
+  float* stats;             // [3][B, H, L] f32 scratch
+  Layout in;                // q, k, v, dq, dk, dv
+  const float *cos_t, *sin_t;
+  int L;
+  float scale;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rope_attention_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
-                             const float* __restrict__ sin_t, const T* __restrict__ dout,
-                             T* __restrict__ dqkv, float* __restrict__ stats, int L, int H,
-                             float scale) {
+__device__ __forceinline__ void bwd_dq(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using SM = Smem<T>;
   constexpr int LDT = SM::LDT;
@@ -274,14 +147,19 @@ rope_attention_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict_
   float* sS = reinterpret_cast<float*>(smem + SM::F0);
   float* sDP = reinterpret_cast<float*>(smem + SM::F0 + SM::FTILE);
 
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_stride = 3 * H * HD, qcol = h * 3 * HD;
-  const int o_stride = H * HD, ocol = h * HD;
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, L = a.L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, rs = a.in.row;
+  const float scale = a.scale;
+  const size_t bh = a.in.at(b, h);
+  const T* q = static_cast<const T*>(a.q) + bh;
+  const T* k = static_cast<const T*>(a.k) + bh;
+  const T* v = static_cast<const T*>(a.v) + bh;
+  const T* dout = static_cast<const T*>(a.dout) + ((size_t)b * L * H + h) * HD;
+  float* stats = a.stats;
   const size_t bhl = (size_t)gridDim.z * H * L, srow = ((size_t)b * H + h) * L;
 
-  load_rot(sQ, qkv, cos_t, sin_t, b, q0, L, qcol, row_stride);
-  load_plain(sDO, dout, b, q0, L, ocol, o_stride);
+  load_rot(sQ, q, a.cos_t, a.sin_t, q0, L, rs);
+  load_plain(sDO, dout, q0, L, H * HD);
 
   // every lane of a warp tracks its 16 rows' running max, sum and
   // sum of exp(s - m) * dP
@@ -295,8 +173,8 @@ rope_attention_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict_
     dq.zero();
     for (int k0 = 0; k0 < L; k0 += BT) {
       __syncthreads();  // previous tile fully read
-      load_rot(sK, qkv, cos_t, sin_t, b, k0, L, qcol + HD, row_stride);
-      load_plain(sV, qkv, b, k0, L, qcol + 2 * HD, row_stride);
+      load_rot(sK, k, a.cos_t, a.sin_t, k0, L, rs);
+      load_plain(sV, v, k0, L, rs);
       __syncthreads();
       acc.zero();
       acc.abt(sQ, sK, warp, lane);
@@ -345,23 +223,20 @@ rope_attention_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict_
       __syncwarp();
       dq.store(sS, warp, lane);  // the warp's own rows of sS
       __syncwarp();
+      T* dst = static_cast<T*>(a.dq) + bh;
 #pragma unroll 1
       for (int r = 0; r < 16; ++r) {
         const int row = warp * 16 + r, l = q0 + row;
         if (l < L)
-          write_row(dqkv + ((size_t)b * L + l) * row_stride + qcol, sS + row * LDF, cos_t,
-                    sin_t, l, scale, true, lane);
+          write_row(dst + (size_t)l * rs, sS + row * LDF, a.cos_t, a.sin_t, l, scale, true,
+                    lane);
       }
     }
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rope_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict__ cos_t,
-                              const float* __restrict__ sin_t, const T* __restrict__ dout,
-                              T* __restrict__ dqkv, const float* __restrict__ stats, int L,
-                              int H, float scale) {
+__device__ __forceinline__ void bwd_dkv(const Args& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   using SM = Smem<T>;
   constexpr int LDT = SM::LDT;
@@ -377,14 +252,19 @@ rope_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict
   float* sL = sM + BT;
   float* sD = sL + BT;
 
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row_stride = 3 * H * HD, qcol = h * 3 * HD;
-  const int o_stride = H * HD, ocol = h * HD;
+  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, L = a.L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, rs = a.in.row;
+  const float scale = a.scale;
+  const size_t bh = a.in.at(b, h);
+  const T* q = static_cast<const T*>(a.q) + bh;
+  const T* k = static_cast<const T*>(a.k) + bh;
+  const T* v = static_cast<const T*>(a.v) + bh;
+  const T* dout = static_cast<const T*>(a.dout) + ((size_t)b * L * H + h) * HD;
+  const float* stats = a.stats;
   const size_t bhl = (size_t)gridDim.z * H * L, srow = ((size_t)b * H + h) * L;
 
-  load_rot(sK, qkv, cos_t, sin_t, b, k0, L, qcol + HD, row_stride);
-  load_plain(sV, qkv, b, k0, L, qcol + 2 * HD, row_stride);
+  load_rot(sK, k, a.cos_t, a.sin_t, k0, L, rs);
+  load_plain(sV, v, k0, L, rs);
 
   Acc<T> dk, dv, acc;
   dk.zero();
@@ -392,8 +272,8 @@ rope_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict
   const bool ok0 = k0 + lane < L, ok1 = k0 + lane + 32 < L;
   for (int q0 = 0; q0 < L; q0 += BT) {
     __syncthreads();  // previous query tile fully read
-    load_rot(sQ, qkv, cos_t, sin_t, b, q0, L, qcol, row_stride);
-    load_plain(sDO, dout, b, q0, L, ocol, o_stride);
+    load_rot(sQ, q, a.cos_t, a.sin_t, q0, L, rs);
+    load_plain(sDO, dout, q0, L, H * HD);
     for (int i = threadIdx.x; i < BT; i += THREADS) {
       const bool ok = q0 + i < L;
       sM[i] = ok ? stats[srow + q0 + i] : 0.f;
@@ -428,43 +308,60 @@ rope_attention_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict
   dv.store(sS, warp, lane);
   dk.store(sDP, warp, lane);
   __syncwarp();
+  T* dk_out = static_cast<T*>(a.dk) + bh;
+  T* dv_out = static_cast<T*>(a.dv) + bh;
 #pragma unroll 1
   for (int r = 0; r < 16; ++r) {
     const int row = warp * 16 + r, l = k0 + row;
     if (l < L) {
-      T* dst = dqkv + ((size_t)b * L + l) * row_stride + qcol;
-      write_row(dst + HD, sDP + row * LDF, cos_t, sin_t, l, scale, true, lane);
-      write_row(dst + 2 * HD, sS + row * LDF, cos_t, sin_t, l, scale, false, lane);
+      write_row(dk_out + (size_t)l * rs, sDP + row * LDF, a.cos_t, a.sin_t, l, scale, true,
+                lane);
+      write_row(dv_out + (size_t)l * rs, sS + row * LDF, a.cos_t, a.sin_t, l, scale, false,
+                lane);
     }
   }
 }
 
 template <typename T>
-int launch(const void* qkv, const float* cos_t, const float* sin_t, const void* dout,
-           void* dqkv, float* stats, int B, int L, int H, float scale, cudaStream_t stream,
-           int* launched) {
+__global__ void __launch_bounds__(THREADS) rope_attention_bwd_dq_kernel(Args a) {
+  bwd_dq<T>(a);
+}
+template <typename T>
+__global__ void __launch_bounds__(THREADS) rope_attention_bwd_dkv_kernel(Args a) {
+  bwd_dkv<T>(a);
+}
+template <typename T>
+__global__ void __launch_bounds__(THREADS) rope_attention_sep_bwd_dq_kernel(Args a) {
+  bwd_dq<T>(a);
+}
+template <typename T>
+__global__ void __launch_bounds__(THREADS) rope_attention_sep_bwd_dkv_kernel(Args a) {
+  bwd_dkv<T>(a);
+}
+
+template <typename T, void (*DQ)(Args), void (*DKV)(Args)>
+int launch(const Args& a, int B, int H, cudaStream_t stream, int* launched) {
   constexpr int bytes = Smem<T>::BYTES;
   // set once per instantiation: the port drives one card per process
-  static const cudaError_t a1 = cudaFuncSetAttribute(
-      rope_attention_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  static const cudaError_t a2 = cudaFuncSetAttribute(
-      rope_attention_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static const cudaError_t a1 =
+      cudaFuncSetAttribute(DQ, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static const cudaError_t a2 =
+      cudaFuncSetAttribute(DKV, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (a1 != cudaSuccess) return (int)a1;
   if (a2 != cudaSuccess) return (int)a2;
-  const dim3 grid((L + BT - 1) / BT, H, B);
-  auto q = static_cast<const T*>(qkv);
-  auto d = static_cast<const T*>(dout);
-  auto g = static_cast<T*>(dqkv);
+  const dim3 grid((a.L + BT - 1) / BT, H, B);
   cudaError_t err;
-  rope_attention_bwd_dq_kernel<T><<<grid, THREADS, bytes, stream>>>(q, cos_t, sin_t, d, g,
-                                                                     stats, L, H, scale);
+  DQ<<<grid, THREADS, bytes, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ++*launched;
-  rope_attention_bwd_dkv_kernel<T><<<grid, THREADS, bytes, stream>>>(q, cos_t, sin_t, d, g,
-                                                                      stats, L, H, scale);
+  DKV<<<grid, THREADS, bytes, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ++*launched;
   return 0;
+}
+
+bool bad_shape(int B, int L, int H, int head_dim) {
+  return head_dim != HD || B <= 0 || L <= 0 || H <= 0 || H > 65535 || B > 65535;
 }
 
 }  // namespace
@@ -478,14 +375,41 @@ extern "C" int hd_rope_attention_qkv_bwd(const void* qkv, const void* cos_t,
                                          void* stats, int B, int L, int H, int head_dim,
                                          float scale, int dtype, void* stream, int* launched) {
   *launched = 0;
-  if (head_dim != HD || B <= 0 || L <= 0 || H <= 0 || H > 65535 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, L, H, head_dim)) return (int)cudaErrorInvalidValue;
+  const int es = dtype == 0 ? 4 : 2;
+  const char* in = static_cast<const char*>(qkv);
+  char* g = static_cast<char*>(dqkv);
+  const Args a{in, in + HD * es, in + 2 * HD * es, dout, g, g + HD * es, g + 2 * HD * es,
+               static_cast<float*>(stats), Layout{L * 3 * H * HD, 3 * H * HD, 3 * HD},
+               static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), L, scale};
   auto s = static_cast<cudaStream_t>(stream);
-  auto c = static_cast<const float*>(cos_t);
-  auto n = static_cast<const float*>(sin_t);
-  auto st = static_cast<float*>(stats);
-  if (dtype == 0) return launch<float>(qkv, c, n, dout, dqkv, st, B, L, H, scale, s, launched);
+  if (dtype == 0)
+    return launch<float, rope_attention_bwd_dq_kernel<float>,
+                  rope_attention_bwd_dkv_kernel<float>>(a, B, H, s, launched);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(qkv, c, n, dout, dqkv, st, B, L, H, scale, s, launched);
+    return launch<__nv_bfloat16, rope_attention_bwd_dq_kernel<__nv_bfloat16>,
+                  rope_attention_bwd_dkv_kernel<__nv_bfloat16>>(a, B, H, s, launched);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6: q, k, v, dout [B, L, H*64], dq, dk, dv [B, L, H*64] out, stats and
+// the rest as above.
+extern "C" int hd_rope_attention_bwd(const void* q, const void* k, const void* v,
+                                     const void* cos_t, const void* sin_t, const void* dout,
+                                     void* dq, void* dk, void* dv, void* stats, int B, int L,
+                                     int H, int head_dim, float scale, int dtype, void* stream,
+                                     int* launched) {
+  *launched = 0;
+  if (bad_shape(B, L, H, head_dim)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, dout, dq, dk, dv, static_cast<float*>(stats),
+               Layout{L * H * HD, H * HD, HD}, static_cast<const float*>(cos_t),
+               static_cast<const float*>(sin_t), L, scale};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, rope_attention_sep_bwd_dq_kernel<float>,
+                  rope_attention_sep_bwd_dkv_kernel<float>>(a, B, H, s, launched);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, rope_attention_sep_bwd_dq_kernel<__nv_bfloat16>,
+                  rope_attention_sep_bwd_dkv_kernel<__nv_bfloat16>>(a, B, H, s, launched);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,10 @@
 
 Each ``hudiff_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on first use into ``build/hudiff_tpu_torch/lib<name>-<hash>.so``
-beside the package (the hash is of the source and flags, so an edited source
-rebuilds). Nothing here runs at import time: the CPU tests import every
-module on machines without ``nvcc``.
+beside the package (the hash is of the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds).
+Nothing here runs at import time: the CPU tests import every module on
+machines without ``nvcc``.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` builds one source if needed and returns the library.
@@ -23,7 +24,8 @@ from typing import Dict, Iterable, Optional, Tuple
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR.parent / 'build' / 'hudiff_tpu_torch'
-SOURCES = ('rope_attention', 'rope_attention_bwd', 'bytenet_block', 'bytenet_block_bwd')
+SOURCES = ('rope_attention', 'rope_attention_bwd', 'bytenet_block', 'bytenet_block_bwd',
+           'fused_layer')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
@@ -40,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha1(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        digest.update(header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:12]}.so'
 
 

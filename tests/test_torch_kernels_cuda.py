@@ -12,8 +12,10 @@ Tolerances: f32 runs the same arithmetic in another summation order
 may round it one spacing apart (the 2**-7 |ref| term); atol bounds the
 rest, which comes from P (K1, K3), the intermediates p, q (K2) or dq, dp
 (K4) rounded to bf16 at nearby points. K4's parameter gradients (f32 sums
-over B*L rows) are held by max |err| <= rtol max |ref|. chip_smoke.py
-holds the main path's shapes to the same limits.
+over B*L rows) are held by max |err| <= rtol max |ref|. K5, K6 and K7 run
+K1's and K3's arithmetic in other layouts and take their limits; K8 adds
+the projections' rounding of qkv and o. chip_smoke.py holds the main
+path's shapes to the same limits.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
 from hudiff_tpu_torch.ops import masking as M
 from hudiff_tpu_torch.ops.rope import rope_tables
 from hudiff_tpu_torch.sampling import humanize as HZ
+from hudiff_tpu_torch.tools import fused_layer_probe as FL
 from hudiff_tpu_torch.training import train_step as T
 
 pytestmark = pytest.mark.cuda
@@ -268,3 +271,128 @@ def test_test_size_train_step_matches_cpu(dev):
     for n in g_c:
         rel = ((g_g[n] - g_c[n]).abs().max() / g_c[n].abs().max().clamp_min(1e-30)).item()
         assert rel <= 1e-4, f'{n}: {rel}'
+
+
+def _qkvd(B, L, dtype, dev, seed, n=4):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, L, 8 * 64, generator=gen).to(dev, dtype) for _ in range(n)]
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 291)])
+def test_k5_matches_plain_and_k1(dev, dtype, rtol, atol, B, L):
+    q, k, v = _qkvd(B, L, dtype, dev, B * L, 3)
+    cos, sin = rope_tables(64, L, device=dev)
+    before = FA.rope_launches
+    out = FA.rope_attention(q, k, v, cos, sin, 0.125, 8)
+    again = FA.rope_attention(q, k, v, cos, sin, 0.125, 8)
+    ref = FA.rope_attention_reference(q, k, v, cos, sin, 0.125, 8)
+    k1 = FA.rope_attention_qkv(FA.merge_qkv_heads(q, k, v, 8), cos, sin, 0.125, 8)
+    torch.cuda.synchronize()
+    assert FA.rope_launches == before + 2
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    assert torch.equal(out, k1)   # one body, the same arithmetic on another layout
+    err = excess(out, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 291)])
+def test_k6_matches_plain_and_k3(dev, dtype, rtol, atol, B, L):
+    q, k, v, do = _qkvd(B, L, dtype, dev, B * L + 1)
+    cos, sin = rope_tables(64, L, device=dev)
+    before = FA.rope_bwd_launches
+    grads = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8)
+    again = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8)
+    ref = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, 0.125, 8)
+    k3 = FA.split_qkv_heads(FA.rope_attention_qkv_backward(
+        FA.merge_qkv_heads(q, k, v, 8), cos, sin, do, 0.125, 8), 8)
+    torch.cuda.synchronize()
+    assert FA.rope_bwd_launches == before + 4   # two passes per call
+    for name, got, same, want, other in zip('qkv', grads, again, ref, k3):
+        assert torch.isfinite(got).all() and torch.equal(got, same), name   # no atomics
+        assert torch.equal(got, other), name
+        err = excess(got, want, rtol)
+        assert err <= atol, f'd{name}: excess {err} over rtol {rtol}'
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k6_through_autograd(dev, dtype):
+    """``rope_attention`` under autograd: K5 forward, K6 backward, and the
+    leaves' gradients are exactly what K6 returns."""
+    q, k, v, do = _qkvd(2, 41, dtype, dev, 5)
+    cos, sin = rope_tables(64, 41, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (FA.rope_launches, FA.rope_bwd_launches)
+    out = FA.rope_attention(*leaves, cos, sin, 0.125, 8)
+    out.backward(do)
+    want = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8)
+    torch.cuda.synchronize()
+    assert (FA.rope_launches, FA.rope_bwd_launches) == (before[0] + 1, before[1] + 4)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 291)])
+def test_k7_matches_plain(dev, dtype, rtol, atol, B, L):
+    q, k, v = (t.reshape(B, L, 8, 64) for t in _qkvd(B, L, dtype, dev, B * L + 2, 3))
+    before = FA.attention_launches
+    out = FA.attention(q, k, v, 0.125)
+    bhld = FA.fused_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), 0.125)
+    again = FA.attention(q, k, v, 0.125)
+    ref = FA.attention_reference(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert FA.attention_launches == before + 3
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    assert torch.equal(bhld.transpose(1, 2), out)
+    err = excess(out, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+    with pytest.raises(RuntimeError, match='forward only'):
+        FA.attention(q.clone().requires_grad_(), k, v, 0.125)
+
+
+def _layer(B, L, dm, heads, dtype, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    A = heads * 64
+    x = (0.5 * torch.randn(B, L, dm, generator=gen)).to(dev, dtype)
+    ws = [(torch.randn(*shape, generator=gen) * sc).to(dev, dtype)
+          for shape, sc in (((dm, 3 * A), dm ** -0.5), ((3 * A,), 0.1), ((A, dm), A ** -0.5),
+                            ((dm,), 0.1))]
+    return x, ws, rope_tables(64, L, device=dev)
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('B,L,dm,heads', [(2, 37, 128, 2), (2, 291, 768, 8), (1, 400, 192, 3)])
+def test_k8_matches_plain_and_the_current_layer(dev, dtype, rtol, atol, B, L, dm, heads):
+    """K8 against its plain version and against cuBLAS projections around
+    K1 on the head-major permutation of the same weights (max |err| <=
+    1e-5 / 1e-2 of max |ref| in f32 / bf16). L = 400 keeps bf16's q, k, v
+    in the workspace instead of shared memory."""
+    x, ws, (cos, sin) = _layer(B, L, dm, heads, dtype, dev, B + L + dm)
+    before = FL.launches
+    y = FL.fused_layer(x, *ws, cos, sin, 0.125, heads)
+    again = FL.fused_layer(x, *ws, cos, sin, 0.125, heads)
+    ref = FL.fused_layer_reference(x, *ws, cos, sin, 0.125, heads)
+    w_hm, b_hm = FL.column_blocked_to_head_major(ws[0], ws[1], heads)
+    cur = FL.current_layer(x, w_hm, b_hm, ws[2], ws[3], cos, sin, 0.125, heads)
+    torch.cuda.synchronize()
+    assert FL.launches == before + 4   # two launches per call
+    assert torch.isfinite(y).all() and torch.equal(y, again)   # no atomics
+    err = excess(y, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+    rel = ((y.float() - cur.float()).abs().max() / cur.float().abs().max()).item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 1e-2), rel
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    x, ws, (cos, sin) = _layer(1, 9, 128, 2, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match='wqkv'):
+        FL.fused_layer(x, ws[0].float(), *ws[1:], cos, sin, 0.125, 2)
+    x, ws, (cos, sin) = _layer(1, 9, 96, 2, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match='multiple of 64'):
+        FL.fused_layer(x, *ws, cos, sin, 0.125, 2)
