@@ -24,7 +24,18 @@ version on the card. Then:
   timed and profiled), K7 (plain attention through ``fused_attention`` and
   ``attention``) and K8 (the fused attention layer of the probe
   ``hudiff_tpu_torch.tools.fused_layer_probe``, driven through its
-  ``main()``, against its plain version and the production split).
+  ``main()``, against its plain version and the production split);
+- the backward's residuals (the fourth slice), inside the K1, K3, K5 and
+  K6 phases: K1 and K5 write, when asked, their output before rounding
+  (f32) and the scores' row log-sum-exp (the same output bits; both held
+  against the plain forward's, the f32 output tightly enough that an
+  output with P rounded to bf16 fails), and K3 and K6 are held given them
+  against both plain versions, the TPU kernel's arithmetic and their own
+  from the residuals, repeat to the same bits and match the standalone
+  call (K3 also at shorter L); they are timed given the residuals (as
+  autograd calls them) and standalone (the forward first). Beside each
+  bf16 gate the phases record how far delta from the bf16 output would
+  move the gradients.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -64,6 +75,7 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}  # f32 kernels use FMA, not 
 MAIN_B = 16          # rows per humanization round on the main path
 BIG_B = 64
 TRAIN_B = 128        # configs/antibody_train.yml's batch
+SHORT_LENGTHS = (17, 37, 100)   # K3 at these lengths too (the entry points take any L)
 SEED = 2023
 # Tolerances. f32: |out - ref| <= TOL_F32, the same arithmetic in another
 # summation order. bf16: |out - ref| <= BF16_RTOL |ref| + TOL_BF16, elementwise.
@@ -93,6 +105,18 @@ TOL_BF16 = {'K1': 5e-3, 'K2': 2.5e-2, 'K3': 5e-3, 'K4': 1.5e-2, 'K5': 5e-3, 'K6'
 # bf16 on either side of a rounding boundary (readings on an H100 at B =
 # 64, max |ref| 0.94: f32 6.6e-7, bf16 3.3e-3).
 K8_TOL = {'float32': 1e-5, 'bfloat16': 5e-3}
+# The backward's residuals K1 and K5 write, against the plain forward's. The
+# kernels round the rotation of q and k as the plain version does (no FMA
+# contraction), so the rotated q and k are its bits and both residuals differ
+# from it by summation order and exp2 alone. The row log-sum-exp is held to
+# LSE_TOL. The f32 output is held in f32, with no rounding to bf16 first, by
+# max |err| <= OUT_F32_RTOL max |ref|: it exists to carry P to ~2^-16 (the
+# second P v product), and an output with P rounded to bf16 is ~2^-9 off.
+# In bf16 two such controls must fail the limit: the plain version's bf16
+# output, and P v in f32 with P rounded to bf16 (the residual forward
+# without its second product).
+LSE_TOL = {'float32': 1e-5, 'bfloat16': 1e-3}
+OUT_F32_RTOL = 1e-4
 # K8 against the production split (cuBLAS projections around K1) on the
 # head-major permutation of the same weights: max |err| / max |ref|. Both
 # compute one function with the same rounding points; in bf16 they round qkv,
@@ -142,12 +166,20 @@ PRETRAIN_CONFIG = {
 PRETRAIN_ITERS = 3   # iterations of pretrain.run: 6 steps, validation and save at the 3rd
 
 
+_last_record = []
+
+
 def emit(obj):
+    _last_record[:] = [obj]
     print(json.dumps(obj), flush=True)
 
 
 def fail(msg):
+    """Stop with exit code 1: the error on stdout, and on stderr beside the
+    last record emitted, so that the end of either stream says what failed."""
+    last = json.dumps(_last_record[0])[:4000] if _last_record else 'none'
     emit({'phase': 'failed', 'error': msg})
+    print(f'chip_smoke failed: {msg}\nlast record: {last}', file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -179,6 +211,66 @@ def check_err(torch, kernel, out, ref):
         held = (diff - BF16_RTOL * ref.float().abs()).max().item()
         rec.update(excess_over_rtol=held, rtol=BF16_RTOL, tol=TOL_BF16[kernel])
     return rec, held <= rec['tol'] and bool(torch.isfinite(out).all().item())
+
+
+def residual_check(torch, dtype_name, out, res, res_ref, controls):
+    """K1's or K5's call writing the backward's residuals (out, out_f32,
+    lse) against its call without (the same output bits) and the residuals
+    against the plain forward's (out, out_f32, lse); each of ``controls``,
+    an f32 output with P rounded to bf16, must fail the out_f32 limit."""
+    out2, out_f32, lse = res
+    err = (lse - res_ref[2]).abs().max().item()
+    top = res_ref[1].abs().max().item()
+    rel = lambda o: (o.float() - res_ref[1]).abs().max().item() / top  # noqa: E731
+    rec = {'same_bits_with_residuals': torch.equal(out, out2), 'lse_max_abs_err': err,
+           'lse_tol': LSE_TOL[dtype_name], 'out_f32_rel_err': rel(out_f32),
+           'out_f32_rtol': OUT_F32_RTOL,
+           'out_f32_rel_err_controls': [rel(c) for c in controls]}
+    rec['residuals_ok'] = (rec['same_bits_with_residuals']
+                           and rec['out_f32_rel_err'] <= OUT_F32_RTOL
+                           and all(e > OUT_F32_RTOL for e in rec['out_f32_rel_err_controls'])
+                           and err <= LSE_TOL[dtype_name]
+                           and bool(torch.isfinite(lse).all().item())
+                           and bool(torch.isfinite(out_f32).all().item()))
+    return rec
+
+
+def out_f32_controls(torch, q, k, v, cos, sin, scale, heads, plain_out):
+    """The outputs out_f32's limit must tell apart, in bf16: the plain
+    version's bf16 output and P v in f32 with P rounded to bf16; none in
+    f32, where P is not rounded."""
+    if plain_out.dtype == torch.float32:
+        return []
+    qr, kr, vr = _rotated_bhld(torch, q, k, v, cos, sin, heads)
+    p = torch.softmax(qr.float() @ kr.float().transpose(-1, -2) * scale, dim=-1)
+    o = p.to(torch.bfloat16).float() @ vr.float()
+    B, H, L, D = o.shape
+    return [plain_out, o.transpose(1, 2).reshape(B, L, H * D)]
+
+
+def backward_checks(torch, kernel, got, again, alone, ref, twin):
+    """K3's or K6's gradients given the forward's residuals: within the
+    limits of both plain versions (the TPU kernel's arithmetic, ``ref``, and
+    the kernels' own from the residuals, ``twin``), the same bits on a
+    repeat and as the standalone call that runs the forward itself. The
+    record's error keys and whether every check holds."""
+    errs, ok = check_err(torch, kernel, got, ref)
+    twin_errs, ok_twin = check_err(torch, kernel, got, twin)
+    rec = {**errs, 'max_abs_err_vs_lse_plain': twin_errs['max_abs_err'],
+           'excess_vs_lse_plain': twin_errs.get('excess_over_rtol', twin_errs['max_abs_err']),
+           'repeat_identical': torch.equal(got, again),
+           'standalone_identical': torch.equal(got, alone)}
+    return rec, (ok and ok_twin and rec['repeat_identical'] and rec['standalone_identical'])
+
+
+def delta_reading(torch, kernel, rounded, ref):
+    """K3's or K6's gradients with delta taken from the bf16 output
+    (FlashAttention-2's choice, which out_f32 replaces; ``rounded``, None in
+    f32) against the TPU kernel's arithmetic: recorded, not held."""
+    if rounded is None:
+        return {}
+    errs, _ = check_err(torch, kernel, rounded, ref)
+    return {'excess_delta_from_bf16_out': errs['excess_over_rtol']}
 
 
 def bound_parts(nbytes, flops, dtype_name):
@@ -246,6 +338,18 @@ def main():
             if not ok:
                 emit(rec)
                 fail(f'K1 disagrees with its plain version ({name}, B={B})')
+            res_ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads,
+                                                      residuals=True)
+            rec.update(residual_check(
+                torch, name, out,
+                FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, residuals=True),
+                res_ref, out_f32_controls(torch, *FA.split_qkv_heads(qkv, heads), cos, sin,
+                                          scale, heads, res_ref[0])))
+            del res_ref
+            if not rec['residuals_ok']:
+                emit(rec)
+                fail(f'K1 writing the residuals: other bits or residuals off their plain '
+                     f'versions ({name}, B={B})')
             qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
             nbytes = qkv.numel() * qkv.element_size() * 4 // 3 + 2 * cos.numel() * 4
             flops = 4.0 * B * heads * L * L * hd
@@ -430,9 +534,11 @@ def main():
          'launches': trained['K3'], 'launches_per_step': per_step['K3'],
          'max_abs_err': k3['max_abs_err'], 'excess_over_rtol': k3['excess_over_rtol'],
          'max_abs_err_f32': k3_f32['max_abs_err'], 'ms': k3['ms'],
+         'ms_standalone': k3['ms_standalone'],
          'plain_ms': k3['plain_ms'], 'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
          'library_ms': k3['library_ms'],
-         'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call (two kernels)'},
+         'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
+                  '(three kernels); ms_standalone runs K1 for them first'},
         {'name': 'K4 ByteNet block backward (row passes, data and weight GEMMs, '
                  'fixed-order sums)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/bytenet_block_bwd.cu',
@@ -452,7 +558,8 @@ def main():
     return 0
 
 
-# CUDA kernel names by group, matched in this order
+# CUDA kernel names by group, matched in this order (K3's and K6's prefixes
+# also take their prologue kernels, rope_attention_[sep_]bwd_prep_kernel)
 KERNEL_GROUPS = (('K4', ('bytenet_bwd_',)), ('K3', ('rope_attention_bwd_',)),
                  ('K6', ('rope_attention_sep_bwd_',)),
                  ('K5', ('rope_attention_sep_fwd_kernel',)),
@@ -469,8 +576,12 @@ def kernel_groups(torch, prof, n):
     every kernel with device time, largest first."""
     dev_time = lambda e: getattr(e, 'self_device_time_total',  # noqa: E731
                                  getattr(e, 'self_cuda_time_total', 0))
+    # a user annotation (Optimizer.step#Adam.step) can appear on the device
+    # timeline as a range over the kernels it encloses: not a kernel, and
+    # counting it would count those kernels twice
     kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0),
+                      if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0
+                      and not getattr(e, 'is_user_annotation', False)),
                      key=dev_time, reverse=True)
     groups = dict.fromkeys(KERNELS + ('cublas', 'other'), 0.0)
     seen = dict.fromkeys(KERNELS, 0)
@@ -485,6 +596,26 @@ def kernel_groups(torch, prof, n):
     return groups, seen, top
 
 
+def profiled(torch, window, n):
+    """torch.profiler over ``window()``, which sets the counters to 0 before
+    the kernels it profiles and synchronizes at its end: (counters read just
+    after, kernel_groups over ``n`` repeats, the first window's reading or
+    None). The profiler can miss a kernel record that a launch counter
+    cannot (PERF.md §6), so a window whose counters differ from the K1-K8
+    kernels seen is profiled once more, and the second reading is held."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    first = None
+    for attempt in range(2):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window()
+        counted = counters()
+        groups, seen, top = kernel_groups(torch, prof, n)
+        if counted == seen or attempt:
+            return counted, (groups, seen, top), first
+        first = {'counted_launches': counted, 'profiled_launches': seen}
+
+
 def profile(torch, model, hum, inputs):
     """Device time by kernel over a few bf16 forwards at the main batch,
     from torch.profiler, beside the host-clock time of the same forwards
@@ -492,8 +623,6 @@ def profile(torch, model, hum, inputs):
     wrappers' launch counters rose by the number of K1 and K2 kernels the
     profiler saw, and returns those numbers per forward."""
     import numpy as np
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
     rows = [inputs[i % len(inputs)] for i in range(MAIN_B)]
     args = [torch.as_tensor(np.stack([r[k] for r in rows]), dtype=torch.long,
                             device='cuda') for k in ('tokens', 'region', 'chain')]
@@ -521,13 +650,14 @@ def profile(torch, model, hum, inputs):
         hum.run(*args, order, hum.generator)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / order.shape[1] * 1e3
-        reset_counters()
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+        def window():
+            reset_counters()
             for _ in range(n):
                 model(*args)
             torch.cuda.synchronize()
-        counted = counters()
-    groups, seen, top = kernel_groups(torch, prof, n)
+
+        counted, (groups, seen, top), first = profiled(torch, window, n)
     busy = sum(groups.values())
     emit({'phase': 'profile', 'B': MAIN_B, 'forwards': n, 'wall_ms_per_forward': wall_ms,
           'wall_ms_per_sampler_step': step_ms, 'host_issue_ms_per_forward': host_ms,
@@ -535,7 +665,8 @@ def profile(torch, model, hum, inputs):
           'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
           'kernels_per_forward': sum(t['calls'] for t in top) / n,
           'device_ms_per_forward_by_group': groups,
-          'top': top[:12], 'counted_launches': counted, 'profiled_launches': seen})
+          'top': top[:12], 'counted_launches': counted, 'profiled_launches': seen,
+          'first_window': first})
     if counted != seen or any(v % n for v in seen.values()):
         fail(f'launch counters {counted} != kernels the profiler saw {seen}')
     return {k: v // n for k, v in seen.items()}
@@ -561,8 +692,9 @@ def reset_counters():
 
 def k3_phase(torch, gen, dev):
     """K3 against its plain version at L = 291, B = 16 and 128, f32 and
-    bf16; times beside the plain version and the backward alone of
-    scaled_dot_product_attention on pre-rotated q/k/v with the same dO."""
+    bf16, and at SHORT_LENGTHS (B = 128, bf16); times beside the plain
+    version and the backward alone of scaled_dot_product_attention on
+    pre-rotated q/k/v with the same dO."""
     import torch.nn.functional as F
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
@@ -576,15 +708,25 @@ def k3_phase(torch, gen, dev):
             name = str(dtype).split('.')[-1]
             qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
             do = torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
-            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
+            o_bf, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, True)
+            res = dict(out=o32, lse=lse)
+            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
+            again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
+            alone = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
             ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
+            twin = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads,
+                                                            o32, lse)
+            rounded = FA.rope_attention_qkv_backward(
+                qkv, cos, sin, do, scale, heads, out=o_bf.float(),
+                lse=lse) if dtype == torch.bfloat16 else None
             torch.cuda.synchronize()
-            errs, ok = check_err(torch, 'K3', got, ref)
-            rec = {'phase': 'K3', 'B': B, 'L': L, 'dtype': name, **errs}
+            errs, ok = backward_checks(torch, 'K3', got, again, alone, ref, twin)
+            rec = {'phase': 'K3', 'B': B, 'L': L, 'dtype': name, **errs,
+                   **delta_reading(torch, 'K3', rounded, ref)}
             if not ok:
                 emit(rec)
-                fail(f'K3 disagrees with its plain version ({name}, B={B})')
-            del got, ref
+                fail(f'K3 disagrees with its plain versions or repeats apart ({name}, B={B})')
+            del got, again, alone, ref, twin, rounded, o_bf
             qr, kr, vr = (t.requires_grad_() for t in _rotated_bhld(
                 torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads))
             o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
@@ -592,7 +734,11 @@ def k3_phase(torch, gen, dev):
             rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
                 o, (qr, kr, vr), dO, retain_graph=True))
             del o, qr, kr, vr, dO
+            # given the residuals, as autograd calls it (and as SDPA's backward
+            # alone is timed); the standalone call runs K1 for them first
             rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
+                qkv, cos, sin, do, scale, heads, **res))
+            rec['ms_standalone'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
                 qkv, cos, sin, do, scale, heads))
             rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
                 qkv, cos, sin, do, scale, heads), reps=2, windows=3)
@@ -604,6 +750,29 @@ def k3_phase(torch, gen, dev):
             out[(B, name)] = rec
             del qkv, do
             torch.cuda.empty_cache()
+    # Shorter sequences, where attention is more peaked and the output
+    # larger: K3 given the residuals held to its gate, and delta from the
+    # bf16 output recorded beside it (inputs from their own seed, so the
+    # phases after this one draw what they drew before)
+    gen_short = torch.Generator(device='cpu').manual_seed(SEED + 1)
+    for Ls in SHORT_LENGTHS:
+        cs, sn = rope_tables(hd, Ls, device=dev)
+        qkv = torch.randn(TRAIN_B, Ls, heads * 3 * hd, generator=gen_short).to(
+            dev, torch.bfloat16)
+        do = torch.randn(TRAIN_B, Ls, heads * hd, generator=gen_short).to(dev, torch.bfloat16)
+        o_bf, o32, lse = FA.rope_attention_qkv_forward(qkv, cs, sn, scale, heads, True)
+        got = FA.rope_attention_qkv_backward(qkv, cs, sn, do, scale, heads, out=o32, lse=lse)
+        rounded = FA.rope_attention_qkv_backward(qkv, cs, sn, do, scale, heads,
+                                                 out=o_bf.float(), lse=lse)
+        ref = FA.rope_attention_qkv_backward_reference(qkv, cs, sn, do, scale, heads)
+        torch.cuda.synchronize()
+        errs, ok = check_err(torch, 'K3', got, ref)
+        rec = {'phase': 'K3_short', 'B': TRAIN_B, 'L': Ls, 'dtype': 'bfloat16', **errs,
+               **delta_reading(torch, 'K3', rounded, ref)}
+        emit(rec)
+        if not ok:
+            fail(f'K3 disagrees with its plain version (bfloat16, B={TRAIN_B}, L={Ls})')
+        del qkv, do, o_bf, o32, lse, got, rounded, ref
     return out
 
 
@@ -751,7 +920,7 @@ def train_step_f32(torch, cfg, dev):
     glob = (sum(((g_g[n] - g_c[n]) ** 2).sum().item() for n in g_c)
             / sum((g_c[n] ** 2).sum().item() for n in g_c)) ** 0.5
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    expected = {'K1': 2 * cfg.cs_layers, 'K3': 4 * cfg.cs_layers,
+    expected = {'K1': 2 * cfg.cs_layers, 'K3': 6 * cfg.cs_layers,
                 'K2': 6 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
                 'K4': 11 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
                 'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
@@ -807,7 +976,7 @@ def pretrain_phase(torch, dev):
     blocks = 2 * (mcfg.n_encoder_layers + mcfg.dual_layers)
     expected = {'K1': (steps + val_forwards) * 2 * mcfg.cs_layers,
                 'K2': (steps + val_forwards) * blocks * 6,
-                'K3': steps * 2 * mcfg.cs_layers * 2, 'K4': steps * blocks * 11,
+                'K3': steps * 2 * mcfg.cs_layers * 3, 'K4': steps * blocks * 11,
                 'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
     # host time at the end of iteration i is i * acc / steps_per_sec(i);
     # iteration 2 is warm and runs no validation
@@ -854,8 +1023,6 @@ def profile_train(torch, model, dev):
     (torch.profiler), beside the host-clock time of warm steps; checks that
     the launch counters rose by the K1-K8 kernels the profiler saw (K5-K8
     none), and returns those numbers per step."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
     from hudiff_tpu_torch.training import pretrain as PT
     from hudiff_tpu_torch.training import schedules
     from hudiff_tpu_torch.training import train_step as T
@@ -876,19 +1043,21 @@ def profile_train(torch, model, dev):
         step(state, tokens, chain, SEED)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-    reset_counters()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        reset_counters()
         step(state, tokens, chain, SEED)
         torch.cuda.synchronize()
-    counted = counters()
-    groups, seen, top = kernel_groups(torch, prof, 1)
+
+    counted, (groups, seen, top), first = profiled(torch, window, 1)
     busy = sum(groups.values())
     emit({'phase': 'profile_train', 'B': TRAIN_B, 'wall_ms_per_step': wall_ms,
           'steps_per_sec': 1e3 / wall_ms, 'device_busy_ms_per_step': busy,
           'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
           'kernels_per_step': sum(t['calls'] for t in top),
           'device_ms_per_step_by_group': groups,
-          'top': top[:15], 'counted_launches': counted, 'profiled_launches': seen})
+          'top': top[:15], 'counted_launches': counted, 'profiled_launches': seen,
+          'first_window': first})
     if counted != seen or not all(seen[k] for k in ('K1', 'K2', 'K3', 'K4')):
         fail(f'launch counters {counted} != kernels the profiler saw {seen}')
     return seen
@@ -930,13 +1099,22 @@ def k5_phase(torch, gen, dev):
             ref = FA.rope_attention_reference(q, k, v, cos, sin, scale, heads)
             k1 = FA.rope_attention_qkv(FA.merge_qkv_heads(q, k, v, heads), cos, sin, scale,
                                        heads)
+            res_ref = FA.rope_attention_reference(q, k, v, cos, sin, scale, heads,
+                                                  residuals=True)
             torch.cuda.synchronize()
             errs, ok = check_err(torch, 'K5', got, ref)
             vs_k1, ok_k1 = check_err(torch, 'K5', got, k1)
             rec = {'phase': 'K5', 'B': B, 'L': L, 'dtype': name, **errs,
                    'max_abs_diff_vs_K1': vs_k1['max_abs_err'],
-                   'identical_to_K1': torch.equal(got, k1)}
-            if not (ok and ok_k1):
+                   'identical_to_K1': torch.equal(got, k1),
+                   **residual_check(
+                       torch, name, got,
+                       FA.rope_attention_forward(q, k, v, cos, sin, scale, heads,
+                                                 residuals=True),
+                       res_ref, out_f32_controls(torch, q, k, v, cos, sin, scale, heads,
+                                                 res_ref[0]))}
+            del res_ref
+            if not (ok and ok_k1 and rec['residuals_ok']):
                 emit(rec)
                 fail(f'K5 disagrees with its plain version or with K1 ({name}, B={B})')
             qr, kr, vr = _rotated_bhld(torch, q, k, v, cos, sin, heads)
@@ -973,18 +1151,26 @@ def k6_phase(torch, gen, dev):
             name = str(dtype).split('.')[-1]
             q, k, v, do = (torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
                            for _ in range(4))
-            got = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads)
-            again = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads)
+            o_bf, o32, lse = FA.rope_attention_forward(q, k, v, cos, sin, scale, heads, True)
+            res = dict(out=o32, lse=lse)
+            got = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads, **res)
+            again = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads, **res)
+            alone = FA.rope_attention_backward(q, k, v, cos, sin, do, scale, heads)
             ref = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, scale, heads)
+            twin = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, scale, heads,
+                                                        o32, lse)
+            rounded = torch.stack(FA.rope_attention_backward(
+                q, k, v, cos, sin, do, scale, heads, out=o_bf.float(),
+                lse=lse)) if dtype == torch.bfloat16 else None
             torch.cuda.synchronize()
-            errs, ok = check_err(torch, 'K6', torch.stack(got), torch.stack(ref))
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs, ok = backward_checks(torch, 'K6', *(torch.stack(t) for t in (
+                got, again, alone, ref, twin)))
             rec = {'phase': 'K6', 'B': B, 'L': L, 'dtype': name, **errs,
-                   'repeat_identical': same}
-            if not (ok and same):
+                   **delta_reading(torch, 'K6', rounded, torch.stack(ref))}
+            if not ok:
                 emit(rec)
-                fail(f'K6 disagrees with its plain version or repeats apart ({name}, B={B})')
-            del got, again, ref
+                fail(f'K6 disagrees with its plain versions or repeats apart ({name}, B={B})')
+            del got, again, alone, ref, twin, rounded, o_bf
             qr, kr, vr = (t.requires_grad_()
                           for t in _rotated_bhld(torch, q, k, v, cos, sin, heads))
             o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
@@ -993,6 +1179,8 @@ def k6_phase(torch, gen, dev):
                 o, (qr, kr, vr), dO, retain_graph=True))
             del o, qr, kr, vr, dO
             rec['ms'] = time_ms(torch, lambda: FA.rope_attention_backward(
+                q, k, v, cos, sin, do, scale, heads, **res))
+            rec['ms_standalone'] = time_ms(torch, lambda: FA.rope_attention_backward(
                 q, k, v, cos, sin, do, scale, heads))
             rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_backward_reference(
                 q, k, v, cos, sin, do, scale, heads), reps=2, windows=3)
@@ -1019,8 +1207,6 @@ def attention_api_phase(torch, gen, dev):
     the launch counters, set to 0 before a profiled window of steps, must
     equal the K5 and K6 kernels torch.profiler saw."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops.rope import rope_tables
@@ -1060,13 +1246,14 @@ def attention_api_phase(torch, gen, dev):
     wall_ms = (time.perf_counter() - t0) / n * 1e3
     finite = bool(torch.isfinite(loss).item()) and all(
         bool(torch.isfinite(g).all().item()) for g in grads.values())
-    reset_counters()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        reset_counters()
         for _ in range(n):
             step(x)
         torch.cuda.synchronize()
-    counted = counters()
-    groups, seen, top = kernel_groups(torch, prof, n)
+
+    counted, (groups, seen, top), first = profiled(torch, window, n)
     busy = sum(groups.values())
     rec = {'phase': 'attention_api', 'B': TRAIN_B, 'L': L, 'd_model': dm, 'att': att,
            'heads': heads, 'f32_loss_rel_err': loss_rel, 'f32_max_grad_rel_err': rel[worst],
@@ -1075,11 +1262,11 @@ def attention_api_phase(torch, gen, dev):
            'device_busy_ms_per_step': busy,
            'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
            'device_ms_per_step_by_group': groups, 'top': top[:8],
-           'counted_launches': counted, 'profiled_launches': seen}
+           'counted_launches': counted, 'profiled_launches': seen, 'first_window': first}
     emit(rec)
     if not (finite and rel[worst] <= ATTN_API_F32_RTOL and loss_rel <= ATTN_API_F32_RTOL):
         fail('the RoPE attention layer through rope_attention fails its checks')
-    if counted != seen or seen['K5'] != n or seen['K6'] != 2 * n:
+    if counted != seen or seen['K5'] != n or seen['K6'] != 3 * n:
         fail(f'launch counters {counted} != kernels the profiler saw {seen}')
     return {'launches': counted, 'steps': n}
 
@@ -1174,8 +1361,6 @@ def k8_phase(torch, dev):
     import contextlib
     import io
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
     from hudiff_tpu_torch.ops.rope import rope_tables
     from hudiff_tpu_torch.tools import fused_layer_probe as FL
     heads, B, L, att = FL.HEADS, 64, FL.L, FL.ATT
@@ -1270,7 +1455,7 @@ def k8_phase(torch, dev):
         for _ in range(50):
             torch.matmul(x, wqkv)
 
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def window():
         cublas_work()
         torch.cuda.synchronize()
         reset_counters()
@@ -1278,8 +1463,8 @@ def k8_phase(torch, dev):
             fused()
         cublas_work()
         torch.cuda.synchronize()
-    counted = counters()
-    _, seen, top = kernel_groups(torch, prof, 3)
+
+    counted, (_, seen, top), rec['first_window'] = profiled(torch, window, 3)
     rec['kernels'] = [{'kernel': t['kernel'][:60], 'calls': t['calls'],
                        'ms_per_call': t['ms_per_repeat']}
                       for t in top if 'fused_layer_' in t['kernel']]
@@ -1318,7 +1503,9 @@ def later_kernels(results, api):
               route='cuda', source='hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
               replaces='hudiff_tpu/ops/pallas_attention.py:100',
               launches=api['launches']['K6'], launches_per_step=api['launches']['K6'] / api['steps'],
-              shape=f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call (two kernels)'),
+              ms_standalone=k6['ms_standalone'],
+              shape=f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K5\'s residuals (three '
+                    'kernels); ms_standalone runs K5 for them first'),
         entry(k7, k7_f32, name='K7 softmax attention without RoPE ([B, H, L, D])', route='cuda',
               source='hudiff_tpu_torch/csrc/rope_attention.cu',
               replaces='hudiff_tpu/ops/pallas_attention.py:443',

@@ -15,8 +15,19 @@ parallelism):
 
 The CUDA kernels are ``csrc/rope_attention.cu`` (K1, K5 and K7: one
 forward, three layouts) and ``csrc/rope_attention_bwd.cu`` (K3 and K6: one
-two-launch backward, two layouts); their headers say what bounds them on an
+three-launch backward, two layouts); their headers say what bounds them on an
 H100 and how their designs answer that.
+
+The backward works from the forward's residuals, which K1 and K5 write
+when asked (``residuals=True``): the output before rounding, ``out`` f32
+[B, L, heads*64] (P v with P in f32), and the row log-sum-exp ``lse``
+[B, heads, L] f32 of the scaled scores. The JAX custom VJPs save the inputs
+alone and recompute the softmax; the autograd Functions here save the
+residuals beside them, and a backward called on CUDA tensors without them
+runs the forward first. On the CPU the backward's plain version is the TPU
+kernel's arithmetic, which needs no residuals;
+``rope_attention_backward_reference(..., out, lse)`` is the kernels'
+arithmetic from them, their plain version on the card.
 
 Every wrapper routes by the tensor's device alone: a CPU tensor takes the
 plain versions below, a CUDA tensor launches the kernels (or raises). When
@@ -25,8 +36,8 @@ through ``torch.autograd.Function``s whose backwards are K3 and K6;
 otherwise (``torch.inference_mode()``, ``no_grad``, or inputs that need no
 grad) they call the forward kernel directly. K7 has no backward: a CUDA
 input that needs a gradient raises. Launch counters: ``launches`` (K1),
-``bwd_launches`` (the kernels K3's C entry reports, two per call),
-``rope_launches`` (K5), ``rope_bwd_launches`` (K6, two per call) and
+``bwd_launches`` (the kernels K3's C entry reports, three per call),
+``rope_launches`` (K5), ``rope_bwd_launches`` (K6, three per call) and
 ``attention_launches`` (K7).
 """
 from __future__ import annotations
@@ -47,13 +58,13 @@ attention_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    'hd_rope_attention_qkv': [_P] * 4 + [_I] * 4 + [_F, _I, _P],
-    'hd_rope_attention': [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    'hd_rope_attention_qkv': [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    'hd_rope_attention': [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     'hd_attention': [_P] * 4 + [_I] * 10 + [_F, _I, _P],
 }
 _BWD_SIGNATURES = {
-    'hd_rope_attention_qkv_bwd': [_P] * 6 + [_I] * 4 + [_F, _I, _P, _P],
-    'hd_rope_attention_bwd': [_P] * 10 + [_I] * 4 + [_F, _I, _P, _P],
+    'hd_rope_attention_qkv_bwd': [_P] * 9 + [_I] * 4 + [_F, _I, _P, _P],
+    'hd_rope_attention_bwd': [_P] * 13 + [_I] * 4 + [_F, _I, _P, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -80,41 +91,55 @@ def merge_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def rope_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              cos: torch.Tensor, sin: torch.Tensor, scale: float,
-                             heads: int) -> torch.Tensor:
+                             heads: int, residuals: bool = False):
     """Plain version of K5 (pallas_attention.py:425-432): q/k rotated in
     f32 and rounded to their type, scores of input-type values accumulated
     in f32 and scaled after the product, softmax over all L, P cast to v's
     type, P v accumulated in f32. q, k, v [B, L, H*D]; returns [B, L, H*D]
-    in v's type."""
+    in v's type. With ``residuals`` it returns (out, out_f32, lse), the
+    backward's residuals as the kernels write them: out_f32 = P v with P in
+    f32, in f32 [B, L, H*D], and lse the scaled scores' row log-sum-exp
+    [B, H, L] f32."""
     B, L, A = q.shape
     D = A // heads
     qh = apply_rope(q.reshape(B, L, heads, D), cos, sin)
     kh = apply_rope(k.reshape(B, L, heads, D), cos, sin)
     vh = v.reshape(B, L, heads, D)
     logits = torch.einsum('blhd,bmhd->bhlm', qh.float(), kh.float()) * scale
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum('bhlm,bmhd->blhd', probs.float(), vh.float())
-    return out.reshape(B, L, A).to(v.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum('bhlm,bmhd->blhd', probs.to(v.dtype).float(), vh.float())
+    out = out.reshape(B, L, A).to(v.dtype)
+    if not residuals:
+        return out
+    out_f32 = torch.einsum('bhlm,bmhd->blhd', probs, vh.float()).reshape(B, L, A)
+    return out, out_f32, torch.logsumexp(logits, dim=-1)
 
 
 def rope_attention_qkv_reference(qkv: torch.Tensor, cos: torch.Tensor,
                                  sin: torch.Tensor, scale: float,
-                                 heads: int) -> torch.Tensor:
+                                 heads: int, residuals: bool = False):
     """Plain version of K1: ``rope_attention_reference`` on the split
-    head-major qkv [B, L, H*3*D]; returns [B, L, H*D]."""
-    return rope_attention_reference(*split_qkv_heads(qkv, heads), cos, sin, scale, heads)
+    head-major qkv [B, L, H*3*D]; returns [B, L, H*D] (and the residuals)."""
+    return rope_attention_reference(*split_qkv_heads(qkv, heads), cos, sin, scale, heads,
+                                    residuals)
 
 
 def rope_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       cos: torch.Tensor, sin: torch.Tensor,
-                                      do: torch.Tensor, scale: float, heads: int):
+                                      do: torch.Tensor, scale: float, heads: int,
+                                      out: torch.Tensor = None, lse: torch.Tensor = None):
     """Plain version of K6: the gradients of ``rope_attention`` with
     respect to q, k and v, by explicit formulas in the TPU kernel's order
     and rounding (pallas_attention.py:100-133): q/k rotated in f32 and
     rounded to the input type; products of input-type values accumulated
     in f32; P recomputed in f32, ``ph``, ``ds`` and ``do`` in the input
-    type; dq/dk scaled, rotated back in f32 and rounded. Returns (dq, dk,
-    dv), each [B, L, H*D] in q's type."""
+    type; delta = rowsum(dP * P); dq/dk scaled, rotated back in f32 and
+    rounded. Given the forward's residuals (``out``, its output before
+    rounding, f32 [B, L, H*D], and ``lse`` [B, H, L]) it takes the kernels'
+    arithmetic instead: P = exp(S - lse) and delta = rowsum(do * out).
+    Returns (dq, dk, dv), each [B, L, H*D] in q's type."""
+    if (out is None) != (lse is None):
+        raise ValueError('rope_attention_backward_reference: give both out and lse, or neither')
     cd = q.dtype
     B, L, A = q.shape
     D = A // heads
@@ -123,11 +148,16 @@ def rope_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch
     vh = v.reshape(B, L, heads, D).float()
     doh = do.to(cd).reshape(B, L, heads, D).float()
     st = torch.einsum('blhd,bmhd->bhlm', qh, kh) * scale
-    p = torch.softmax(st, dim=-1)
+    p = torch.softmax(st, dim=-1) if lse is None else torch.exp(st - lse.float()[..., None])
     ph = p.to(cd).float()
     dv = torch.einsum('bhlm,blhd->bmhd', ph, doh)
     dp = torch.einsum('blhd,bmhd->bhlm', doh, vh)
-    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(cd).float()
+    if out is None:
+        delta = (dp * p).sum(dim=-1, keepdim=True)
+    else:
+        oh = out.float().reshape(B, L, heads, D)
+        delta = (doh * oh).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = (p * (dp - delta)).to(cd).float()
     dq = torch.einsum('bhlm,bmhd->blhd', ds, kh) * scale
     dk = torch.einsum('bhlm,blhd->bmhd', ds, qh) * scale
     dq = apply_rope_inverse(dq, cos, sin).to(cd)
@@ -137,12 +167,14 @@ def rope_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch
 
 def rope_attention_qkv_backward_reference(qkv: torch.Tensor, cos: torch.Tensor,
                                           sin: torch.Tensor, do: torch.Tensor,
-                                          scale: float, heads: int) -> torch.Tensor:
+                                          scale: float, heads: int,
+                                          out: torch.Tensor = None,
+                                          lse: torch.Tensor = None) -> torch.Tensor:
     """Plain version of K3 (pallas_attention.py:248-284, the same formulas
-    as K6 on the split qkv): returns head-major dqkv [B, L, H*3*D] in
-    qkv's type."""
+    as K6 on the split qkv, from the residuals when given): returns
+    head-major dqkv [B, L, H*3*D] in qkv's type."""
     grads = rope_attention_backward_reference(*split_qkv_heads(qkv, heads), cos, sin, do,
-                                              scale, heads)
+                                              scale, heads, out, lse)
     return merge_qkv_heads(*grads, heads)
 
 
@@ -176,6 +208,19 @@ def _check_same(ts, what: str) -> None:
             raise ValueError(f'{what}: q, k, v (and do) must share shape, dtype and device')
 
 
+def _check_residuals(out, lse, x, B, L, heads, what):
+    """The forward's residuals on x's device, contiguous: ``out``, its
+    output before rounding, f32 [B, L, heads*64], and ``lse`` f32
+    [B, heads, L]."""
+    if out.shape != (B, L, heads * HEAD_DIM) or out.dtype != torch.float32 \
+            or out.device != x.device:
+        raise ValueError(f'{what}: out must be the forward\'s f32 output, [{B}, {L}, '
+                         f'{heads * HEAD_DIM}] float32 on {x.device}')
+    if lse.shape != (B, heads, L) or lse.dtype != torch.float32 or lse.device != x.device:
+        raise ValueError(f'{what}: lse must be [{B}, {heads}, {L}] float32 on {x.device}')
+    return out.contiguous(), lse.contiguous()
+
+
 def _tables(cos, sin, x, L, what):
     cos = cos.to(device=x.device, dtype=torch.float32).contiguous()
     sin = sin.to(device=x.device, dtype=torch.float32).contiguous()
@@ -188,70 +233,109 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward(qkv, cos, sin, scale, heads):
-    """K1 on a CUDA tensor, or the plain version on a CPU one."""
+def _residual_buffers(out):
+    """(lse [B, heads, L] f32, out_f32) for a forward that writes the
+    residuals: out_f32 is ``out`` itself in f32, a new f32 buffer for bf16."""
+    B, L, A = out.shape
+    lse = torch.empty(B, A // HEAD_DIM, L, dtype=torch.float32, device=out.device)
+    return lse, (out if out.dtype == torch.float32 else torch.empty(
+        B, L, A, dtype=torch.float32, device=out.device))
+
+
+def _pointers(residuals, lse, out_f32, out):
+    """The C entry's lse and out_f32 arguments (null: not written)."""
+    if not residuals:
+        return None, None
+    return lse.data_ptr(), None if out_f32 is out else out_f32.data_ptr()
+
+
+def rope_attention_qkv_forward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                               scale: float, heads: int, residuals: bool = False):
+    """K1 on a CUDA tensor, or the plain version on a CPU one: [B, L,
+    heads*64]; with ``residuals`` (out, out_f32, lse), the backward's
+    residuals written beside the output (see ``rope_attention_reference``)."""
     global launches
     if qkv.device.type == 'cpu':
-        return rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
+        return rope_attention_qkv_reference(qkv, cos, sin, scale, heads, residuals)
     _check_cuda(qkv, heads * 3 * HEAD_DIM, 'rope_attention_qkv')
     B, L, _ = qkv.shape
     cos, sin = _tables(cos, sin, qkv, L, 'rope_attention_qkv')
     qkv = qkv.contiguous()
     out = torch.empty(B, L, heads * HEAD_DIM, dtype=qkv.dtype, device=qkv.device)
+    lse, out_f32 = _residual_buffers(out) if residuals else (None, None)
     lib = _build.load('rope_attention', _SIGNATURES)
     with torch.cuda.device(qkv.device):
         code = lib.hd_rope_attention_qkv(
             qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-            B, L, heads, HEAD_DIM, float(scale), _DTYPES[qkv.dtype], _stream(qkv))
+            *_pointers(residuals, lse, out_f32, out), B, L, heads, HEAD_DIM, float(scale),
+            _DTYPES[qkv.dtype], _stream(qkv))
     _build.check(code, 'rope_attention_qkv')
     launches += 1
-    return out
+    return (out, out_f32, lse) if residuals else out
 
 
 def rope_attention_qkv_backward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                                do: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
+                                do: torch.Tensor, scale: float, heads: int, *,
+                                out: torch.Tensor = None,
+                                lse: torch.Tensor = None) -> torch.Tensor:
     """dqkv [B, L, heads*3*64] for the output gradient ``do`` [B, L,
     heads*64] (cast to qkv's type first, as ``_fused_qkv_bwd`` does): K3 on
-    a CUDA tensor, the plain version on a CPU one."""
+    a CUDA tensor, the plain version on a CPU one. ``out`` (the forward's
+    output before rounding, f32) and ``lse`` are the forward's residuals
+    (``rope_attention_qkv_forward(..., residuals=True)``); when they are
+    not given, this runs that forward first (K1, counted in ``launches``).
+    On a CPU tensor the plain version recomputes the softmax as the TPU
+    kernel does and needs no residuals."""
     global bwd_launches
+    what = 'rope_attention_qkv_backward'
+    if (out is None) != (lse is None):
+        raise ValueError(f'{what}: give both out and lse, or neither')
     do = do.to(qkv.dtype)
     if qkv.device.type == 'cpu':
         return rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
-    _check_cuda(qkv, heads * 3 * HEAD_DIM, 'rope_attention_qkv_backward')
+    _check_cuda(qkv, heads * 3 * HEAD_DIM, what)
     B, L, _ = qkv.shape
     if do.shape != (B, L, heads * HEAD_DIM) or do.device != qkv.device:
-        raise ValueError(f'rope_attention_qkv_backward: do must be [{B}, {L}, '
-                         f'{heads * HEAD_DIM}] on {qkv.device}')
-    cos, sin = _tables(cos, sin, qkv, L, 'rope_attention_qkv_backward')
+        raise ValueError(f'{what}: do must be [{B}, {L}, {heads * HEAD_DIM}] on {qkv.device}')
+    cos, sin = _tables(cos, sin, qkv, L, what)
     qkv, do = qkv.contiguous(), do.contiguous()
+    if out is None:
+        _, out, lse = rope_attention_qkv_forward(qkv, cos, sin, scale, heads, residuals=True)
+    out, lse = _check_residuals(out, lse, qkv, B, L, heads, what)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(3 * B * heads * L, dtype=torch.float32, device=qkv.device)
+    rot = torch.empty(2, B, heads, L, HEAD_DIM, dtype=qkv.dtype, device=qkv.device)
+    delta = torch.empty(B, heads, L, dtype=torch.float32, device=qkv.device)
     lib = _build.load('rope_attention_bwd', _BWD_SIGNATURES)
     launched = ctypes.c_int(0)
     with torch.cuda.device(qkv.device):
         code = lib.hd_rope_attention_qkv_bwd(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), do.data_ptr(),
-            dqkv.data_ptr(), stats.data_ptr(), B, L, heads, HEAD_DIM, float(scale),
-            _DTYPES[qkv.dtype], _stream(qkv), ctypes.addressof(launched))
+            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dqkv.data_ptr(), rot.data_ptr(), delta.data_ptr(), B, L, heads,
+            HEAD_DIM, float(scale), _DTYPES[qkv.dtype], _stream(qkv),
+            ctypes.addressof(launched))
     bwd_launches += launched.value
-    _build.check(code, 'rope_attention_qkv_backward')
+    _build.check(code, what)
     return dqkv
 
 
 class RopeAttentionQKV(torch.autograd.Function):
-    """K1 forward, K3 backward (the custom VJP of pallas_attention.py:320-337).
-    Saves qkv only: cos/sin are constants."""
+    """K1 forward writing the residuals, K3 backward from them (the custom
+    VJP of pallas_attention.py:320-337, which saves qkv alone). Saves qkv,
+    the f32 output and lse: cos/sin are constants."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, scale, heads):
-        ctx.save_for_backward(qkv)
+        out, out_f32, lse = rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
+                                                       residuals=True)
+        ctx.save_for_backward(qkv, out_f32, lse)
         ctx.cos, ctx.sin, ctx.scale, ctx.heads = cos, sin, scale, heads
-        return _forward(qkv, cos, sin, scale, heads)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        (qkv,) = ctx.saved_tensors
-        dqkv = rope_attention_qkv_backward(qkv, ctx.cos, ctx.sin, do, ctx.scale, ctx.heads)
+        qkv, out_f32, lse = ctx.saved_tensors
+        dqkv = rope_attention_qkv_backward(qkv, ctx.cos, ctx.sin, do, ctx.scale, ctx.heads,
+                                           out=out_f32, lse=lse)
         return dqkv, None, None, None, None
 
 
@@ -261,75 +345,95 @@ def rope_attention_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     [L, 32] f32 rotate-half tables; returns [B, L, heads*64]."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         return RopeAttentionQKV.apply(qkv, cos, sin, scale, heads)
-    return _forward(qkv, cos, sin, scale, heads)
+    return rope_attention_qkv_forward(qkv, cos, sin, scale, heads)
 
 
-def _rope_forward(q, k, v, cos, sin, scale, heads):
-    """K5 on CUDA tensors, or the plain version on CPU ones."""
+def rope_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           cos: torch.Tensor, sin: torch.Tensor, scale: float, heads: int,
+                           residuals: bool = False):
+    """K5 on CUDA tensors, or the plain version on CPU ones: [B, L,
+    heads*64]; with ``residuals`` (out, out_f32, lse), as K1's."""
     global rope_launches
     if q.device.type == 'cpu':
-        return rope_attention_reference(q, k, v, cos, sin, scale, heads)
+        return rope_attention_reference(q, k, v, cos, sin, scale, heads, residuals)
     _check_same((q, k, v), 'rope_attention')
     _check_cuda(q, heads * HEAD_DIM, 'rope_attention')
     B, L, _ = q.shape
     cos, sin = _tables(cos, sin, q, L, 'rope_attention')
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse, out_f32 = _residual_buffers(out) if residuals else (None, None)
     lib = _build.load('rope_attention', _SIGNATURES)
     with torch.cuda.device(q.device):
         code = lib.hd_rope_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            out.data_ptr(), B, L, heads, HEAD_DIM, float(scale), _DTYPES[q.dtype], _stream(q))
+            out.data_ptr(), *_pointers(residuals, lse, out_f32, out), B, L, heads, HEAD_DIM,
+            float(scale), _DTYPES[q.dtype], _stream(q))
     _build.check(code, 'rope_attention')
     rope_launches += 1
-    return out
+    return (out, out_f32, lse) if residuals else out
 
 
 def rope_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             cos: torch.Tensor, sin: torch.Tensor, do: torch.Tensor,
-                            scale: float, heads: int):
+                            scale: float, heads: int, *, out: torch.Tensor = None,
+                            lse: torch.Tensor = None):
     """(dq, dk, dv), each [B, L, heads*64], for the output gradient ``do``
     (cast to q's type first, as ``_fused_bwd`` does): K6 on CUDA tensors,
-    the plain version on CPU ones."""
+    the plain version on CPU ones. ``out`` and ``lse`` are the forward's
+    residuals (``rope_attention_forward(..., residuals=True)``); when they
+    are not given, this runs that forward first (K5, counted in
+    ``rope_launches``). On CPU tensors the plain version recomputes the
+    softmax as the TPU kernel does and needs no residuals."""
     global rope_bwd_launches
+    what = 'rope_attention_backward'
+    if (out is None) != (lse is None):
+        raise ValueError(f'{what}: give both out and lse, or neither')
     do = do.to(q.dtype)
     if q.device.type == 'cpu':
         return rope_attention_backward_reference(q, k, v, cos, sin, do, scale, heads)
-    _check_same((q, k, v, do), 'rope_attention_backward')
-    _check_cuda(q, heads * HEAD_DIM, 'rope_attention_backward')
+    _check_same((q, k, v, do), what)
+    _check_cuda(q, heads * HEAD_DIM, what)
     B, L, _ = q.shape
-    cos, sin = _tables(cos, sin, q, L, 'rope_attention_backward')
+    cos, sin = _tables(cos, sin, q, L, what)
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    if out is None:
+        _, out, lse = rope_attention_forward(q, k, v, cos, sin, scale, heads, residuals=True)
+    out, lse = _check_residuals(out, lse, q, B, L, heads, what)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty(3 * B * heads * L, dtype=torch.float32, device=q.device)
+    rot = torch.empty(2, B, heads, L, HEAD_DIM, dtype=q.dtype, device=q.device)
+    delta = torch.empty(B, heads, L, dtype=torch.float32, device=q.device)
     lib = _build.load('rope_attention_bwd', _BWD_SIGNATURES)
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         code = lib.hd_rope_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            B, L, heads, HEAD_DIM, float(scale), _DTYPES[q.dtype], _stream(q),
-            ctypes.addressof(launched))
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), rot.data_ptr(), delta.data_ptr(), B, L, heads, HEAD_DIM,
+            float(scale), _DTYPES[q.dtype], _stream(q), ctypes.addressof(launched))
     rope_bwd_launches += launched.value
-    _build.check(code, 'rope_attention_backward')
+    _build.check(code, what)
     return dq, dk, dv
 
 
 class RopeAttention(torch.autograd.Function):
-    """K5 forward, K6 backward (the custom VJP of pallas_attention.py:171-188).
-    Saves q, k and v: cos/sin are constants."""
+    """K5 forward writing the residuals, K6 backward from them (the custom
+    VJP of pallas_attention.py:171-188, which saves q, k, v alone). Saves
+    q, k, v, the f32 output and lse: cos/sin are constants."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, scale, heads):
-        ctx.save_for_backward(q, k, v)
+        out, out_f32, lse = rope_attention_forward(q, k, v, cos, sin, scale, heads,
+                                                   residuals=True)
+        ctx.save_for_backward(q, k, v, out_f32, lse)
         ctx.cos, ctx.sin, ctx.scale, ctx.heads = cos, sin, scale, heads
-        return _rope_forward(q, k, v, cos, sin, scale, heads)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, out_f32, lse = ctx.saved_tensors
         dq, dk, dv = rope_attention_backward(q, k, v, ctx.cos, ctx.sin, do, ctx.scale,
-                                             ctx.heads)
+                                             ctx.heads, out=out_f32, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 
@@ -340,7 +444,7 @@ def rope_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch
     tables; returns [B, L, heads*64] in v's type."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return RopeAttention.apply(q, k, v, cos, sin, scale, heads)
-    return _rope_forward(q, k, v, cos, sin, scale, heads)
+    return rope_attention_forward(q, k, v, cos, sin, scale, heads)
 
 
 def _attention_kernel(q, k, v, scale, heads, L, strides, what):

@@ -27,7 +27,7 @@ from hudiff_tpu_torch.ops import fused_attention as FA
 from hudiff_tpu_torch.ops import fused_bytenet as FB
 from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
 from hudiff_tpu_torch.ops import masking as M
-from hudiff_tpu_torch.ops.rope import rope_tables
+from hudiff_tpu_torch.ops.rope import apply_rope, rope_tables
 from hudiff_tpu_torch.sampling import humanize as HZ
 from hudiff_tpu_torch.tools import fused_layer_probe as FL
 from hudiff_tpu_torch.training import train_step as T
@@ -122,7 +122,7 @@ def test_k3_matches_plain(dev, dtype, rtol, atol, B, L):
     again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, 8)
     ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, 0.125, 8)
     torch.cuda.synchronize()
-    assert FA.bwd_launches == before + 4   # two passes per call: dq, then dk and dv
+    assert FA.bwd_launches == before + 6   # three launches per call: prologue, dq, dk and dv
     assert torch.isfinite(out).all() and torch.equal(out, again)   # no atomics
     err = excess(out, ref, rtol)
     assert err <= atol, f'excess {err} over rtol {rtol}'
@@ -171,19 +171,26 @@ def test_counters_match_the_kernels_the_profiler_sees(dev):
     cos, sin = rope_tables(64, 33, device=dev)
     blk = _block(64, 32, 7, 2, 'gelu', gen).to(dev)
     x = torch.randn(2, 33, 64, generator=gen).to(dev, torch.bfloat16)
-    k1, k2 = FA.launches, FB.launches
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        FA.rope_attention_qkv(qkv, cos, sin, 0.125, 8)
-        blk(x)
+    leaf = qkv.clone().requires_grad_()
+    k1, k2, k3 = FA.launches, FB.launches, FA.bwd_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            FA.rope_attention_qkv(qkv, cos, sin, 0.125, 8)
+            blk(x)
+        # under autograd: K1 writing the residuals, then K3's three kernels
+        FA.rope_attention_qkv(leaf, cos, sin, 0.125, 8).float().sum().backward()
         torch.cuda.synchronize()
-    seen = {'K1': 0, 'K2': 0}
+    seen = {'K1': 0, 'K2': 0, 'K3': 0}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if 'rope_attention_qkv_kernel' in e.key:
                 seen['K1'] += e.count
             elif 'bytenet_gemm_kernel' in e.key or 'bytenet_ln_act_kernel' in e.key:
                 seen['K2'] += e.count
-    assert seen == {'K1': FA.launches - k1, 'K2': FB.launches - k2} == {'K1': 1, 'K2': 6}
+            elif 'rope_attention_bwd_' in e.key:
+                seen['K3'] += e.count
+    counted = {'K1': FA.launches - k1, 'K2': FB.launches - k2, 'K3': FA.bwd_launches - k3}
+    assert seen == counted == {'K1': 2, 'K2': 6, 'K3': 3}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -195,6 +202,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match='do must be'):
         FA.rope_attention_qkv_backward(qkv, *rope_tables(64, 5, device=dev),
                                        torch.randn(1, 5, 256, device=dev), 0.125, 8)
+    with pytest.raises(ValueError, match='lse must be'):
+        FA.rope_attention_qkv_backward(qkv, *rope_tables(64, 5, device=dev),
+                                       torch.randn(1, 5, 512, device=dev), 0.125, 8,
+                                       out=torch.zeros(1, 5, 512, device=dev),
+                                       lse=torch.zeros(1, 5, 8, device=dev))
+    with pytest.raises(ValueError, match="forward's f32 output"):
+        FA.rope_attention_qkv_backward(qkv.bfloat16(), *rope_tables(64, 5, device=dev),
+                                       torch.randn(1, 5, 512, device=dev), 0.125, 8,
+                                       out=torch.zeros(1, 5, 512, device=dev).bfloat16(),
+                                       lse=torch.zeros(1, 8, 5, device=dev))
     blk = _block(48, 24, 7, 1, 'relu', torch.Generator().manual_seed(0)).to(dev)
     with torch.no_grad(), pytest.raises(ValueError, match='multiples of 32'):
         blk(torch.randn(1, 10, 48, device=dev))
@@ -262,7 +279,7 @@ def test_test_size_train_step_matches_cpu(dev):
         m = T.make_pair_train_step(model)(state, tokens.to(d), chain.to(d), 0,
                                           M.Corrupted(*(t.to(d) for t in cor)))
         if d == dev:
-            assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 4)
+            assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 6)
             assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (6 * 6, 6 * 11)
         grads.append((m['loss'].item(), keep))
     (loss_c, g_c), (loss_g, g_g) = grads
@@ -310,12 +327,95 @@ def test_k6_matches_plain_and_k3(dev, dtype, rtol, atol, B, L):
     k3 = FA.split_qkv_heads(FA.rope_attention_qkv_backward(
         FA.merge_qkv_heads(q, k, v, 8), cos, sin, do, 0.125, 8), 8)
     torch.cuda.synchronize()
-    assert FA.rope_bwd_launches == before + 4   # two passes per call
+    assert FA.rope_bwd_launches == before + 6   # three launches per call
     for name, got, same, want, other in zip('qkv', grads, again, ref, k3):
         assert torch.isfinite(got).all() and torch.equal(got, same), name   # no atomics
         assert torch.equal(got, other), name
         err = excess(got, want, rtol)
         assert err <= atol, f'd{name}: excess {err} over rtol {rtol}'
+
+
+def _out_with_bf16_p(q, k, v, cos, sin):
+    """P v in f32 with P rounded to bf16: what the residual forward would
+    write as out_f32 without its second product."""
+    B, L, A = q.shape
+    qh, kh = (apply_rope(t.reshape(B, L, 8, 64), cos, sin).float() for t in (q, k))
+    p = torch.softmax(torch.einsum('blhd,bmhd->bhlm', qh, kh) * 0.125, dim=-1)
+    return torch.einsum('bhlm,bmhd->blhd', p.to(torch.bfloat16).float(),
+                        v.float().reshape(B, L, 8, 64)).reshape(B, L, A)
+
+
+OUT_F32_RTOL = 1e-4   # chip_smoke.py's limit for out_f32, of max |ref|
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 100), (2, 291)])
+def test_k1_k5_residuals_and_the_same_bits_without_them(dev, dtype, B, L):
+    """K1 and K5 give the same output bits with and without the residuals,
+    K1's residuals are K5's bits, and they agree with the plain forward's.
+    The kernels round the rotation as the plain version does, so both
+    residuals differ from it by summation order alone: lse to 1e-5 in f32
+    and 1e-3 in bf16; out_f32 in f32 by max |err| <= 1e-4 max |ref|, a limit
+    that the outputs with P rounded to bf16 (the plain bf16 output, and P v
+    in f32 with P rounded) must fail."""
+    q, k, v = _qkvd(B, L, dtype, dev, B * L + 3, 3)
+    cos, sin = rope_tables(64, L, device=dev)
+    qkv = FA.merge_qkv_heads(q, k, v, 8)
+    before = (FA.launches, FA.rope_launches)
+    res = [FA.rope_attention_forward(q, k, v, cos, sin, 0.125, 8, residuals=True),
+           FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, 8, residuals=True)]
+    bare = [FA.rope_attention_forward(q, k, v, cos, sin, 0.125, 8),
+            FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, 8)]
+    plain_out, out_ref, lse_ref = FA.rope_attention_reference(q, k, v, cos, sin, 0.125, 8,
+                                                              True)
+    torch.cuda.synchronize()
+    assert (FA.launches, FA.rope_launches) == (before[0] + 2, before[1] + 2)
+    top = out_ref.abs().max().item()
+    rel = lambda o: (o.float() - out_ref).abs().max().item() / top  # noqa: E731
+    if dtype == torch.bfloat16:
+        for control in (plain_out, _out_with_bf16_p(q, k, v, cos, sin)):
+            assert rel(control) > OUT_F32_RTOL, rel(control)
+    for (out, out_f32, lse), plain in zip(res, bare):
+        assert torch.equal(out, plain)
+        assert out_f32.dtype == torch.float32 and torch.isfinite(out_f32).all()
+        assert rel(out_f32) <= OUT_F32_RTOL, f'out_f32 off by {rel(out_f32)} of max |ref|'
+        assert lse.shape == (B, 8, L) and torch.isfinite(lse).all()
+        lse_err = (lse - lse_ref).abs().max().item()
+        assert lse_err <= (1e-5 if dtype == torch.float32 else 1e-3), lse_err
+    assert all(torch.equal(a, b) for a, b in zip(res[0][1:], res[1][1:]))
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
+                                             (torch.bfloat16, BF16_RTOL, 5e-3)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 100), (2, 291)])
+def test_k3_k6_from_residuals_match_plain(dev, dtype, rtol, atol, B, L):
+    """K3 and K6 given K1's and K5's residuals: the same bits as the
+    standalone call (which runs the forward itself), the same bits on a
+    repeat (no atomics), K3 the same bits as K6, and within the limits of
+    both plain versions: the TPU kernel's arithmetic and the kernels' own
+    from the residuals."""
+    q, k, v, do = _qkvd(B, L, dtype, dev, B * L + 4)
+    cos, sin = rope_tables(64, L, device=dev)
+    qkv = FA.merge_qkv_heads(q, k, v, 8)
+    _, out, lse = FA.rope_attention_forward(q, k, v, cos, sin, 0.125, 8, residuals=True)
+    _, out1, lse1 = FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, 8, residuals=True)
+    before = (FA.rope_launches, FA.rope_bwd_launches, FA.bwd_launches)
+    got = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8, out=out, lse=lse)
+    again = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8, out=out, lse=lse)
+    k3 = FA.split_qkv_heads(FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, 8,
+                                                           out=out1, lse=lse1), 8)
+    assert (FA.rope_launches, FA.rope_bwd_launches, FA.bwd_launches) == (
+        before[0], before[1] + 6, before[2] + 3)   # no forward when the residuals are given
+    alone = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8)
+    ref = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, 0.125, 8)
+    twin = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, 0.125, 8, out, lse)
+    torch.cuda.synchronize()
+    for name, g, *others in zip('qkv', got, again, k3, alone, ref, twin):
+        assert torch.isfinite(g).all(), name
+        assert all(torch.equal(g, o) for o in others[:3]), name
+        for want in others[3:]:
+            err = excess(g, want, rtol)
+            assert err <= atol, f'd{name}: excess {err} over rtol {rtol}'
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -330,7 +430,9 @@ def test_k6_through_autograd(dev, dtype):
     out.backward(do)
     want = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, 8)
     torch.cuda.synchronize()
-    assert (FA.rope_launches, FA.rope_bwd_launches) == (before[0] + 1, before[1] + 4)
+    # autograd: K5 writing the residuals, K6 from them; the standalone call
+    # runs K5 first
+    assert (FA.rope_launches, FA.rope_bwd_launches) == (before[0] + 2, before[1] + 6)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
 
