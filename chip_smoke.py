@@ -35,7 +35,15 @@ version on the card. Then:
   call (K3 also at shorter L); they are timed given the residuals (as
   autograd calls them) and standalone (the forward first). Beside each
   bf16 gate the phases record how far delta from the bf16 output would
-  move the gradients.
+  move the gradients;
+- the ByteNet block redesign (the fifth slice), inside the K2 and K4
+  phases: K2 is three launches a call and K4 five; each is timed beside the
+  block as a composition of PyTorch calls in bf16 (``library_ms``; for K4
+  its autograd backward), the device time of each launch of one dual-tower
+  call is read from the profiler, and K2's bf16 excess is split by stage
+  (each plain stage fed the kernel's own p and q, with the LayerNorm
+  output rounded to bf16 before the activation as the plain version does,
+  and kept in f32 as the TPU kernel keeps it).
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -164,6 +172,9 @@ PRETRAIN_CONFIG = {
                             'min_lr': 1.e-6, 'multiplier': 10, 'total_epoch': 10}},
 }
 PRETRAIN_ITERS = 3   # iterations of pretrain.run: 6 steps, validation and save at the 3rd
+# kernels one call launches: K2 three GEMMs; K4 three data GEMMs, one grouped
+# weight-gradient GEMM and one fixed-order sum
+K2_LAUNCHES, K4_LAUNCHES = 3, 5
 
 
 _last_record = []
@@ -283,6 +294,124 @@ def bound_ms(nbytes, flops, dtype_name):
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+LIBRARY_COMPOSITION = ('a composition: F.layer_norm, the activation, F.linear, F.layer_norm, '
+                       'the activation, F.conv1d, F.layer_norm, the activation, F.linear, '
+                       'in bf16')
+STAGE_KEYS = ('excess_p', 'excess_q_given_p', 'excess_y_given_q', 'excess_p_f32_ln',
+              'excess_q_given_p_f32_ln', 'excess_y_given_q_f32_ln')
+
+
+def k2_stage_excess(torch, x, args, dil, act):
+    """K2's bf16 excess split by stage: each stage of the plain version fed
+    the kernel's own input to it (x, the kernel's p, the kernel's q), once
+    as the plain version is (each LayerNorm's output rounded to bf16 before
+    the activation, as the Flax module path does) and once with that output
+    kept in f32 before the activation, as the TPU kernel and K2 keep it."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2 = args
+    y, p, q, _ = FB._forward(x, args, dil, act, keep=True)
+
+    def excess(out, ref):
+        return ((out.float() - ref.float()).abs() - BF16_RTOL * ref.float().abs()).max().item()
+
+    out = {}
+    plain_ln = FB.layer_norm
+    for tag, ln in (('', plain_ln), ('_f32_ln', lambda t, g, b: F.layer_norm(
+            t.float(), (t.shape[-1],), g.float(), b.float(), FB.LN_EPS))):
+        FB.layer_norm = ln
+        try:
+            out['excess_p' + tag] = excess(p, FB._plain_p(x, g1, b1, w1, c1, act))
+            out['excess_q_given_p' + tag] = excess(q, FB._plain_q(p, g2, b2, wc, cc, dil, act))
+            out['excess_y_given_q' + tag] = excess(y, FB._plain_y(x, q, g3, b3, w2, c2, act))
+        finally:
+            FB.layer_norm = plain_ln
+    return out
+
+
+def composition_params(args, dtype):
+    """The block's parameters for ``block_composition``: all in ``dtype``,
+    the conv weight as F.conv1d takes it ([out, in, K])."""
+    g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2 = (t.detach().to(dtype) for t in args)
+    return g1, b1, w1, c1, g2, b2, wc.permute(0, 2, 1).contiguous(), cc, g3, b3, w2, c2
+
+
+def block_composition(x, prm, dil, act):
+    """The ByteNet block as PyTorch's own calls (F.layer_norm with eps 1e-6,
+    the activation, F.linear, F.conv1d, F.linear): the yardstick K2 and,
+    through autograd, K4 are timed beside. The port never calls it."""
+    import torch.nn.functional as F
+    g1, b1, w1, c1, g2, b2, wconv, cc, g3, b3, w2, c2 = prm
+    f = F.relu if act == 'relu' else F.gelu
+    d, h, k = x.shape[-1], w1.shape[0], wconv.shape[-1]
+    p = F.linear(f(F.layer_norm(x, (d,), g1, b1, 1e-6)), w1, c1)
+    bb = f(F.layer_norm(p, (h,), g2, b2, 1e-6))
+    q = F.conv1d(bb.transpose(1, 2), wconv, cc, padding=(k - 1) // 2 * dil,
+                 dilation=dil).transpose(1, 2)
+    return x + F.linear(f(F.layer_norm(q, (h,), g3, b3, 1e-6)), w2, c2)
+
+
+def ptxas_registers(logs):
+    """Registers and spilled bytes of each kernel, from nvcc's -Xptxas -v
+    output by source: {source: [[kernel, registers, spill stores, spill
+    loads], ...]} (kernel: its mangled name from the kernel's own name on)."""
+    import re
+    out = {}
+    for src, log in logs.items():
+        rows, name, spill = [], None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:  # the length-prefixed name that ends in _kernel, and its template
+                mangled = m.group(1)
+                for d in re.finditer(r'\d+', mangled):  # a length may follow other digits
+                    ends = [d.end() + int(d.group()[k:]) for k in range(len(d.group()))]
+                    end = next((e for e in ends if mangled[d.end():e].endswith('_kernel')), 0)
+                    if end:
+                        name = mangled[d.end():end] + mangled[end:end + 40]
+                        break
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r'Used (\d+) registers', line)
+            if m and name:
+                rows.append([name, int(m.group(1)), *spill])
+                name, spill = None, (0, 0)
+        out[src] = rows
+    return out
+
+
+def launch_times(torch, fn, counter, n=5):
+    """The device ms of each kernel one call of ``fn`` launches, in launch
+    order (median over ``n`` calls, each in a torch.profiler window of its
+    own), from the profiler; a window whose kernel records are not the
+    ``counter()`` launches of one call is read again (the profiler can miss
+    or carry over a record, PERF.md §6); 'not measured' when none is."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    before = counter()
+    fn()
+    torch.cuda.synchronize()
+    per = counter() - before
+    runs, names = [], None
+    for _ in range(2 * n):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and 'bytenet' in e.name), key=lambda e: e.time_range.start)
+        if len(ks) == per:
+            runs.append([e.time_range.elapsed_us() / 1e3 for e in ks])
+            names = [e.name[:80] for e in ks]
+        if len(runs) == n:
+            break
+    if not runs:
+        return 'not measured'
+    return [{'kernel': names[i], 'ms': statistics.median(r[i] for r in runs)}
+            for i in range(per)]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -318,6 +447,7 @@ def main():
           'cuda': torch.version.cuda, 'python': sys.version.split()[0],
           'build_s': {k: round(v, 3) for k, v in build_s.items()},
           'build_total_s': round(time.perf_counter() - t0, 3)})
+    emit({'phase': 'registers', 'kernels': ptxas_registers(_build.BUILD_LOGS)})
 
     gen = torch.Generator(device='cpu').manual_seed(SEED)
     results = {'K1': {}, 'K2': {}}
@@ -374,7 +504,7 @@ def main():
             name = str(dtype).split('.')[-1]
             tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0,
                    'max_abs_err': 0.0, 'excess_over_rtol': 0.0, 'bytes_ms': 0.0,
-                   'ops_ms': 0.0}
+                   'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
             for d, act, n_layers in towers:
                 h = d // 2
                 for Lc in (C.HEAVY_LEN, C.LIGHT_LEN):
@@ -405,12 +535,25 @@ def main():
                                             reps=5, windows=3)
                         rec['plain_ms'] = time_ms(torch, lambda: FB.bytenet_block_reference(
                             x, *args, **kw), reps=2, windows=3)
+                        if dtype == torch.bfloat16:
+                            rec.update(k2_stage_excess(torch, x, args, dil, act))
+                            lib = composition_params(args, dtype)
+                            rec['library_ms'] = time_ms(
+                                torch, lambda: block_composition(x, lib, dil, act),
+                                reps=5, windows=3)
+                            rec['library_max_abs_err'] = (block_composition(x, lib, dil, act)
+                                                          .float() - r.float()).abs().max().item()
+                            tot['library_ms'] += rec['library_ms']
+                            if (B, d, Lc, dil) == (MAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1):
+                                rec['launch_ms'] = tot['launch_ms'] = launch_times(
+                                    torch, lambda: FB.bytenet_block(x, *args, **kw),
+                                    lambda: FB.launches)
                         emit(rec)
                         for key in ('ms', 'plain_ms', 'bound_ms'):
                             tot[key] += rec[key]
                         tot['calls'] += 1
-                        for key in ('max_abs_err', 'excess_over_rtol'):
-                            tot[key] = max(tot[key], errs.get(key, 0.0))
+                        for key in ('max_abs_err', 'excess_over_rtol', *STAGE_KEYS):
+                            tot[key] = max(tot.get(key, 0.0), rec.get(key, 0.0))
             # the forward's 24 calls together: whichever side dominates the sum
             tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
             emit({'phase': 'K2_forward_total', 'B': B, 'dtype': name, **tot})
@@ -516,7 +659,8 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16'},
-        {'name': 'K2 ByteNet block forward (LayerNorm row passes and GEMMs)',
+        {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
+                 'applied as its operand lands)',
          'route': 'cuda',
          'source': 'hudiff_tpu_torch/csrc/bytenet_block.cu',
          'replaces': 'hudiff_tpu/ops/pallas_bytenet.py:162',
@@ -525,7 +669,10 @@ def main():
          'max_abs_err': k2['max_abs_err'], 'excess_over_rtol': k2['excess_over_rtol'],
          'max_abs_err_f32': k2_f32['max_abs_err'], 'ms': k2['ms'] / n2,
          'plain_ms': k2['plain_ms'] / n2, 'bound_ms': k2['bound_ms'] / n2,
-         'bound_by': k2['bound_by'], 'library_ms': None,
+         'bound_by': k2['bound_by'], 'library_ms': k2['library_ms'] / n2,
+         'library': LIBRARY_COMPOSITION, 'ms_per_forward': k2['ms'],
+         'stage_excess': {k: k2[k] for k in STAGE_KEYS},
+         'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
                   'tower blocks of one forward, bf16'},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
@@ -539,16 +686,21 @@ def main():
          'library_ms': k3['library_ms'],
          'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
                   '(three kernels); ms_standalone runs K1 for them first'},
-        {'name': 'K4 ByteNet block backward (row passes, data and weight GEMMs, '
-                 'fixed-order sums)',
+        {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
+                 'backward in their epilogues, one grouped weight-gradient GEMM, one '
+                 'fixed-order sum)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/bytenet_block_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_bytenet.py:192',
          'launches': trained['K4'], 'launches_per_step': per_step['K4'],
          'max_abs_err': k4['max_abs_err'], 'excess_over_rtol': k4['excess_over_rtol'],
          'max_abs_err_f32': k4_f32['max_abs_err'], 'grad_rel_err': k4['grad_rel_err'],
          'ms': k4['ms'] / n4, 'plain_ms': k4['plain_ms'] / n4,
-         'bound_ms': k4['bound_ms'] / n4, 'bound_by': k4['bound_by'], 'library_ms': None,
+         'bound_ms': k4['bound_ms'] / n4, 'bound_by': k4['bound_by'],
+         'library_ms': k4['library_ms'] / n4,
+         'library': LIBRARY_COMPOSITION + ', its autograd backward',
          'ms_per_step': k4['ms'], 'bound_ms_per_step': k4['bound_ms'],
+         'library_ms_per_step': k4['library_ms'],
+         'launch_ms_one_dual_tower_call': k4['launch_ms'],
          'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
                   'tower blocks of one step, bf16'},
         *later_kernels(results, api)]})
@@ -565,7 +717,7 @@ KERNEL_GROUPS = (('K4', ('bytenet_bwd_',)), ('K3', ('rope_attention_bwd_',)),
                  ('K5', ('rope_attention_sep_fwd_kernel',)),
                  ('K1', ('rope_attention_qkv_kernel',)),
                  ('K7', ('plain_attention_kernel',)), ('K8', ('fused_layer_',)),
-                 ('K2', ('bytenet_gemm_kernel', 'bytenet_ln_act_kernel')),
+                 ('K2', ('bytenet_fwd_gemm_kernel',)),
                  ('cublas', ('gemm', 'cutlass', 'nvjet', 'xmma')))
 KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7', 'K8')
 
@@ -804,7 +956,7 @@ def k4_phase(torch, gen, dev, cfg):
             name = str(dtype).split('.')[-1]
             tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0, 'max_abs_err': 0.0,
                    'excess_over_rtol': 0.0, 'grad_rel_err': 0.0, 'bytes_ms': 0.0,
-                   'ops_ms': 0.0}
+                   'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
             for d, act, n_layers in towers:
                 h = d // 2
                 for Lc in (C.HEAVY_LEN, C.LIGHT_LEN):
@@ -815,13 +967,15 @@ def k4_phase(torch, gen, dev, cfg):
                         x = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
                         dy = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
                         kw = dict(dilation=dil, activation_name=act)
-                        _, p, q = FB._forward(x, params, dil, act, keep=True)
-                        got = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
-                        ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+                        _, p, q, st = FB._forward(x, params, dil, act, keep=True)
+                        # as autograd calls it: given K2's LayerNorm statistics,
+                        # held against the plain version given the same
+                        got = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, stats=st)
+                        ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw,
+                                                                  stats=st)
                         torch.cuda.synchronize()
                         errs, ok = check_err(torch, 'K4', got[0], ref[0])
-                        rel = max(((a - b).abs().max() / b.abs().max()).item()
-                                  for a, b in zip(got[1:], ref[1:]))
+                        rel = grad_rel_err(got, ref)
                         ok = ok and rel <= K4_GRAD_RTOL[name] and all(
                             bool(torch.isfinite(g).all().item()) for g in got)
                         rec = {'phase': 'K4', 'B': B, 'L': Lc, 'D': d, 'H': h, 'act': act,
@@ -831,6 +985,15 @@ def k4_phase(torch, gen, dev, cfg):
                             emit(rec)
                             fail(f'K4 disagrees with its plain version: {rec}')
                         del got, ref
+                        # taking the statistics itself, against the plain version
+                        # doing the same: recorded, not held (a ReLU input within
+                        # rounding of 0 can take the other side in either)
+                        alone = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
+                        ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+                        alone_errs, _ = check_err(torch, 'K4', alone[0], ref[0])
+                        rec.update(standalone_max_abs_err=alone_errs['max_abs_err'],
+                                   standalone_grad_rel_err=grad_rel_err(alone, ref))
+                        del alone, ref
                         s = dtype.itemsize
                         # read x, p, q, dy and the f32 parameters; write dx and
                         # the f32 gradients. Twice the forward's products.
@@ -842,23 +1005,53 @@ def k4_phase(torch, gen, dev, cfg):
                         t_bytes, t_ops = bound_parts(nbytes, flops, name)
                         tot['bytes_ms'] += t_bytes
                         tot['ops_ms'] += t_ops
-                        rec['ms'] = time_ms(torch, lambda: FB.bytenet_block_backward(
-                            x, p, q, *params, dy, **kw), reps=5, windows=3)
+                        # timed as ByteNetBlockFn calls it: on the forward's copies of
+                        # the weights in x's type, which K4 reads without rounding
+                        cd_params = FB._prepared(params, dev, dtype)
+                        call = lambda: FB.bytenet_block_backward(  # noqa: E731
+                            x, p, q, *cd_params, dy, **kw, stats=st)
+                        rec['ms'] = time_ms(torch, call, reps=5, windows=3)
                         rec['plain_ms'] = time_ms(
                             torch, lambda: FB.bytenet_block_backward_reference(
-                                x, p, q, *params, dy, **kw), reps=1, windows=3)
+                                x, p, q, *params, dy, **kw, stats=st), reps=1, windows=3)
+                        if dtype == torch.bfloat16:
+                            rec['library_ms'] = composition_backward_ms(torch, x, params, dy,
+                                                                        dil, act)
+                            tot['library_ms'] += rec['library_ms']
+                            if (B, d, Lc, dil) == (TRAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1):
+                                rec['launch_ms'] = tot['launch_ms'] = launch_times(
+                                    torch, call, lambda: FB.bwd_launches)
                         emit(rec)
                         for key in ('ms', 'plain_ms', 'bound_ms'):
                             tot[key] += rec[key]
                         tot['calls'] += 1
-                        for key in ('max_abs_err', 'excess_over_rtol', 'grad_rel_err'):
-                            tot[key] = max(tot[key], rec.get(key, 0.0))
-                        del x, dy, p, q
+                        for key in ('max_abs_err', 'excess_over_rtol', 'grad_rel_err',
+                                    'standalone_max_abs_err', 'standalone_grad_rel_err'):
+                            tot[key] = max(tot.get(key, 0.0), rec.get(key, 0.0))
+                        del x, dy, p, q, st
             tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
             emit({'phase': 'K4_step_total', 'B': B, 'dtype': name, **tot})
             out[(B, name)] = tot
             torch.cuda.empty_cache()
     return out
+
+
+def grad_rel_err(got, ref):
+    """The largest of the 12 parameter gradients' max |err| / max |ref|."""
+    return max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got[1:], ref[1:]))
+
+
+def composition_backward_ms(torch, x, params, dy, dil, act):
+    """ms of the backward of ``block_composition`` under autograd (its graph
+    built once, then the gradients of x and the 12 parameters for ``dy``):
+    K4's yardstick."""
+    leaves = [x.detach().clone().requires_grad_()] + [
+        t.requires_grad_() for t in composition_params(params, x.dtype)]
+    y = block_composition(leaves[0], leaves[1:], dil, act)
+    ms = time_ms(torch, lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                 reps=3, windows=3)
+    del y
+    return ms
 
 
 def _pair_batch(torch, B, seed):
@@ -921,8 +1114,8 @@ def train_step_f32(torch, cfg, dev):
             / sum((g_c[n] ** 2).sum().item() for n in g_c)) ** 0.5
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     expected = {'K1': 2 * cfg.cs_layers, 'K3': 6 * cfg.cs_layers,
-                'K2': 6 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
-                'K4': 11 * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
+                'K2': K2_LAUNCHES * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
+                'K4': K4_LAUNCHES * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
                 'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
     emit({'phase': 'train_step_f32', 'B': 2, 'loss_cpu': loss_c, 'loss_card': loss_g,
           'loss_rel_err': loss_rel, 'max_grad_rel_err': rel[worst], 'worst_param': worst,
@@ -975,8 +1168,8 @@ def pretrain_phase(torch, dev):
     steps, val_forwards = PRETRAIN_ITERS * acc, max(1, min(4, synthetic // B))
     blocks = 2 * (mcfg.n_encoder_layers + mcfg.dual_layers)
     expected = {'K1': (steps + val_forwards) * 2 * mcfg.cs_layers,
-                'K2': (steps + val_forwards) * blocks * 6,
-                'K3': steps * 2 * mcfg.cs_layers * 3, 'K4': steps * blocks * 11,
+                'K2': (steps + val_forwards) * blocks * K2_LAUNCHES,
+                'K3': steps * 2 * mcfg.cs_layers * 3, 'K4': steps * blocks * K4_LAUNCHES,
                 'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
     # host time at the end of iteration i is i * acc / steps_per_sec(i);
     # iteration 2 is warm and runs no validation

@@ -1,5 +1,5 @@
-// K2: the ByteNet residual block forward, as six launches (three GEMMs and
-// three LayerNorm row passes).
+// K2: the ByteNet residual block forward, as three launches, one GEMM each,
+// with every LayerNorm + activation folded into a GEMM.
 //
 // Replaces hudiff_tpu/ops/pallas_bytenet.py::_fwd_kernel (called through
 // _pallas_fwd / bytenet_block_fused).
@@ -7,357 +7,346 @@
 // What it computes, with LN = f32 LayerNorm (eps 1e-6, var = E[x^2] - E[x]^2),
 // act = ReLU or exact-erf GELU, and cd = the activation type:
 //   p = cd(act(LN1 x) W1 + c1)
-//   q = cd(dilconv(act(LN2 p)) + cc)      zero outside the chain's [0, L)
+//   q = cd(dilconv(bb) + cc),  bb = cd(act(LN2 p)), zero outside the chain
 //   y = cd(x + act(LN3 q) W2 + c2)
 // Matmul inputs are in cd, accumulation in f32.
 //
 // What bounds it on an H100: operations. For the 768/384 dual-tower block at
 // B=64, L=152 one forward is about 31.5 GFLOP (32 us at 989 TFLOP/s bf16)
-// against about 30 MB of activations (9 us at 3.35 TB/s).
+// against about 30 MB of activations (9 us at 3.35 TB/s). At the sampler's
+// B=16 the three GEMMs are small, so launches, latency and any work repeated
+// per tile are what cost.
 //
-// Design: the TPU kernel held a whole [TB, L, 768] tile in VMEM; a bf16
-// [152, 768] tile is 233 KB, over a block's 227 KB, and the dilation-32 conv
-// reaches +-96 rows. So the block is split over the flattened [B*L, *] rows:
-// (bytenet_ln_act_kernel for the row passes, bytenet_gemm_kernel for the GEMMs)
-//   1. ln_act_rows:  a = cd(act(LN1 x)), one warp per row
-//   2. gemm<A_ROWS>: p = cd(a W1^T + c1)
-//   3. ln_act_rows:  bb = cd(act(LN2 p))
-//   4. gemm<A_CONV>: q = cd(im2col(bb) Wc^T + cc) with Wc laid out
-//                    [out][K][in], i.e. a [H, K*H] matrix; A's row m, chunk
-//                    of tap t is row m + (t - (K-1)/2) * dil of the same chain,
-//                    or zero outside it, so the heavy/light boundary is never
-//                    crossed
-//   5. ln_act_rows:  e = cd(act(LN3 q))
-//   6. gemm<A_ROWS>: y = cd(x + e W2^T + c2)
-// Every GEMM uses 64x64 output tiles over 4 warps (16 antibody rows still
-// give 200+ blocks) and a 4-stage cp.async pipeline of 16-byte copies (rows
-// outside the chain are zero-filled by the copy itself), so three chunks'
-// loads are in flight while the tensor cores work on the fourth. bf16
-// products run on WMMA 16x16x16 fragments with f32 accumulators; f32 inputs
-// take a plain FMA path so they stay exact. The extra traffic is a, p/q and
-// bb/e ([B*L, D] + 2 x [B*L, H] in cd), which stay in L2 at the main path's
-// sizes.
+// Design (gemm_tiles.cuh's pipelined core; one kernel, bytenet_fwd_gemm_kernel):
+//   F1: p = cd(act(LN1 x) W1^T + c1). The block takes its rows' LN1
+//       statistics in a prologue (it reads those x rows anyway) and applies
+//       act(LN1 .) to each A chunk as it lands.
+//   F2: q = cd(im2col(bb) Wc^T + cc), Wc laid out [out][K][in], i.e. a
+//       [H, K*H] matrix: A's row m, tap t is row m + (t - (K-1)/2) dil of the
+//       same chain, zero outside it: the zero of bb, as _fwd_kernel masks bb
+//       (pallas_bytenet.py:174-178).
+//   F3: y = cd(x + e W2^T + c2).
+// F1 and F2 finish the next LayerNorm in their epilogues: the blocks that
+// share a row tile run as one thread-block cluster across all column tiles,
+// each puts its rows' (sum, sum of squares) of the rounded output in shared
+// memory, and every block reads all of them through distributed shared
+// memory, in rank order, so all hold the same statistics; each then writes
+// bb = cd(act(LN2 p)) (F1) or e = cd(act(LN3 q)) (F2) beside p or q. So
+// each activated element is formed once, where its value is in registers,
+// and F2 and F3 read plain rows: forming bb on load instead cost every
+// column tile of every tap a LayerNorm pass over its A chunk. The three
+// LayerNorms' row statistics, which the kernels hold anyway, are written
+// out when asked: K4 takes them as residuals. Rounding points
+// stay where the TPU kernel has them: p, bb, q, e and y in cd, the
+// statistics taken from the rounded p and q. Tiles: 64 x 64 (8 warps of
+// 32 x 16) unless 128 x 128 tiles (8 warps of 64 x 32) still give two blocks
+// per SM; chunks of 128 bytes per row, swizzled, in a three-slot cp.async
+// ring; nothing is atomic, so a call repeats to the same bits. f32 inputs
+// take the FMA path of the same kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
+#include "gemm_tiles.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 32;        // depth per staged chunk
-constexpr int WARPS = 4;      // 2 x 2 warps, each owns a 32 x 32 sub-tile
-constexpr int THREADS = WARPS * 32;
-constexpr int LDC = BN + 4;   // f32 output tile row stride
-constexpr int ROWS_PER_BLOCK = 8;  // ln_act_rows: one warp per row
-constexpr int STAGES = 4;     // cp.async pipeline depth
-constexpr float LN_EPS = 1e-6f;
-enum { A_ROWS = 0, A_CONV = 1 };
+using namespace hd::gemm;
+namespace tc = hd::tc;
+namespace cg = cooperative_groups;
 
-template <typename T> struct Cfg;
-template <> struct Cfg<float> { static constexpr int PAD = 4, VEC = 4; };
-template <> struct Cfg<__nv_bfloat16> { static constexpr int PAD = 8, VEC = 8; };
-template <typename T> constexpr int LDK = BK + Cfg<T>::PAD;  // A/B tile row stride
-template <typename T> constexpr int TILE = BM * LDK<T>;      // elements per A or B tile
-template <typename T> constexpr int PER_ROW = BK / Cfg<T>::VEC;
-template <typename T> constexpr int PER_THREAD = BM * PER_ROW<T> / THREADS;  // vectors
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 
-// 16 bytes of T, loaded and stored as one vector
-template <typename T> struct Pack {
-  uint4 u;
-  __device__ __forceinline__ T& operator[](int i) { return reinterpret_cast<T*>(&u)[i]; }
+template <typename T> struct FwdArgs {
+  const T* a;         // operand rows [M, C]: x, bb or e
+  const T* w;         // [N, taps * C] row-major
+  const float* bias;  // [N]
+  const float* g;     // F1: LayerNorm 1 of the operand rows [C]
+  const float* b;
+  const T* res;       // residual [M, N] or nullptr
+  T* out;             // [M, N], or nullptr: not kept
+  const float* g_out; // F1, F2: the next LayerNorm [N], or nullptr
+  const float* b_out;
+  T* act_out;         // [M, N] = cd(act(LN(cd(out)))), when g_out is set
+  float2* stats_a;    // F1: out, LN1's (mean, 1/sigma) of the A rows [M], or nullptr
+  float2* stats_out;  // F1, F2: out, the next LayerNorm's of out's rows [M], or nullptr
+  int M, C, N, L, taps, dil, gelu;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+template <typename T, int BM, int BN> struct FwdTile {
+  static constexpr int V = VEC<T>, BK = 128 / (int)sizeof(T);  // swizzled 128-byte rows
+  static constexpr int WM = BM / 2, WN = BN / 4;  // 2 x 4 warps
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static constexpr int A_SLOT = BM * BK, B_SLOT = BN * BK;
+  using Layout = Swz<BK>;
+  // the ring, the rows' LN1 statistics [BM], the row sums of 4 column warps
+  // [4][BM] and the block's row sums [BM]
+  static constexpr size_t SMEM =
+      (size_t)STAGES * (A_SLOT + B_SLOT) * sizeof(T) + (size_t)6 * BM * sizeof(float2);
+};
 
-__device__ __forceinline__ float act_fn(float u, int gelu) {
-  return gelu ? 0.5f * u * (1.f + erff(u * 0.70710678118654752f)) : fmaxf(u, 0.f);
-}
+// the operand policy: gathered A rows (with LN1 + activation on landing when
+// LN_A), B rows. Chunks are issued in order, so the next chunk's tap and
+// depth are counters, and a thread's A rows (the same every chunk) keep
+// their position in the chain: no division in the loop.
+template <typename T, int BM, int BN, bool LN_A> struct FwdOp {
+  using Tl = FwdTile<T, BM, BN>;
+  static constexpr bool TRANSFORM = LN_A;
+  static constexpr int W = Tl::BK / Tl::V;  // vectors of a chunk row
+  static constexpr int RA = BM * W / THREADS, RB = BN * W / THREADS;  // a thread's rows
+  static_assert(BM * W % THREADS == 0 && BN * W % THREADS == 0, "whole rows per pass");
+  const FwdArgs<T>& p;
+  T* sA;
+  T* sB;
+  const float2* sStat;  // [BM]: (mean, 1/sigma), 1/sigma < 0 for no row
+  int m0, n0, cpt;      // chunks per tap
+  typename Tl::Layout lay;
+  int t, kc;            // the next chunk's tap and chunk within the tap
+  int la[RA];           // a thread's A rows: position in the chain, -1 past M
 
-__device__ __forceinline__ float warp_sum(float v) {
+  static __device__ __forceinline__ int row(int i) {
+    return (int)threadIdx.x / W + i * (THREADS / W);
+  }
+  __device__ __forceinline__ void init() {
+    t = kc = 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T> __device__ __forceinline__ Pack<T> load16(const T* p) {
-  Pack<T> r;
-  r.u = *reinterpret_cast<const uint4*>(p);
-  return r;
-}
-
-// Row statistics (mean, 1/sigma) of an f32 LayerNorm over n values.
-template <typename T>
-__device__ void row_stats(const T* row, int n, int lane, float& mean, float& inv) {
-  constexpr int V = Cfg<T>::VEC;
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane * V; c < n; c += 32 * V) {
-    Pack<T> p = load16(row + c);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float v = to_f(p[e]);
-      s += v;
-      s2 += v * v;
+    for (int i = 0; i < RA; ++i) {
+      const int m = m0 + row(i);
+      la[i] = m < p.M ? m % p.L : -1;
     }
   }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  mean = s / n;
-  inv = rsqrtf(fmaxf(s2 / n - mean * mean, 0.f) + LN_EPS);
-}
-
-// One block's 64 x 64 f32 accumulator; warp w owns rows (w/2)*32, cols (w%2)*32.
-// A is [BM][LDK] row-major in shared memory, B is n-major [BN][LDK].
-template <typename T> struct Tile;
-
-template <> struct Tile<__nv_bfloat16> {
-  using bf16 = __nv_bfloat16;
-  static constexpr int LD = LDK<bf16>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-
-  __device__ void zero() {
+  __device__ __forceinline__ void issue(int, int slot) {
+    const int v = threadIdx.x % W, ch = kc * Tl::BK + v * Tl::V;
+    const int s = (t - (p.taps - 1) / 2) * p.dil;  // row m reads row m + s
+    T* a_dst = sA + slot * Tl::A_SLOT;
+    T* b_dst = sB + slot * Tl::B_SLOT;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RA; ++i) {
+      const int r = row(i), l = la[i] + s;
+      const bool ok = la[i] >= 0 && l >= 0 && l < p.L && ch < p.C;
+      tc::cp_async16(a_dst + lay.at(r, v * Tl::V),
+                     ok ? p.a + (size_t)(m0 + r + s) * p.C + ch : p.a, ok);
+    }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-  __device__ void mma(const bf16* sA, const bf16* sB, int warp, int) {
-    const int r0 = (warp / 2) * 32, c0 = (warp % 2) * 32;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], sA + (r0 + 16 * i) * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], sB + (c0 + 16 * j) * LD + kk, LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    for (int i = 0; i < RB; ++i) {
+      const int r = row(i), n = n0 + r;
+      const bool ok = n < p.N && ch < p.C;
+      tc::cp_async16(b_dst + lay.at(r, v * Tl::V),
+                     ok ? p.w + ((size_t)n * p.taps + t) * p.C + ch : p.w, ok);
+    }
+    if (++kc == cpt) {
+      kc = 0;
+      ++t;
     }
   }
-  __device__ void store(float* sC, int warp, int) {
-    const int r0 = (warp / 2) * 32, c0 = (warp % 2) * 32;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(sC + (r0 + 16 * i) * LDC + c0 + 16 * j, acc[i][j], LDC,
-                                wmma::mem_row_major);
+  __device__ __forceinline__ void transform(int c, int slot) {
+    const int k0 = (c % cpt) * Tl::BK;
+    T* a_dst = sA + slot * Tl::A_SLOT;
+    for_vectors<BM, W>([&](int r, int v) {
+      const int ch = k0 + v * Tl::V;
+      const float2 st = sStat[r];
+      const bool ok = st.y >= 0.f && ch < p.C;
+      ln_act_vec(a_dst + lay.at(r, v * Tl::V), st, p.g + (ok ? ch : 0), p.b + (ok ? ch : 0),
+                 p.gelu, ok);
+    });
   }
 };
 
-// f32: lane owns 4 rows x 8 columns of its warp's 32 x 32 sub-tile.
-template <> struct Tile<float> {
-  static constexpr int LD = LDK<float>;
-  float acc[4][8];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  __device__ void mma(const float* sA, const float* sB, int warp, int lane) {
-    const int r0 = (warp / 2) * 32 + (lane / 4) * 4, c0 = (warp % 2) * 32 + (lane % 4) * 8;
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[(r0 + i) * LD + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sB[(c0 + j) * LD + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-  __device__ void store(float* sC, int warp, int lane) {
-    const int r0 = (warp / 2) * 32 + (lane / 4) * 4, c0 = (warp % 2) * 32 + (lane % 4) * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sC[(r0 + i) * LDC + c0 + j] = acc[i][j];
-  }
-};
-
-// 16-byte global -> shared copy in flight until cp_async_wait; src_bytes 0
-// fills the 16 bytes with zeros (and reads nothing).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T> struct GemmArgs {
-  const T* a;          // A_ROWS: [M, Kd]; A_CONV: bb [M, H]
-  const T* w;          // [N, Kd] row-major (A_CONV: [H, K*H], i.e. [out][K][in])
-  const float* bias;   // [N]
-  const T* res;        // residual [M, N] or nullptr
-  T* out;              // [M, N]
-  int M, Kd, N;
-  int L, H, K, dil;    // A_CONV: chain length, channels, taps, dilation
-};
-
-template <typename T> __host__ __device__ constexpr int gemm_smem_bytes() {
-  return STAGES * 2 * TILE<T> * (int)sizeof(T);  // stages x (A, B); reused for the f32 C tile
-}
-
-// out = cd([res +] A W^T + bias) for one 64 x 64 tile, with A as AMODE says.
-template <typename T, int AMODE>
-__global__ void __launch_bounds__(THREADS) bytenet_gemm_kernel(GemmArgs<T> p) {
-  constexpr int V = Cfg<T>::VEC, PR = PER_ROW<T>, PT = PER_THREAD<T>;
-  static_assert(BM * LDC * 4 <= gemm_smem_bytes<T>(), "C tile must fit in the stages");
+// out = cd([res +] A' W^T + bias) for one BM x BN tile, A' = act(LN1 A) when
+// LN_A, else A gathered per tap; with g_out set, the launch is a cluster
+// over the row tile's column tiles and act_out = cd(act(LN(out))) too
+template <typename T, int BM, int BN, bool LN_A>
+__global__ void __launch_bounds__(THREADS, BM == 128 ? 2 : 1) bytenet_fwd_gemm_kernel(FwdArgs<T> p) {
+  using Tl = FwdTile<T, BM, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sA = reinterpret_cast<T*>(smem);  // [STAGES][BM][LDK]
-  T* sB = sA + STAGES * TILE<T>;       // [STAGES][BN][LDK]
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + STAGES * Tl::A_SLOT;
+  float2* sStat = reinterpret_cast<float2*>(sB + STAGES * Tl::B_SLOT);  // [BM]
+  float2* sRed = sStat + BM;                                            // [4][BM]
+  float2* sRow = sRed + 4 * BM;                                         // [BM]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int nchunks = p.Kd / BK;
 
-  // issue the copies of chunk c into stage s
-  auto fetch = [&](int c, int s) {
+  if constexpr (LN_A) {  // LN1's statistics of the block's rows, eight rows a warp at once
+    constexpr int R = 8;
+    for (int r0 = 0; r0 < BM; r0 += R * (THREADS / 32)) {
+      const T* rows[R];
+      float2 st[R];
 #pragma unroll
-    for (int i = 0; i < PT; ++i) {
-      const int idx = threadIdx.x + i * THREADS, r = idx / PR, v = idx % PR;
-      const int m = m0 + r;
-      const T* src = p.a;
-      bool ok = false;
-      if (AMODE == A_ROWS) {
-        ok = m < p.M;
-        if (ok) src = p.a + (size_t)m * p.Kd + c * BK + v * V;
-      } else {
-        const int per_tap = p.H / BK, t = c / per_tap;
-        const int shift = (t - (p.K - 1) / 2) * p.dil;
-        const int ls = m % p.L + shift;
-        ok = m < p.M && ls >= 0 && ls < p.L;
-        if (ok) src = p.a + (size_t)(m + shift) * p.H + (c % per_tap) * BK + v * V;
+      for (int k = 0; k < R; ++k) {
+        const int m = m0 + r0 + warp + 8 * k;
+        rows[k] = m < p.M ? p.a + (size_t)m * p.C : nullptr;
       }
-      cp_async16(sA + s * TILE<T> + r * LDK<T> + v * V, src, ok);
-      const bool okb = n0 + r < p.N;
-      cp_async16(sB + s * TILE<T> + r * LDK<T> + v * V,
-                 okb ? p.w + (size_t)(n0 + r) * p.Kd + c * BK + v * V : p.w, okb);
-    }
-  };
-
-  Tile<T> tile;
-  tile.zero();
+      rows_stats(rows, p.C, lane, st);
+      if (lane == 0)
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) fetch(s, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // chunk c has landed (for this thread) ...
-    __syncthreads();              // ... and for every thread; stage (c-1) is free
-    const int next = c + STAGES - 1;
-    if (next < nchunks) fetch(next, next % STAGES);
-    cp_async_commit();
-    const int s = c % STAGES;
-    tile.mma(sA + s * TILE<T>, sB + s * TILE<T>, warp, lane);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* sC = reinterpret_cast<float*>(smem);
-  tile.store(sC, warp, lane);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN, n = idx % BN, m = m0 + r, col = n0 + n;
-    if (m < p.M && col < p.N) {
-      float v = sC[r * LDC + n] + p.bias[col];
-      if (p.res) v = to_f(p.res[(size_t)m * p.N + col]) + v;
-      p.out[(size_t)m * p.N + col] = from_f<T>(v);
+        for (int k = 0; k < R; ++k) {
+          sStat[r0 + warp + 8 * k] = rows[k] ? st[k] : make_float2(0.f, -1.f);
+          if (rows[k] && p.stats_a && blockIdx.y == 0) p.stats_a[m0 + r0 + warp + 8 * k] = st[k];
+        }
     }
+    __syncthreads();
+  }
+
+  const typename Tl::Layout lay{};
+  FwdOp<T, BM, BN, LN_A> op{p, sA, sB, sStat, m0, n0, (p.C + Tl::BK - 1) / Tl::BK, lay};
+  op.init();
+  float acc[Tl::MT][Tl::NT][4];
+  zero(acc);
+  const int wm = (warp / 4) * Tl::WM, wn = (warp % 4) * Tl::WN;
+  mainloop<T, Tl::MT, Tl::NT, Tl::BK, false, false>(acc, op, p.taps * op.cpt, sA, Tl::A_SLOT,
+                                                    lay, sB, Tl::B_SLOT, lay, wm, wn, lane);
+
+  // epilogue: bias, residual, rounding (kept in acc); the rounded values' row sums
+  const int g = lane >> 2, tq = lane & 3;
+  float rs[Tl::MT][2][2];  // [m-tile][row half]: sum, sum of squares
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[i][h][0] = rs[i][h][1] = 0.f;
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < Tl::NT; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tq;
+        if (m < p.M && col < p.N) {
+          float v0 = acc[i][j][2 * h] + p.bias[col], v1 = acc[i][j][2 * h + 1] + p.bias[col + 1];
+          if (p.res) {
+            const float2 r = load2(p.res + (size_t)m * p.N + col);
+            v0 = r.x + v0;
+            v1 = r.y + v1;
+          }
+          v0 = to_f(from_f<T>(v0));
+          v1 = to_f(from_f<T>(v1));
+          if (p.out) store2(p.out + (size_t)m * p.N + col, v0, v1);
+          acc[i][j][2 * h] = v0;
+          acc[i][j][2 * h + 1] = v1;
+          rs[i][h][0] += v0 + v1;
+          rs[i][h][1] += v0 * v0 + v1 * v1;
+        }
+      }
+    }
+  if (!p.g_out) return;
+
+  // the full rows' statistics: the four lanes of a row, the 4 column warps
+  // in order, then every block of the cluster in rank order
+#pragma unroll
+  for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        rs[i][h][k] += __shfl_xor_sync(0xffffffffu, rs[i][h][k], 1);
+        rs[i][h][k] += __shfl_xor_sync(0xffffffffu, rs[i][h][k], 2);
+      }
+      if (tq == 0)
+        sRed[(warp % 4) * BM + wm + 16 * i + g + 8 * h] = make_float2(rs[i][h][0], rs[i][h][1]);
+    }
+  __syncthreads();
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    float2 s = sRed[r];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) {
+      s.x += sRed[w * BM + r].x;
+      s.y += sRed[w * BM + r].y;
+    }
+    sRow[r] = s;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's sRow is written
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    float s = 0.f, s2 = 0.f;
+    for (unsigned k = 0; k < cluster.num_blocks(); ++k) {
+      const float2 v = *cluster.map_shared_rank(sRow + r, k);
+      s += v.x;
+      s2 += v.y;
+    }
+    sStat[r] = ln_stats(s, s2, p.N);
+    if (p.stats_out && blockIdx.y == 0 && m0 + r < p.M) p.stats_out[m0 + r] = sStat[r];
+  }
+  cluster.sync();  // every block has read the others' sRow; sStat is written
+
+  // act_out = cd(act(LN(out))) from the rounded values in acc
+#pragma unroll
+  for (int j = 0; j < Tl::NT; ++j) {
+    const int col = n0 + wn + 8 * j + 2 * tq;
+    if (col >= p.N) continue;
+    const float2 gc = load2(p.g_out + col), bc = load2(p.b_out + col);
+#pragma unroll
+    for (int i = 0; i < Tl::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm + 16 * i + g + 8 * h, m = m0 + r;
+        if (m >= p.M) continue;
+        const float2 st = sStat[r];
+        store2(p.act_out + (size_t)m * p.N + col,
+               act_fn(ln_affine(acc[i][j][2 * h], st, gc.x, bc.x), p.gelu),
+               act_fn(ln_affine(acc[i][j][2 * h + 1], st, gc.y, bc.y), p.gelu));
+      }
   }
 }
 
-// out = cd(act(LN(in))) row by row, one warp per row.
-template <typename T>
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
-bytenet_ln_act_kernel(const T* __restrict__ in, const float* __restrict__ g,
-                   const float* __restrict__ beta, T* __restrict__ out, int M, int N,
-                   int gelu) {
-  constexpr int V = Cfg<T>::VEC;
-  const int lane = threadIdx.x % 32;
-  const int m = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
-  if (m >= M) return;
-  const T* row = in + (size_t)m * N;
-  float mean, inv;
-  row_stats(row, N, lane, mean, inv);
-  for (int c = lane * V; c < N; c += 32 * V) {
-    Pack<T> q = load16(row + c);
-#pragma unroll
-    for (int e = 0; e < V; ++e)
-      q[e] = from_f<T>(act_fn((to_f(q[e]) - mean) * inv * g[c + e] + beta[c + e], gelu));
-    *reinterpret_cast<uint4*>(out + (size_t)m * N + c) = q.u;
-  }
-}
-
-template <typename T, int AMODE>
-cudaError_t gemm(const GemmArgs<T>& args, cudaStream_t stream) {
-  constexpr int bytes = gemm_smem_bytes<T>();
-  // set once per instantiation: the port drives one card per process
+template <typename T, int BM, int BN, bool LN_A>
+cudaError_t gemm_tiled(const FwdArgs<T>& a, cudaStream_t stream) {
+  auto kernel = bytenet_fwd_gemm_kernel<T, BM, BN, LN_A>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      bytenet_gemm_kernel<T, AMODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FwdTile<T, BM, BN>::SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((args.M + BM - 1) / BM, (args.N + BN - 1) / BN);
-  bytenet_gemm_kernel<T, AMODE><<<grid, THREADS, bytes, stream>>>(args);
-  return cudaGetLastError();
+  const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = FwdTile<T, BM, BN>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = a.g_out ? grid.y : 1;  // a row tile's column tiles
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// 128 x 128 tiles where they still give two blocks per SM of an H100, or
+// where 64-column tiles would make a cluster larger than the portable size;
+// else 64 x 64
+bool big_tiles(int M, int N, bool cluster) {
+  return (long long)((M + 127) / 128) * ((N + 127) / 128) >= 2 * 132 ||
+         (cluster && N > 64 * MAX_CLUSTER);
+}
+
+template <typename T, bool LN_A> cudaError_t gemm(const FwdArgs<T>& a, cudaStream_t stream) {
+  return big_tiles(a.M, a.N, a.g_out != nullptr) ? gemm_tiled<T, 128, 128, LN_A>(a, stream)
+                                                 : gemm_tiled<T, 64, 64, LN_A>(a, stream);
 }
 
 template <typename T>
-cudaError_t ln_act_rows(const T* in, const float* g, const float* beta, T* out, int M, int N,
-                        int gelu, cudaStream_t stream) {
-  bytenet_ln_act_kernel<T><<<(M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, ROWS_PER_BLOCK * 32, 0,
-                          stream>>>(in, g, beta, out, M, N, gelu);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* x, const float* g1, const float* b1, const void* w1,
-           const float* c1, const float* g2, const float* b2, const void* wc,
-           const float* cc, const float* g3, const float* b3, const void* w2,
-           const float* c2, void* sa, void* sp, void* sq, void* s2, void* y, int B, int L,
-           int D, int H, int K, int dil, int gelu, cudaStream_t stream, int* launched) {
+int launch(const T* x, const float* const* prm, const T* w1, const T* wc, const T* w2, T* p,
+           T* q, T* y, T* bb, T* e, float2* stats, int B, int L, int D, int H, int K, int dil,
+           int gelu, cudaStream_t stream, int* launched) {
+  // prm: g1, b1, c1, g2, b2, cc, g3, b3, c2 (f32); stats: [3][M] (x, p, q) or nullptr
   const int M = B * L;
-  const T* xt = static_cast<const T*>(x);
-  T* at = static_cast<T*>(sa);   // act(LN1 x)
-  T* pt = static_cast<T*>(sp);   // p
-  T* qt = static_cast<T*>(sq);   // q (may be p's buffer)
-  T* b_e = static_cast<T*>(s2);  // act(LN2 p), then act(LN3 q)
-  GemmArgs<T> a1{at, static_cast<const T*>(w1), c1, nullptr, pt, M, D, H, 0, 0, 0, 0};
-  GemmArgs<T> a2{b_e, static_cast<const T*>(wc), cc, nullptr, qt, M, K * H, H, L, H, K, dil};
-  GemmArgs<T> a3{b_e, static_cast<const T*>(w2), c2, xt, static_cast<T*>(y), M, H, D,
-                 0, 0, 0, 0};
+  float2* st1 = stats;
+  float2* st2 = stats ? stats + M : nullptr;
+  float2* st3 = stats ? stats + 2 * (size_t)M : nullptr;
+  const FwdArgs<T> f1{x, w1, prm[2], prm[0], prm[1], nullptr, p, prm[3], prm[4], bb, st1, st2,
+                      M, D, H, L, 1, 0, gelu};
+  const FwdArgs<T> f2{bb, wc, prm[5], nullptr, nullptr, nullptr, q, prm[6], prm[7], e, nullptr,
+                      st3, M, H, H, L, K, dil, gelu};
+  const FwdArgs<T> f3{e, w2, prm[8], nullptr, nullptr, x, y, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, M, H, D, L, 1, 0, gelu};
   cudaError_t err;
   // *launched counts the kernels that were launched, in order
-  if ((err = ln_act_rows<T>(xt, g1, b1, at, M, D, gelu, stream)) != cudaSuccess) return (int)err;
+  if ((err = gemm<T, true>(f1, stream)) != cudaSuccess) return (int)err;
   ++*launched;
-  if ((err = gemm<T, A_ROWS>(a1, stream)) != cudaSuccess) return (int)err;
+  if ((err = gemm<T, false>(f2, stream)) != cudaSuccess) return (int)err;
   ++*launched;
-  if ((err = ln_act_rows<T>(pt, g2, b2, b_e, M, H, gelu, stream)) != cudaSuccess) return (int)err;
-  ++*launched;
-  if ((err = gemm<T, A_CONV>(a2, stream)) != cudaSuccess) return (int)err;
-  ++*launched;
-  if ((err = ln_act_rows<T>(qt, g3, b3, b_e, M, H, gelu, stream)) != cudaSuccess) return (int)err;
-  ++*launched;
-  if ((err = gemm<T, A_ROWS>(a3, stream)) != cudaSuccess) return (int)err;
+  if ((err = gemm<T, false>(f3, stream)) != cudaSuccess) return (int)err;
   ++*launched;
   return 0;
 }
@@ -365,31 +354,42 @@ int launch(const void* x, const float* g1, const float* b1, const void* w1,
 }  // namespace
 
 // x, y [B, L, D]; w1 [H, D]; wc [H, K, H] ([out][tap][in]); w2 [D, H] (all in
-// the activation type); g*/b*/c* f32; p, q [B, L, H] out (p == q allowed:
-// q then overwrites p); sa [B, L, D] and s2 [B, L, H] scratch. D and H
-// multiples of 32, K odd. dtype 0 = float32, 1 = bfloat16;
-// act 0 = ReLU, 1 = GELU. Sets *launched to the number of kernels launched
-// (6 on success) and returns a cudaError_t code (0 = all launched).
+// the activation type); g*/b*/c* f32; p, q [B, L, H] out (the pre-LayerNorm
+// Dense and conv outputs, kept for the backward; either may be null: not
+// kept); bb, e [B, L, H] scratch in the activation type; stats [3][B*L] f32
+// (mean, 1/sigma) pairs out, the LayerNorm statistics of x, p and q rows
+// (the backward's residuals), or null. D and H multiples of
+// 32, H at most 1024 (a cluster spans H's column tiles), K odd. dtype 0 =
+// float32, 1 = bfloat16; act 0 = ReLU, 1 = GELU. Sets *launched to the
+// number of kernels launched (3 on success) and returns a cudaError_t code
+// (0 = all launched).
 extern "C" int hd_bytenet_block_fwd(const void* x, const void* g1, const void* b1,
                                     const void* w1, const void* c1, const void* g2,
                                     const void* b2, const void* wc, const void* cc,
                                     const void* g3, const void* b3, const void* w2,
-                                    const void* c2, void* sa, void* p, void* q, void* s2,
-                                    void* y, int B, int L, int D, int H, int K, int dil, int act,
+                                    const void* c2, void* p, void* q, void* y, void* bb, void* e,
+                                    void* stats, int B, int L, int D, int H, int K, int dil, int act,
                                     int dtype, void* stream, int* launched) {
   *launched = 0;
-  if (B <= 0 || L <= 0 || D <= 0 || H <= 0 || D % 32 || H % 32 || K <= 0 || K % 2 == 0 ||
-      dil <= 0 || (act != 0 && act != 1))
+  // a cluster spans the column tiles of H: at most MAX_CLUSTER of 128
+  if (B <= 0 || L <= 0 || D <= 0 || H <= 0 || D % 32 || H % 32 || H > 128 * MAX_CLUSTER ||
+      K <= 0 || K % 2 == 0 || dil <= 0 || (act != 0 && act != 1))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* v) { return static_cast<const float*>(v); };
+  const float* prm[9] = {f(g1), f(b1), f(c1), f(g2), f(b2), f(cc), f(g3), f(b3), f(c2)};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, f(g1), f(b1), w1, f(c1), f(g2), f(b2), wc, f(cc), f(g3),
-                         f(b3), w2, f(c2), sa, p, q, s2, y, B, L, D, H, K, dil, act, s,
-                         launched);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, f(g1), f(b1), w1, f(c1), f(g2), f(b2), wc, f(cc),
-                                 f(g3), f(b3), w2, f(c2), sa, p, q, s2, y, B, L, D, H, K, dil,
-                                 act, s, launched);
+  auto st = static_cast<float2*>(stats);
+  if (dtype == 0) {
+    auto o = [](void* v) { return static_cast<float*>(v); };
+    return launch<float>(f(x), prm, f(w1), f(wc), f(w2), o(p), o(q), o(y), o(bb), o(e), st, B, L,
+                         D, H, K, dil, act, s, launched);
+  }
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    auto h = [](const void* v) { return static_cast<const bf16*>(v); };
+    auto o = [](void* v) { return static_cast<bf16*>(v); };
+    return launch<bf16>(h(x), prm, h(w1), h(wc), h(w2), o(p), o(q), o(y), o(bb), o(e), st, B, L,
+                        D, H, K, dil, act, s, launched);
+  }
   return (int)cudaErrorInvalidValue;
 }

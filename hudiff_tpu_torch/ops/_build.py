@@ -27,9 +27,12 @@ BUILD_DIR = PKG_DIR.parent / 'build' / 'hudiff_tpu_torch'
 SOURCES = ('rope_attention', 'rope_attention_bwd', 'bytenet_block', 'bytenet_block_bwd',
            'fused_layer')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# nvcc's output for each source built in this process: ptxas's registers,
+# shared memory and spills per kernel (-Xptxas -v)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -73,6 +76,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         proc, tmp = job
         log, _ = proc.communicate()
+        BUILD_LOGS[n] = log
         if proc.returncode != 0:
             failed.append(f'nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}')
             continue

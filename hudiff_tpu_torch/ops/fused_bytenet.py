@@ -3,10 +3,15 @@
 Counterpart of hudiff_tpu/ops/pallas_bytenet.py (``bytenet_block_fused``,
 its TPU kernels ``_fwd_kernel`` and ``_bwd_kernel`` and the custom VJP
 around them, :380-407). The CUDA kernels are ``csrc/bytenet_block.cu`` (K2:
-one call launches six, three LayerNorm row passes and three GEMMs) and
-``csrc/bytenet_block_bwd.cu`` (K4: eleven launches, row passes, data- and
-weight-gradient GEMMs and one fixed-order reduction); their headers say
-what bounds them on an H100 and how the designs answer that.
+one call launches three GEMMs; the first applies LayerNorm 1 + activation
+to x's rows as they land, and the first two finish the next LayerNorm in
+their epilogues, as thread-block clusters spanning a row tile's columns,
+writing act(LN2 p) and act(LN3 q) for the next GEMM) and
+``csrc/bytenet_block_bwd.cu`` (K4: five launches, three data-gradient
+GEMMs with the LayerNorm backward in their epilogues, one grouped
+weight-gradient GEMM and one fixed-order reduction), both on the pipelined
+GEMM core of ``csrc/gemm_tiles.cuh``; their headers say what bounds them
+on an H100 and how the designs answer that.
 
 Parameters: ``w1`` [H, D] and ``w2`` [D, H] as ``nn.Linear`` weights,
 ``wc`` [H, K, H] (out, tap, in: ``ops/bytenet.py::DilatedConv``); the
@@ -15,13 +20,16 @@ LayerNorm scales and biases and the three biases are f32.
 ``bytenet_block`` routes by the tensor's device alone: a CPU tensor takes
 the plain versions, a CUDA tensor launches the kernels (or raises). When a
 gradient is needed it goes through ``ByteNetBlockFn``, whose forward is K2
-keeping p and q (the pre-LayerNorm Dense and conv outputs, in x's type) and
-whose backward is K4, returning dx and the 12 parameter gradients in f32.
+keeping p and q (the pre-LayerNorm Dense and conv outputs, in x's type), the
+three LayerNorms' row statistics and the weights in x's type it gave K2, and
+whose backward is K4 on those, returning dx and the 12 parameter gradients
+in f32.
 Otherwise it calls K2 alone, as the sampler does. ``launches`` and
 ``bwd_launches`` count the CUDA kernels K2's and K4's C entries report.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -34,11 +42,11 @@ launches = 0
 bwd_launches = 0
 
 _SIGNATURES = {
-    'hd_bytenet_block_fwd': [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+    'hd_bytenet_block_fwd': [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    'hd_bytenet_block_bwd': [ctypes.c_void_p] * 30 + [ctypes.c_int] * 8
+    'hd_bytenet_block_bwd': [ctypes.c_void_p] * 31 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p, ctypes.c_void_p],
     'hd_bytenet_block_bwd_workspace': [ctypes.c_int] * 6,
 }
@@ -47,20 +55,36 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {'relu': 0, 'gelu': 1}
 
 
+def _plain_p(x, g1, b1, w1, c1, activation_name: str):
+    """The plain forward's first stage: p = cd(act(LN1 x) W1^T + c1)."""
+    cd = x.dtype
+    a = activation(layer_norm(x, g1, b1), activation_name).to(cd)
+    return (a.float() @ w1.to(cd).float().t() + c1.float()).to(cd)
+
+
+def _plain_q(p, g2, b2, wc, cc, dilation: int, activation_name: str):
+    """The second: q = cd(conv(bb) + cc), bb = cd(act(LN2 p)), zero outside
+    [0, L)."""
+    cd = p.dtype
+    bb = activation(layer_norm(p, g2, b2), activation_name).to(cd)
+    pad = (wc.shape[1] - 1) // 2 * dilation
+    return F.conv1d(bb.float().transpose(1, 2), wc.to(cd).float().permute(0, 2, 1), cc.float(),
+                    padding=pad, dilation=dilation).transpose(1, 2).to(cd)
+
+
+def _plain_y(x, q, g3, b3, w2, c2, activation_name: str):
+    """The third: y = cd(x + e W2^T + c2), e = cd(act(LN3 q))."""
+    cd = x.dtype
+    e = activation(layer_norm(q, g3, b3), activation_name).to(cd)
+    return (x.float() + (e.float() @ w2.to(cd).float().t() + c2.float())).to(cd)
+
+
 def _reference_parts(x, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2, *,
                      dilation: int, activation_name: str):
-    """(y, p, q) of the plain forward."""
-    cd = x.dtype
-    act = lambda t: activation(t, activation_name)  # noqa: E731
-    a = act(layer_norm(x, g1, b1)).to(cd)
-    p = (a.float() @ w1.to(cd).float().t() + c1.float()).to(cd)
-    bb = act(layer_norm(p, g2, b2)).to(cd)
-    pad = (wc.shape[1] - 1) // 2 * dilation
-    q = F.conv1d(bb.float().transpose(1, 2), wc.to(cd).float().permute(0, 2, 1), cc.float(),
-                 padding=pad, dilation=dilation).transpose(1, 2).to(cd)
-    e = act(layer_norm(q, g3, b3)).to(cd)
-    y = x.float() + (e.float() @ w2.to(cd).float().t() + c2.float())
-    return y.to(cd), p, q
+    """(y, p, q) of the plain forward, stage by stage."""
+    p = _plain_p(x, g1, b1, w1, c1, activation_name)
+    q = _plain_q(p, g2, b2, wc, cc, dilation, activation_name)
+    return _plain_y(x, q, g3, b3, w2, c2, activation_name), p, q
 
 
 def bytenet_block_reference(x, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2,
@@ -74,13 +98,17 @@ def bytenet_block_reference(x, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2,
                             dilation=dilation, activation_name=activation_name)[0]
 
 
-def _ln_parts(zf, g, b):
+def _ln_parts(zf, g, b, st=None):
     """f32 LayerNorm with the fast variance: (affine output, normalized,
     1/sigma), as pallas_bytenet.py::_ln_parts (the variance clamped at 0, as
-    the port's forward does)."""
-    mu = zf.mean(dim=-1, keepdim=True)
-    var = (zf * zf).mean(dim=-1, keepdim=True) - mu * mu
-    inv = torch.rsqrt(var.clamp_min(0.0) + LN_EPS)
+    the port's forward does); ``st`` [..., 2]: the rows' (mean, 1/sigma)
+    given instead."""
+    if st is None:
+        mu = zf.mean(dim=-1, keepdim=True)
+        var = (zf * zf).mean(dim=-1, keepdim=True) - mu * mu
+        inv = torch.rsqrt(var.clamp_min(0.0) + LN_EPS)
+    else:
+        mu, inv = st[..., :1], st[..., 1:]
     n = (zf - mu) * inv
     return n * g.float() + b.float(), n, inv
 
@@ -114,24 +142,28 @@ def _shift(t, s: int):
 
 
 def bytenet_block_backward_reference(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2,
-                                     c2, dy, *, dilation: int, activation_name: str):
+                                     c2, dy, *, dilation: int, activation_name: str,
+                                     stats=None):
     """Plain version of K4: (dx, dg1, db1, dw1, dc1, dg2, db2, dwc, dcc, dg3,
     db3, dw2, dc2) from the saved x, p, q, by explicit formulas following
     pallas_bytenet.py::_bwd_kernel (:203-273) line by line, with its
     rounding points: a, bb, e, dq and dp in x's type (cd), every product of
     cd values accumulated in f32, dx rounded to cd, the parameter gradients
-    f32 in the port's layouts."""
+    f32 in the port's layouts. ``stats`` [3, B, L, 2]: the LayerNorm
+    statistics of x, p and q rows that K2 writes (the residual-taking
+    variant, K4's arithmetic when given them), else taken here."""
     cd = x.dtype
     act = lambda t: activation(t, activation_name)  # noqa: E731
     dact = lambda t: _dact(t, activation_name)  # noqa: E731
     rnd = lambda t: t.to(cd).float()  # noqa: E731
     w1c, wcc, w2c = (rnd(w) for w in (w1, wc, w2))
     dyf = rnd(dy)
-    uh, un, inv1 = _ln_parts(x.float(), g1, b1)
+    st = (None,) * 3 if stats is None else stats.float()
+    uh, un, inv1 = _ln_parts(x.float(), g1, b1, st[0])
     a = rnd(act(uh))
-    vh, vn, inv2 = _ln_parts(p.float(), g2, b2)
+    vh, vn, inv2 = _ln_parts(p.float(), g2, b2, st[1])
     bb = rnd(act(vh))
-    wh, wn, inv3 = _ln_parts(q.float(), g3, b3)
+    wh, wn, inv3 = _ln_parts(q.float(), g3, b3, st[2])
     e = rnd(act(wh))
     rows = (0, 1)
 
@@ -179,81 +211,99 @@ def _check(x, w1, wc, w2, activation_name: str, what: str):
     B, L, D = x.shape
     H, K = w1.shape[0], wc.shape[1]
     if (w1.shape != (H, D) or wc.shape != (H, K, H) or w2.shape != (D, H)
-            or D % 32 or H % 32 or K % 2 == 0):
+            or D % 32 or H % 32 or max(D, H) > 1024 or K % 2 == 0):
         raise ValueError(f'{what}: unsupported shapes x {tuple(x.shape)}, '
                          f'w1 {tuple(w1.shape)}, wc {tuple(wc.shape)}, '
-                         f'w2 {tuple(w2.shape)} (D, H multiples of 32, K odd)')
+                         f'w2 {tuple(w2.shape)} (D, H multiples of 32 up to 1024, K odd)')
     return B, L, D, H, K
 
 
 def _ready(t, dev, dtype):
     """``t`` on ``dev`` in ``dtype``, contiguous; no copy when it already is."""
-    ok = t.device == dev and t.dtype == dtype and t.is_contiguous()
+    ok = t.dtype is dtype and t.get_device() == dev.index and t.is_contiguous()
     return t if ok else t.to(device=dev, dtype=dtype).contiguous()
 
 
+def _on(dev):
+    """What a launch on ``dev`` needs around it: nothing when ``dev`` is the
+    current device (the calls that take the small blocks are host-bound)."""
+    return (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+            else torch.cuda.device(dev))
+
+
+_WEIGHTS = (2, 6, 10)   # w1, wc, w2 among the 12 parameters
+
+
+def _prepared(params, dev, cd):
+    """The 12 parameters as the kernels take them, on ``dev`` and
+    contiguous: the weights in the activation type ``cd``, the LayerNorm
+    parameters and biases in f32 (no copy where one already is)."""
+    return tuple(_ready(t, dev, cd if i in _WEIGHTS else torch.float32)
+                 for i, t in enumerate(params))
+
+
 def _forward(x, params, dilation: int, activation_name: str, keep: bool):
-    """K2 on a CUDA tensor, the plain version on a CPU one: (y, p, q) with
-    p, q None unless ``keep`` (a forward alone lets q overwrite p)."""
+    """K2 on a CUDA tensor, the plain version on a CPU one: (y, p, q, stats)
+    with p, q and K2's LayerNorm statistics of x, p, q rows ([3, B, L, 2]
+    f32, the backward's residuals; None from the plain version) None unless
+    ``keep``."""
     global launches
     if x.device.type == 'cpu':
         y, p, q = _reference_parts(x, *params, dilation=dilation,
                                    activation_name=activation_name)
-        return (y, p, q) if keep else (y, None, None)
-    g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2 = params
-    B, L, D, H, K = _check(x, w1, wc, w2, activation_name, 'bytenet_block')
+        return (y, p, q, None) if keep else (y, None, None, None)
+    B, L, D, H, K = _check(x, params[2], params[6], params[10], activation_name,
+                           'bytenet_block')
     dev, cd = x.device, x.dtype
-    w1, wc, w2 = (_ready(t, dev, cd) for t in (w1, wc, w2))
-    g1, b1, c1, g2, b2, cc, g3, b3, c2 = (
-        _ready(t, dev, torch.float32) for t in (g1, b1, c1, g2, b2, cc, g3, b3, c2))
+    params = _prepared(params, dev, cd)
     x = x.contiguous()
     y = torch.empty_like(x)
-    es = x.element_size()
-    if keep:
-        p, q = torch.empty(B, L, H, dtype=cd, device=dev), torch.empty(B, L, H, dtype=cd, device=dev)
-        # scratch: act(LN1 x) [B, L, D]; act(LN2 p) then act(LN3 q) [B, L, H]
-        scratch = torch.empty(B * L * (D + H), dtype=cd, device=dev)
-        sa = scratch.data_ptr()
-        sp, sq, s2 = p.data_ptr(), q.data_ptr(), sa + B * L * D * es
-    else:
-        p = q = None
-        # scratch: act(LN1 x); p then q; act(LN2 p) then act(LN3 q)
-        scratch = torch.empty(B * L * (D + 2 * H), dtype=cd, device=dev)
-        sa = scratch.data_ptr()
-        sp = sq = sa + B * L * D * es
-        s2 = sp + B * L * H * es
+    p = torch.empty(B, L, H, dtype=cd, device=dev) if keep else None
+    q = torch.empty(B, L, H, dtype=cd, device=dev) if keep else None
+    stats = torch.empty(3, B, L, 2, dtype=torch.float32, device=dev) if keep else None
+    # scratch: bb = act(LN2 p) and e = act(LN3 q), each written by the GEMM
+    # before the one that reads it
+    scratch = torch.empty(2, B, L, H, dtype=cd, device=dev)
     lib = _build.load('bytenet_block', _SIGNATURES)
     launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.hd_bytenet_block_fwd(
-            x.data_ptr(), g1.data_ptr(), b1.data_ptr(), w1.data_ptr(), c1.data_ptr(),
-            g2.data_ptr(), b2.data_ptr(), wc.data_ptr(), cc.data_ptr(), g3.data_ptr(),
-            b3.data_ptr(), w2.data_ptr(), c2.data_ptr(), sa, sp, sq, s2, y.data_ptr(),
+            x.data_ptr(), *(t.data_ptr() for t in params),
+            *((t.data_ptr() if keep else None) for t in (p, q)), y.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), stats.data_ptr() if keep else None,
             B, L, D, H, K, int(dilation), _ACTS[activation_name], _DTYPES[cd], stream,
             ctypes.addressof(launched))
     launches += launched.value
     _build.check(code, 'bytenet_block')
-    return y, p, q
+    return y, p, q, stats
 
 
 def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2, dy, *,
-                           dilation: int, activation_name: str):
+                           dilation: int, activation_name: str, stats=None):
     """(dx, 12 f32 parameter gradients) of the block at (x, p, q) for the
     output gradient ``dy`` (cast to x's type first, as ``_fused_bwd``
-    does): K4 on a CUDA tensor, the plain version on a CPU one."""
+    does): K4 on a CUDA tensor, the plain version on a CPU one. K4 reads
+    the weights in x's type (rounded here unless they already are, as the
+    forward's copies that ``ByteNetBlockFn`` keeps). ``stats``: the
+    forward's LayerNorm statistics of x, p, q rows ([3, B, L, 2] f32, as
+    ``_forward`` returns them); without them K4 takes them itself."""
     global bwd_launches
     params = (g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2)
     dy = dy.to(x.dtype)
     if x.device.type == 'cpu':
         return bytenet_block_backward_reference(x, p, q, *params, dy, dilation=dilation,
-                                                activation_name=activation_name)
+                                                activation_name=activation_name, stats=stats)
     B, L, D, H, K = _check(x, w1, wc, w2, activation_name, 'bytenet_block_backward')
     dev, cd = x.device, x.dtype
     x, p, q, dy = (_ready(t, dev, cd) for t in (x, p, q, dy))
     if p.shape != (B, L, H) or q.shape != (B, L, H) or dy.shape != x.shape:
         raise ValueError('bytenet_block_backward: p, q must be [B, L, H] and dy like x')
-    params = [_ready(t, dev, torch.float32) for t in params]
+    if stats is not None:
+        stats = _ready(stats, dev, torch.float32)
+        if stats.shape != (3, B, L, 2):
+            raise ValueError('bytenet_block_backward: stats must be [3, B, L, 2]')
+    params = _prepared(params, dev, cd)
     grads = [torch.empty(t.shape, dtype=torch.float32, device=dev) for t in params]
     dx = torch.empty_like(x)
     lib = _build.load('bytenet_block_bwd', _BWD_SIGNATURES, _BWD_RESTYPES)
@@ -264,10 +314,11 @@ def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, 
                          f'H={H} K={K}')
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.hd_bytenet_block_bwd(
-            x.data_ptr(), p.data_ptr(), q.data_ptr(), *(t.data_ptr() for t in params),
+            x.data_ptr(), p.data_ptr(), q.data_ptr(),
+            stats.data_ptr() if stats is not None else None, *(t.data_ptr() for t in params),
             dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in grads),
             workspace.data_ptr(), B, L, D, H, K, int(dilation), act, dt, stream,
             ctypes.addressof(launched))
@@ -277,23 +328,26 @@ def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, 
 
 
 class ByteNetBlockFn(torch.autograd.Function):
-    """K2 forward keeping p and q, K4 backward (the custom VJP of
+    """K2 forward keeping p, q, its LayerNorm statistics and the weights it
+    read in x's type, K4 backward given them (the custom VJP of
     pallas_bytenet.py:380-407)."""
 
     @staticmethod
     def forward(ctx, x, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2, dilation,
                 activation_name):
         params = (g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2)
-        y, p, q = _forward(x, params, dilation, activation_name, keep=True)
-        ctx.save_for_backward(x, p, q, *params)
+        if x.device.type != 'cpu':
+            params = _prepared(params, x.device, x.dtype)
+        y, p, q, stats = _forward(x, params, dilation, activation_name, keep=True)
+        ctx.save_for_backward(x, p, q, stats, *params)
         ctx.dilation, ctx.activation_name = dilation, activation_name
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, p, q, *params = ctx.saved_tensors
+        x, p, q, stats, *params = ctx.saved_tensors
         grads = bytenet_block_backward(x, p, q, *params, dy, dilation=ctx.dilation,
-                                       activation_name=ctx.activation_name)
+                                       activation_name=ctx.activation_name, stats=stats)
         return (*grads, None, None)
 
 

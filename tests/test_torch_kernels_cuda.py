@@ -103,10 +103,117 @@ def test_k2_matches_plain(dev, dtype, rtol, atol, d, h, k, act, L, dil):
     out = FB.bytenet_block(x, *args, dilation=dil, activation_name=act)
     ref = FB.bytenet_block_reference(x, *args, dilation=dil, activation_name=act)
     torch.cuda.synchronize()
-    assert FB.launches == before + 6   # three LayerNorm row passes, three GEMMs
+    assert FB.launches == before + 3   # three GEMMs, the LayerNorms folded in
     assert torch.isfinite(out).all()
     err = excess(out, ref, rtol)
     assert err <= atol, f'excess {err} over rtol {rtol}'
+
+
+def _block_args(blk, dtype):
+    """The block's parameters as K2's callers pass them: weights in x's type."""
+    return [t.detach().to(dtype) if t.dim() >= 2 else t.detach()
+            for t in (blk.ln1.weight, blk.ln1.bias, blk.fc1.weight, blk.fc1.bias,
+                      blk.ln2.weight, blk.ln2.bias, blk.conv.weight, blk.conv.bias,
+                      blk.ln3.weight, blk.ln3.bias, blk.fc2.weight, blk.fc2.bias)]
+
+
+K4_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+# the humanization forward's dual-tower shape; L = 17 with dilation 32 (every
+# tap but the centre outside the chain); 185 rows, which no tile size
+# divides; the narrowest hidden width (32) and the widest block (D = 1024,
+# H = 512)
+EDGE_SHAPES = [(16, 152, 768, 384, 7, 'relu', 4), (3, 17, 64, 32, 7, 'gelu', 32),
+               (5, 37, 96, 64, 13, 'relu', 3), (2, 41, 64, 32, 7, 'relu', 1),
+               (2, 41, 1024, 512, 7, 'gelu', 2)]
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 2e-5),
+                                             (torch.bfloat16, BF16_RTOL, 2.5e-2)])
+@pytest.mark.parametrize('B,L,d,h,k,act,dil', EDGE_SHAPES)
+def test_k2_repeats_and_edge_shapes(dev, dtype, rtol, atol, B, L, d, h, k, act, dil):
+    """K2 at the edge shapes against its plain version, and the same bits on
+    a repeat (fixed-order statistics, no atomics)."""
+    gen = torch.Generator().manual_seed(B * L + d + dil)
+    args = _block_args(_block(d, h, k, dil, act, gen).to(dev), dtype)
+    x = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    kw = dict(dilation=dil, activation_name=act)
+    before = FB.launches
+    out = FB.bytenet_block(x, *args, **kw)
+    again = FB.bytenet_block(x, *args, **kw)
+    ref = FB.bytenet_block_reference(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert FB.launches == before + 6
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    err = excess(out, ref, rtol)
+    assert err <= atol, f'excess {err} over rtol {rtol}'
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 2e-5),
+                                             (torch.bfloat16, BF16_RTOL, 1.5e-2)])
+@pytest.mark.parametrize('B,L,d,h,k,act,dil', EDGE_SHAPES[1:])
+def test_k4_edge_shapes(dev, dtype, rtol, atol, B, L, d, h, k, act, dil):
+    """K4 at the edge shapes against its plain version; the weights in x's
+    type (the forward's copies, as ByteNetBlockFn passes them) give the
+    same bits as the f32 weights, which the wrapper rounds."""
+    gen = torch.Generator().manual_seed(B * L + d + dil + 1)
+    blk = _block(d, h, k, dil, act, gen).to(dev)
+    params = _block_args(blk, torch.float32)
+    x = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    dy = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    kw = dict(dilation=dil, activation_name=act)
+    _, p, q, _ = FB._forward(x, params, dil, act, keep=True)
+    before = FB.bwd_launches
+    grads = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
+    cast = FB.bytenet_block_backward(x, p, q, *_block_args(blk, dtype), dy, **kw)
+    ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+    torch.cuda.synchronize()
+    assert FB.bwd_launches == before + 10
+    assert all(torch.equal(a, b) for a, b in zip(grads, cast))
+    assert all(torch.isfinite(g).all() for g in grads)
+    err = excess(grads[0], ref[0], rtol)
+    assert err <= atol, f'dx excess {err} over rtol {rtol}'
+    for i, (got, want) in enumerate(zip(grads[1:], ref[1:])):
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert rel <= K4_GRAD_RTOL[dtype], f'parameter {i}: {rel}'
+
+
+@pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 2e-5),
+                                             (torch.bfloat16, BF16_RTOL, 1.5e-2)])
+@pytest.mark.parametrize('B,L,d,h,k,act,dil', [(4, 152, 768, 384, 7, 'relu', 1),
+                                               (3, 37, 256, 128, 7, 'gelu', 4)])
+def test_k2_statistics_and_k4_given_them(dev, dtype, rtol, atol, B, L, d, h, k, act, dil):
+    """K2 keeping p and q also writes the LayerNorm statistics of x, p and q
+    rows (against the same rows' in f32: 1e-5 of the mean's scale, 1e-5
+    relative for 1/sigma) without changing y; K4 given them against the
+    plain backward given them, the same limits as without, and the same
+    bits on a repeat."""
+    gen = torch.Generator().manual_seed(B * L + d)
+    params = _block_args(_block(d, h, k, dil, act, gen).to(dev), torch.float32)
+    x = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    dy = torch.randn(B, L, d, generator=gen).to(dev, dtype)
+    kw = dict(dilation=dil, activation_name=act)
+    y, p, q, st = FB._forward(x, params, dil, act, keep=True)
+    assert st.shape == (3, B, L, 2) and st.dtype == torch.float32
+    assert torch.equal(y, FB.bytenet_block(x, *params, **kw))
+    for i, z in enumerate((x, p, q)):
+        zf = z.float()
+        mu = zf.mean(-1)
+        inv = torch.rsqrt(((zf * zf).mean(-1) - mu * mu).clamp_min(0.0) + FB.LN_EPS)
+        assert (st[i, ..., 0] - mu).abs().max().item() <= 1e-5 * max(1.0, mu.abs().max().item())
+        assert ((st[i, ..., 1] - inv).abs() / inv).max().item() <= 1e-5
+    before = FB.bwd_launches
+    got = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, stats=st)
+    again = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, stats=st)
+    ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw, stats=st)
+    torch.cuda.synchronize()
+    assert FB.bwd_launches == before + 10
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    err = excess(got[0], ref[0], rtol)
+    assert err <= atol, f'dx excess {err} over rtol {rtol}'
+    for i, (a, b) in enumerate(zip(got[1:], ref[1:])):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        assert rel <= K4_GRAD_RTOL[dtype], f'parameter {i}: {rel}'
 
 
 @pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
@@ -128,9 +235,6 @@ def test_k3_matches_plain(dev, dtype, rtol, atol, B, L):
     assert err <= atol, f'excess {err} over rtol {rtol}'
 
 
-K4_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
-
-
 @pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 2e-5),
                                              (torch.bfloat16, BF16_RTOL, 1.5e-2)])
 @pytest.mark.parametrize('d,h,k,act,B,L,dil', [(64, 32, 7, 'gelu', 3, 17, 2),
@@ -148,12 +252,12 @@ def test_k4_matches_plain(dev, dtype, rtol, atol, d, h, k, act, B, L, dil):
     dy = torch.randn(B, L, d, generator=gen).to(dev, dtype)
     kw = dict(dilation=dil, activation_name=act)
     before = FB.launches, FB.bwd_launches
-    y, p, q = FB._forward(x, params, dil, act, keep=True)
+    y, p, q, _ = FB._forward(x, params, dil, act, keep=True)
     grads = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
     again = FB.bytenet_block_backward(x, p, q, *params, dy, **kw)
     ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
     torch.cuda.synchronize()
-    assert (FB.launches, FB.bwd_launches) == (before[0] + 6, before[1] + 22)
+    assert (FB.launches, FB.bwd_launches) == (before[0] + 3, before[1] + 10)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))   # fixed-order sums
     assert all(torch.isfinite(g).all() for g in grads)
     err = excess(grads[0], ref[0], rtol)
@@ -185,12 +289,12 @@ def test_counters_match_the_kernels_the_profiler_sees(dev):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if 'rope_attention_qkv_kernel' in e.key:
                 seen['K1'] += e.count
-            elif 'bytenet_gemm_kernel' in e.key or 'bytenet_ln_act_kernel' in e.key:
+            elif 'bytenet_fwd_gemm_kernel' in e.key:
                 seen['K2'] += e.count
             elif 'rope_attention_bwd_' in e.key:
                 seen['K3'] += e.count
     counted = {'K1': FA.launches - k1, 'K2': FB.launches - k2, 'K3': FA.bwd_launches - k3}
-    assert seen == counted == {'K1': 2, 'K2': 6, 'K3': 3}
+    assert seen == counted == {'K1': 2, 'K2': 3, 'K3': 3}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -244,8 +348,8 @@ def test_humanize_on_card_keeps_cdrs_and_runs_the_kernels(dev):
     res = hum(H1, L1)
     steps = HZ._bucket_order_width(len(inp['positions']), inp['pad_to'])
     assert FA.launches - k1 == 2 * steps          # cs_layers = 1: two attentions
-    # two chains x (1 aa + 2 dual) blocks, six kernels each
-    assert FB.launches - k2 == 2 * (1 + 2) * 6 * steps
+    # two chains x (1 aa + 2 dual) blocks, three kernels each
+    assert FB.launches - k2 == 2 * (1 + 2) * 3 * steps
     cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0
     assert (res['grids'] != C.IDX_MSK).all()
     assert (res['grids'][:, cdr] == inp['clean'][cdr]).all()
@@ -280,7 +384,7 @@ def test_test_size_train_step_matches_cpu(dev):
                                           M.Corrupted(*(t.to(d) for t in cor)))
         if d == dev:
             assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 6)
-            assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (6 * 6, 6 * 11)
+            assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (6 * 3, 6 * 5)
         grads.append((m['loss'].item(), keep))
     (loss_c, g_c), (loss_g, g_g) = grads
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
