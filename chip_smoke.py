@@ -365,7 +365,8 @@ def ptxas_registers(logs):
                 mangled = m.group(1)
                 for d in re.finditer(r'\d+', mangled):  # a length may follow other digits
                     ends = [d.end() + int(d.group()[k:]) for k in range(len(d.group()))]
-                    end = next((e for e in ends if mangled[d.end():e].endswith('_kernel')), 0)
+                    end = next((e for e in ends if mangled[d.end():e].endswith('_kernel')
+                                and mangled[d.end()].isalpha()), 0)
                     if end:
                         name = mangled[d.end():end] + mangled[end:end + 40]
                         break
@@ -378,6 +379,31 @@ def ptxas_registers(logs):
                 name, spill = None, (0, 0)
         out[src] = rows
     return out
+
+
+def sass_counts(library, opcodes=('HGMMA', 'UTMALDG')):
+    """How many of each SASS opcode every kernel of a built library holds,
+    from ``cuobjdump --dump-sass``: {kernel: {opcode: count}} (kernel: the
+    name that ends in _kernel, from its mangled name)."""
+    import re
+    from hudiff_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
+    out = subprocess.run([tool, '--dump-sass', str(library)], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            kernel = next((m.group(1)[d.end():e] for d in re.finditer(r'\d+', m.group(1))
+                           for e in (d.end() + int(d.group()[k:]) for k in range(len(d.group())))
+                           if re.fullmatch(r'[A-Za-z]\w*_kernel', m.group(1)[d.end():e])),
+                          m.group(1))
+            counts[kernel] = dict.fromkeys(opcodes, 0)
+        elif kernel:
+            for op in opcodes:
+                if re.search(rf'\b{op}\b', line):
+                    counts[kernel][op] += 1
+    return counts
 
 
 def launch_times(torch, fn, counter, n=5):
@@ -1665,7 +1691,36 @@ def k8_phase(torch, dev):
     if counted != seen or seen['K8'] != 6:
         fail(f'K8: launch counters {counted} != kernels the profiler saw {seen}')
     out['probe'] = rec
+    k8_build_records(torch, rec, L)
     return out
+
+
+def k8_build_records(torch, probe, L):
+    """K8's kernels as built and as they ran, one record each: the device ms
+    of each kernel (the probe phase's profiler window), the shared memory a
+    block and the blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and spills (nvcc -Xptxas -v), and the HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions of each kernel in the built library. The
+    bf16 kernels rest on wgmma: the phase fails without HGMMA in them."""
+    from hudiff_tpu_torch.ops import _build
+    from hudiff_tpu_torch.tools import fused_layer_probe as FL
+    emit({'phase': 'K8_kernel_ms', 'B': 64, 'L': L, 'dtype': 'bfloat16',
+          'kernels': probe['kernels'], 'ms': probe['ms'], 'bound_ms': probe['bound_ms']})
+    emit({'phase': 'K8_occupancy', 'L': L,
+          'sms': torch.cuda.get_device_properties(0).multi_processor_count,
+          'bfloat16': FL.kernel_occupancy(L, torch.bfloat16),
+          'float32': FL.kernel_occupancy(L, torch.float32)})
+    regs = ptxas_registers({'fused_layer': _build.BUILD_LOGS['fused_layer']}
+                           if 'fused_layer' in _build.BUILD_LOGS else {})
+    emit({'phase': 'K8_registers',
+          'kernels': [{'kernel': k, 'registers': r, 'spill_store_bytes': st,
+                       'spill_load_bytes': ld} for k, r, st, ld in regs.get('fused_layer', [])]
+          or 'not measured (library built by an earlier process)'})
+    sass = sass_counts(_build.library_path('fused_layer'))
+    bf16 = {k: sass.get(k) for k in FL.KERNEL_NAMES[torch.bfloat16]}
+    emit({'phase': 'K8_sass', 'kernels': sass})
+    if any(c is None or c['HGMMA'] == 0 for c in bf16.values()):
+        fail(f'K8: the bf16 kernels hold no wgmma (HGMMA) instruction: {bf16}')
 
 
 def later_kernels(results, api):
@@ -1709,7 +1764,7 @@ def later_kernels(results, api):
               replaces='tools/fused_layer_probe.py:34', launches=results['K8']['launches'],
               launches_per_call=k8['launches_per_call'], library=probe['library'],
               current_ms=probe['current_ms'], speedup=probe['speedup'],
-              rel_err_vs_current=probe['rel_err'],
+              rel_err_vs_current=probe['rel_err'], kernel_ms=probe['kernels'],
               shape='B=64 L=291 d_model=768 att=512 H=8 bf16, one call (two kernels); '
                     'errors on k8_check_inputs, times on the probe\'s weights')]
 

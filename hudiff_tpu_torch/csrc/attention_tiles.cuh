@@ -2,26 +2,24 @@
 // K7), rope_attention_bwd.cu (K3, K6) and fused_layer.cu (K8).
 //
 // Every tile is 64 rows of a 64-wide head; a block has four warps and each
-// warp owns 16 rows of a tile. T is float (the tests' reference type: plain
-// FMA, so products stay exact) or __nv_bfloat16 (WMMA 16x16x16 fragments
-// with f32 accumulators). T tiles have row stride LDT; f32 tiles LDF.
+// warp owns 16 rows of a tile. The accumulator tile (Acc) and the shared-
+// memory softmax serve the f32 paths (the tests' reference type: plain FMA,
+// so products stay exact); the bf16 paths run on mma_tiles.cuh and
+// wgmma_tiles.cuh. T tiles have row stride LDT; f32 tiles LDF.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 
 namespace hd {
 
-using namespace nvcuda;
-
 constexpr int HD = 64;       // head dim
 constexpr int D2 = HD / 2;
 constexpr int WARPS = 4;     // each warp owns 16 rows of a 64-row tile
 constexpr int THREADS = WARPS * 32;
-constexpr int LDF = 64 + 4;  // f32 tile row stride (WMMA: multiple of 4)
+constexpr int LDF = 64 + 4;  // f32 tile row stride
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
 
 template <typename T> struct Cfg { static constexpr int PAD = 4, VEC = 4; };
@@ -70,68 +68,6 @@ struct Layout {
 // Every operand is a 64 x 64 T tile with row stride LDT; depth 64.
 //   abt: C += A B^T     ab: C += A B     atb: C += A^T B
 template <typename T> struct Acc;
-
-template <> struct Acc<__nv_bfloat16> {
-  using bf16 = __nv_bfloat16;
-  static constexpr int LD = ldt<bf16>();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[4];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(f[j], 0.f);
-  }
-  __device__ void load(const float* C, int warp, int) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::load_matrix_sync(f[j], C + warp * 16 * LDF + j * 16, LDF, wmma::mem_row_major);
-  }
-  __device__ void abt(const bf16* A, const bf16* B, int warp, int) {
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + warp * 16 * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // B^T[k][n] = B[n][k]: a column-major view of B
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, B + j * 16 * LD + kk, LD);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-  __device__ void ab(const bf16* A, const bf16* B, int warp, int) {
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + warp * 16 * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + kk * LD + j * 16, LD);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-  __device__ void atb(const bf16* A, const bf16* B, int warp, int) {
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      // A^T[m][k] = A[k][m]: a column-major view of A's rows kk..kk+15
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, A + kk * LD + warp * 16, LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + kk * LD + j * 16, LD);
-        wmma::mma_sync(f[j], a, b, f[j]);
-      }
-    }
-  }
-  __device__ void store(float* C, int warp, int) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(C + warp * 16 * LDF + j * 16, f[j], LDF, wmma::mem_row_major);
-  }
-};
 
 // f32: lane owns row 16 warp + lane / 2, columns [32 (lane & 1), +32); every
 // sum runs over the depth in order.

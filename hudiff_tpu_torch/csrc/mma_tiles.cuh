@@ -1,6 +1,6 @@
 // Register-resident bf16 tiles for the attention kernels on Hopper's
-// mma.sync path: rope_attention.cu (K1, K5, K7) and rope_attention_bwd.cu
-// (K3, K6), bf16 instantiations.
+// mma.sync path: rope_attention.cu (K1, K5, K7), rope_attention_bwd.cu
+// (K3, K6) and fused_layer.cu's attention (K8), bf16 instantiations.
 //
 // A block of four warps works on 64-row tiles of a 64-wide head; each warp
 // owns 16 rows. Tiles of T = bf16 sit in shared memory with row stride
@@ -146,6 +146,45 @@ __device__ __forceinline__ void mma_ab(float (&c)[8][4], const uint32_t (&a)[4][
       ldsm_x4_trans(r, p + kk * 16 * LD + np * 16);
       mma(c[2 * np], a[kk], r[0], r[1]);
       mma(c[2 * np + 1], a[kk], r[2], r[3]);
+    }
+}
+
+// One 64-key tile of the online softmax over a warp's rows g and g + 8, in
+// registers. s holds S = q k^T for keys [k0, k0 + 64), unscaled, and becomes
+// P = exp2(S * sl2 - m) (sl2 = scale * log2 e; keys >= L get P = 0
+// explicitly); m (the running max, log2 units) and l (this thread's share of
+// the running sum) move to this tile, and alpha returns the factors by
+// which the caller rescales what it summed over the earlier tiles (0 on the
+// first: m = -inf there, the new max finite).
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int k0, int L, float sl2,
+                                               int lane) {
+  const int t = lane & 3;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = k0 + 8 * n + 2 * t + (e & 1) < L;
+      s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the quad holding the row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2f(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = k0 + 8 * n + 2 * t + (e & 1) < L;
+      const float p = ok ? exp2f(s[n][e] - m[e >> 1]) : 0.f;
+      s[n][e] = p;
+      l[e >> 1] += p;
     }
 }
 

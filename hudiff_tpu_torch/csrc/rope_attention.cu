@@ -288,32 +288,12 @@ __device__ __forceinline__ void attention_fwd_bf16(const Args& a) {
     tc::zero(s);
     tc::mma_abt(s, qf, cK, lane);  // S = q k^T, unscaled
 
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + 8 * n + 2 * t + (e & 1) < L;
-        s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the quad holding the row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile (m = -inf, mx finite)
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
+    tc::online_softmax(s, m, l, alpha, k0, L, sl2, lane);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + 8 * n + 2 * t + (e & 1) < L;
-        const float p = ok ? exp2f(s[n][e] - m[e >> 1]) : 0.f;
-        s[n][e] = p;
-        l[e >> 1] += p;
         o[n][e] *= alpha[e >> 1];
         if (RES) o_lo[n][e] *= alpha[e >> 1];
       }

@@ -48,6 +48,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'hd_fused_layer': [_P] * 10 + [_I] * 5 + [ctypes.c_float, _I, _P, _P],
     'hd_fused_layer_workspace_bytes': [_I] * 4,
+    'hd_fused_layer_occupancy': [_I, _I, _P, _P],
 }
 _RESTYPES = {'hd_fused_layer_workspace_bytes': ctypes.c_longlong}
 
@@ -92,6 +93,11 @@ def fused_layer(x, wqkv, bqkv, wout, bout, cos, sin, scale: float, heads: int) -
         raise ValueError(f'fused_layer: d_model must be a multiple of 64 (got {dm})')
     cos, sin = _tables(cos, sin, x, Lx, 'fused_layer')
     x, wqkv, bqkv, wout, bout = (t.contiguous() for t in (x, wqkv, bqkv, wout, bout))
+    if x.dtype == torch.bfloat16:  # the bf16 kernels read them through TMA tensor maps
+        for name, t in (('x', x), ('wqkv', wqkv), ('wout', wout)):
+            if t.data_ptr() % 16:
+                raise ValueError(f'fused_layer: bfloat16 {name} must start on a 16-byte '
+                                 f'boundary (TMA), got address {t.data_ptr():#x}')
     lib = _build.load('fused_layer', _SIGNATURES, _RESTYPES)
     dtype = _DTYPES[x.dtype]
     n_ws = lib.hd_fused_layer_workspace_bytes(B, Lx, heads, dtype)
@@ -108,6 +114,24 @@ def fused_layer(x, wqkv, bqkv, wout, bout, cos, sin, scale: float, heads: int) -
     launches += launched.value
     _build.check(code, 'fused_layer')
     return y
+
+
+# K8's two kernels by dtype, in launch order (csrc/fused_layer.cu)
+KERNEL_NAMES = {torch.bfloat16: ('fused_layer_attn_wgmma_kernel', 'fused_layer_out_wgmma_kernel'),
+                torch.float32: ('fused_layer_attn_f32_kernel', 'fused_layer_out_f32_kernel')}
+
+
+def kernel_occupancy(length: int, dtype=torch.bfloat16) -> list:
+    """For each of K8's two kernels at sequence length ``length`` (launch
+    order): its name, the dynamic shared memory of a block and the blocks
+    an SM of the current card holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.load('fused_layer', _SIGNATURES, _RESTYPES)
+    smem, blocks = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+    _build.check(lib.hd_fused_layer_occupancy(length, _DTYPES[dtype], ctypes.addressof(smem),
+                                              ctypes.addressof(blocks)), 'fused_layer occupancy')
+    return [{'kernel': name, 'smem_bytes': smem[i], 'blocks_per_sm': blocks[i]}
+            for i, name in enumerate(KERNEL_NAMES[dtype])]
 
 
 def column_blocked_to_head_major(wqkv: torch.Tensor, bqkv: torch.Tensor, heads: int):

@@ -23,6 +23,7 @@ import torch
 
 from hudiff_tpu_torch import constants as C
 from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig
+from hudiff_tpu_torch.ops import _build
 from hudiff_tpu_torch.ops import fused_attention as FA
 from hudiff_tpu_torch.ops import fused_bytenet as FB
 from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
@@ -573,13 +574,20 @@ def _layer(B, L, dm, heads, dtype, dev, seed):
 
 @pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
                                              (torch.bfloat16, BF16_RTOL, 5e-3)])
-@pytest.mark.parametrize('B,L,dm,heads', [(2, 37, 128, 2), (2, 291, 768, 8), (1, 400, 192, 3)])
+@pytest.mark.parametrize('B,L,dm,heads', [(2, 37, 128, 2), (2, 291, 768, 8), (1, 291, 768, 3),
+                                          (1, 384, 192, 3), (1, 385, 192, 3), (1, 400, 192, 3)])
 def test_k8_matches_plain_and_the_current_layer(dev, dtype, rtol, atol, B, L, dm, heads):
     """K8 against its plain version and against cuBLAS projections around
     K1 on the head-major permutation of the same weights (max |err| <=
-    1e-5 / 1e-2 of max |ref| in f32 / bf16). L = 400 keeps bf16's q, k, v
-    in the workspace instead of shared memory."""
+    1e-5 / 1e-2 of max |ref| in f32 / bf16). Each branch of the bf16
+    kernels runs: L not a multiple of 64 or of the 128-row pass (37, 291,
+    385), B * H below the SM count (1 x 3), K and V in shared memory up to
+    L = 384 and in the workspace past it (385, 400); d_model 192 leaves the
+    out projection a half 128-column tile."""
     x, ws, (cos, sin) = _layer(B, L, dm, heads, dtype, dev, B + L + dm)
+    lib = _build.load('fused_layer', FL._SIGNATURES, FL._RESTYPES)
+    in_workspace = lib.hd_fused_layer_workspace_bytes(B, L, heads, 1) > 0
+    assert in_workspace == (L > 384)   # bf16's cut-over; f32 always uses the workspace
     before = FL.launches
     y = FL.fused_layer(x, *ws, cos, sin, 0.125, heads)
     again = FL.fused_layer(x, *ws, cos, sin, 0.125, heads)
@@ -595,6 +603,15 @@ def test_k8_matches_plain_and_the_current_layer(dev, dtype, rtol, atol, B, L, dm
     assert rel <= (1e-5 if dtype == torch.float32 else 1e-2), rel
 
 
+def test_k8_occupancy(dev):
+    """Both bf16 kernels fit an SM at the model's length: one block of 288
+    threads each, launch 1 holding K and V in its shared memory."""
+    for dtype in (torch.bfloat16, torch.float32):
+        occ = FL.kernel_occupancy(291, dtype)
+        assert [o['kernel'] for o in occ] == list(FL.KERNEL_NAMES[dtype])
+        assert all(o['blocks_per_sm'] >= 1 and 0 < o['smem_bytes'] <= 232448 for o in occ), occ
+
+
 def test_k8_refuses_what_it_does_not_take(dev):
     x, ws, (cos, sin) = _layer(1, 9, 128, 2, torch.bfloat16, dev, 0)
     with pytest.raises(ValueError, match='wqkv'):
@@ -602,3 +619,9 @@ def test_k8_refuses_what_it_does_not_take(dev):
     x, ws, (cos, sin) = _layer(1, 9, 96, 2, torch.bfloat16, dev, 0)
     with pytest.raises(ValueError, match='multiple of 64'):
         FL.fused_layer(x, *ws, cos, sin, 0.125, 2)
+    # the bf16 kernels read x and the weights through TMA: 16-byte aligned
+    x, ws, (cos, sin) = _layer(1, 9, 128, 2, torch.bfloat16, dev, 0)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match='16-byte'):
+        FL.fused_layer(shifted, *ws, cos, sin, 0.125, 2)
