@@ -43,7 +43,23 @@ version on the card. Then:
   call is read from the profiler, and K2's bf16 excess is split by stage
   (each plain stage fed the kernel's own p and q, with the LayerNorm
   output rounded to bf16 before the activation as the plain version does,
-  and kept in f32 as the TPU kernel keeps it).
+  and kept in f32 as the TPU kernel keeps it; the whole block both ways
+  too; readings only: each call is held against the plain version);
+- the nano path (the seventh slice, HuDiff-Nb at the full width of
+  configs/heavy_train.yml), after the Ab pretraining phases: K1 and K3 at
+  L = 152 (``K1_nano`` at B = 16 and 512, ``K3_nano`` at 512), K2 and K4 at
+  the ``nano_conv`` tower's 512/256 GELU over its six dilations
+  (``K2_nano`` at B = 16, 128 and 512, ``K4_nano`` at 16 and 512; bf16
+  K2 split by stage as above), ``forward_f32_nano`` (card against CPU),
+  ``humanize_nano`` (a 93-forward bf16 round of 16 rows through
+  ``NanoHumanizer.humanize_many``; host prep, sampler and validity filter
+  timed apart), ``profile_nano`` and ``launch_check_nano`` (K1 10 and K2
+  36 a forward), ``train_step_f32_nano`` (card against CPU, with its
+  sensitivity reading), ``pretrain_nano`` (``pretrain.run(kind='heavy')``
+  at B = 512, a checkpoint that restores as ``NanoAntiTFNet``) and
+  ``profile_train_nano`` (K1-K4 10 / 36 / 30 / 60 a step). The kernels
+  line's K1-K4 entries carry the nano readings under ``nano_*`` keys
+  (``nano_conv_ms_*``: the six nano_conv calls only, not the aa tower's).
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -172,6 +188,30 @@ PRETRAIN_CONFIG = {
                             'min_lr': 1.e-6, 'multiplier': 10, 'total_epoch': 10}},
 }
 PRETRAIN_ITERS = 3   # iterations of pretrain.run: 6 steps, validation and save at the 3rd
+# The nano path (HuDiff-Nb): the VHHs of tests/test_cli.py and
+# tests/test_numbering.py, humanized under the FR mask (93 forwards a round)
+VHH1 = ('QVQLVESGGGLVQAGGSLRLSCAASGRTFSSYAMGWFRQAPGKEREFVAAISWSGGSTYYADSVKGRF'
+        'TISRDNAKNTVYLQMNSLKPEDTAVYYCAADRGSYYYTRNQYDYWGQGTQVTVSS')
+VHH2 = ('QVQLVESGGGSVQAGGSLVLSCAASGYTYTAGCMGWFRQTPGKEREGVAAIDSDGSTAYADSVKGRF'
+        'TISRDNDKNMVYLQMNSLKPEDTAMYYCAAASRCGLGTVREYRFWGQGTQVTVSS')
+NANO_FORWARDS = 93   # HEAVY_CDR_INDEX == 0: the framework slots a round resamples
+NANO_TRAIN_B = 512   # configs/heavy_train.yml's batch
+# configs/heavy_train.yml as a literal, batch_acc lowered from 300 to 2 as
+# for PRETRAIN_CONFIG; tests/test_torch_training.py pins the rest to the file.
+NANO_PRETRAIN_CONFIG = {
+    'name': 'nano',
+    'model': {'n_tokens': 23, 'd_embedding': 256, 'd_model': 256, 'n_encoder_layers': 6,
+              'aa_kernel_size': 7, 'r': 128, 'n_region': 7, 'r_embedding': 4,
+              'r_model': 256, 'n_pos_model': 256, 'max_len': 152, 'sum_d_model': 512,
+              'dual_layers': 6, 'att_model': 512, 'dim_feedforward': 256, 'nhead': 8,
+              'cs_layers': 5, 'dropout': 0.5, 'activation': 'gelu'},
+    'train': {'seed': 2023, 'max_iter': 1000000, 'batch_acc': 2, 'valid_step': 3,
+              'batch_size': NANO_TRAIN_B, 'clip_norm': 10,
+              'optimizer': {'type': 'Adam', 'lr': 1.e-4, 'weight_decay': 0.,
+                            'beta1': 0.95, 'beta2': 0.999},
+              'scheduler': {'type': 'plateau', 'factor': 0.6, 'patience': 10,
+                            'min_lr': 1.e-5, 'multiplier': 10, 'total_epoch': 20}},
+}
 # kernels one call launches: K2 three GEMMs; K4 three data GEMMs, one grouped
 # weight-gradient GEMM and one fixed-order sum
 K2_LAUNCHES, K4_LAUNCHES = 3, 5
@@ -297,8 +337,9 @@ def bound_ms(nbytes, flops, dtype_name):
 LIBRARY_COMPOSITION = ('a composition: F.layer_norm, the activation, F.linear, F.layer_norm, '
                        'the activation, F.conv1d, F.layer_norm, the activation, F.linear, '
                        'in bf16')
-STAGE_KEYS = ('excess_p', 'excess_q_given_p', 'excess_y_given_q', 'excess_p_f32_ln',
-              'excess_q_given_p_f32_ln', 'excess_y_given_q_f32_ln')
+STAGE_KEYS = ('excess_p', 'excess_q_given_p', 'excess_y_given_q', 'excess_block',
+              'excess_p_f32_ln', 'excess_q_given_p_f32_ln', 'excess_y_given_q_f32_ln',
+              'excess_block_f32_ln')
 
 
 def k2_stage_excess(torch, x, args, dil, act):
@@ -306,7 +347,9 @@ def k2_stage_excess(torch, x, args, dil, act):
     the kernel's own input to it (x, the kernel's p, the kernel's q), once
     as the plain version is (each LayerNorm's output rounded to bf16 before
     the activation, as the Flax module path does) and once with that output
-    kept in f32 before the activation, as the TPU kernel and K2 keep it."""
+    kept in f32 before the activation, as the TPU kernel and K2 keep it;
+    and the whole block's excess both ways. Readings only: the call is held
+    against the plain version as it is."""
     import torch.nn.functional as F
     from hudiff_tpu_torch.ops import fused_bytenet as FB
     g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2 = args
@@ -324,6 +367,8 @@ def k2_stage_excess(torch, x, args, dil, act):
             out['excess_p' + tag] = excess(p, FB._plain_p(x, g1, b1, w1, c1, act))
             out['excess_q_given_p' + tag] = excess(q, FB._plain_q(p, g2, b2, wc, cc, dil, act))
             out['excess_y_given_q' + tag] = excess(y, FB._plain_y(x, q, g3, b3, w2, c2, act))
+            out['excess_block' + tag] = excess(y, FB.bytenet_block_reference(
+                x, *args, dilation=dil, activation_name=act))
         finally:
             FB.layer_norm = plain_ln
     return out
@@ -406,14 +451,53 @@ def sass_counts(library, opcodes=('HGMMA', 'UTMALDG')):
     return counts
 
 
+MARK = 'chip_smoke_profiled_run'
+
+
+def profiled_run(torch, work, between=None):
+    """torch.profiler over two runs of ``work()``: the first only warms the
+    profiler, which can drop the records of the first kernels it sees (on
+    an H100 it missed the first kernels of the nano forward's window, the
+    same number in every retry; the records' ``profiler`` key counts them).
+    ``between()``, when given, is called after the first run. The second run
+    follows a marker, with the device idle 50 ms on either side of it (the
+    profiler's device and host clocks can lie a millisecond apart) and
+    after it; ``work`` synchronizes at its end. Returns the device kernel
+    events (not user annotations, which can span the kernels they enclose
+    on the device timeline) of the first and of the second run, in start
+    order."""
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    def settle():
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        work()
+        if between is not None:
+            between()
+        settle()
+        with record_function(MARK):
+            pass
+        settle()
+        work()
+        settle()
+    events = prof.events()
+    mark = next(e.time_range.start for e in events if e.name == MARK)
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, 'is_user_annotation', False)),
+                     key=lambda e: e.time_range.start)
+    return ([e for e in kernels if e.time_range.start < mark],
+            [e for e in kernels if e.time_range.start > mark])
+
+
 def launch_times(torch, fn, counter, n=5):
     """The device ms of each kernel one call of ``fn`` launches, in launch
-    order (median over ``n`` calls, each in a torch.profiler window of its
-    own), from the profiler; a window whose kernel records are not the
-    ``counter()`` launches of one call is read again (the profiler can miss
-    or carry over a record, PERF.md §6); 'not measured' when none is."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+    order (median over ``n`` calls, each in a profiled run of its own), from
+    the profiler; a run whose kernel records are not the ``counter()``
+    launches of one call is read again (the profiler can miss or carry over
+    a record, PERF.md §6); 'not measured' when none is."""
     fn()
     torch.cuda.synchronize()
     before = counter()
@@ -421,12 +505,13 @@ def launch_times(torch, fn, counter, n=5):
     torch.cuda.synchronize()
     per = counter() - before
     runs, names = [], None
+
+    def work():
+        fn()
+        torch.cuda.synchronize()
+
     for _ in range(2 * n):
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                     and 'bytenet' in e.name), key=lambda e: e.time_range.start)
+        ks = [e for e in profiled_run(torch, work)[1] if 'bytenet' in e.name]
         if len(ks) == per:
             runs.append([e.time_range.elapsed_us() / 1e3 for e in ks])
             names = [e.name[:80] for e in ks]
@@ -451,7 +536,6 @@ def main():
     from hudiff_tpu_torch.ops import _build
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops import fused_bytenet as FB
-    from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
     from hudiff_tpu_torch.ops.rope import rope_tables
     from hudiff_tpu_torch.sampling import humanize as HZ
 
@@ -522,68 +606,11 @@ def main():
     # -- phase 3: K2 against its plain version at every Ab tower shape ------
     cfg = DenoiserConfig()
     torch.manual_seed(SEED)   # the blocks' initial weights
-    towers = [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
-              (cfg.sum_d_model, 'relu', cfg.dual_layers)]
-    K = cfg.aa_kernel_size
-    for B in (MAIN_B, BIG_B):
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split('.')[-1]
-            tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0,
-                   'max_abs_err': 0.0, 'excess_over_rtol': 0.0, 'bytes_ms': 0.0,
-                   'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
-            for d, act, n_layers in towers:
-                h = d // 2
-                for Lc in (C.HEAVY_LEN, C.LIGHT_LEN):
-                    for dil in dilation_schedule(n_layers, cfg.r):
-                        blk = ByteNetBlock(d, h, K, dilation=dil, activation=act)
-                        args = [t.to(dev, dtype) if t.dim() >= 2 else t.to(dev)
-                                for t in _block_params(torch, gen, blk)]
-                        x = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
-                        kw = dict(dilation=dil, activation_name=act)
-                        y = FB.bytenet_block(x, *args, **kw)
-                        r = FB.bytenet_block_reference(x, *args, **kw)
-                        torch.cuda.synchronize()
-                        errs, ok = check_err(torch, 'K2', y, r)
-                        rec = {'phase': 'K2', 'B': B, 'L': Lc, 'D': d, 'H': h, 'act': act,
-                               'dil': dil, 'dtype': name, **errs}
-                        if not ok:
-                            emit(rec)
-                            fail(f'K2 disagrees with its plain version: {rec}')
-                        s = dtype.itemsize
-                        nbytes = 2 * x.numel() * s + (2 * d * h + K * h * h) * s + 4 * (5 * h + 4 * d)
-                        taps = sum(max(0, Lc - abs(t - (K - 1) // 2) * dil) for t in range(K))
-                        flops = 2.0 * B * (Lc * 2 * d * h + taps * h * h)
-                        rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
-                        t_bytes, t_ops = bound_parts(nbytes, flops, name)
-                        tot['bytes_ms'] += t_bytes
-                        tot['ops_ms'] += t_ops
-                        rec['ms'] = time_ms(torch, lambda: FB.bytenet_block(x, *args, **kw),
-                                            reps=5, windows=3)
-                        rec['plain_ms'] = time_ms(torch, lambda: FB.bytenet_block_reference(
-                            x, *args, **kw), reps=2, windows=3)
-                        if dtype == torch.bfloat16:
-                            rec.update(k2_stage_excess(torch, x, args, dil, act))
-                            lib = composition_params(args, dtype)
-                            rec['library_ms'] = time_ms(
-                                torch, lambda: block_composition(x, lib, dil, act),
-                                reps=5, windows=3)
-                            rec['library_max_abs_err'] = (block_composition(x, lib, dil, act)
-                                                          .float() - r.float()).abs().max().item()
-                            tot['library_ms'] += rec['library_ms']
-                            if (B, d, Lc, dil) == (MAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1):
-                                rec['launch_ms'] = tot['launch_ms'] = launch_times(
-                                    torch, lambda: FB.bytenet_block(x, *args, **kw),
-                                    lambda: FB.launches)
-                        emit(rec)
-                        for key in ('ms', 'plain_ms', 'bound_ms'):
-                            tot[key] += rec[key]
-                        tot['calls'] += 1
-                        for key in ('max_abs_err', 'excess_over_rtol', *STAGE_KEYS):
-                            tot[key] = max(tot.get(key, 0.0), rec.get(key, 0.0))
-            # the forward's 24 calls together: whichever side dominates the sum
-            tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
-            emit({'phase': 'K2_forward_total', 'B': B, 'dtype': name, **tot})
-            results['K2'][(B, name)] = tot
+    results['K2'] = k2_phase(
+        torch, gen, dev, [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
+                          (cfg.sum_d_model, 'relu', cfg.dual_layers)],
+        (MAIN_B, BIG_B), (C.HEAVY_LEN, C.LIGHT_LEN), cfg.aa_kernel_size, cfg.r, 'K2',
+        launch_shape=(MAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1))
 
     # -- phase 4: full-width forward, f32 on the card vs the CPU --------------
     torch.manual_seed(SEED)
@@ -653,13 +680,20 @@ def main():
 
     # -- phases 6-10: the pretraining slice ------------------------------------
     results['K3'] = k3_phase(torch, gen, dev)
-    results['K4'] = k4_phase(torch, gen, dev, cfg)
+    results['K4'] = k4_phase(
+        torch, gen, dev, [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
+                          (cfg.sum_d_model, 'relu', cfg.dual_layers)],
+        (MAIN_B, TRAIN_B), (C.HEAVY_LEN, C.LIGHT_LEN), cfg.aa_kernel_size, cfg.r, 'K4',
+        launch_shape=(TRAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1))
     train_step_f32(torch, cfg, dev)
     pre = pretrain_phase(torch, dev)
     per_step = profile_train(torch, pre['model'], dev)
     trained = pre['launches']
     del pre
     torch.cuda.empty_cache()
+
+    # -- the nano path (HuDiff-Nb) ------------------------------------------------
+    nano = nano_phases(torch, dev)
 
     # -- phases 11-15: the remaining entry points ------------------------------
     results['K5'] = k5_phase(torch, gen, dev)
@@ -675,6 +709,7 @@ def main():
     k4, k4_f32 = results['K4'][(TRAIN_B, 'bfloat16')], results['K4'][(TRAIN_B, 'float32')]
     n2 = k2['calls']   # tower shapes measured in phase 3: one per block of a forward
     n4 = k4['calls']
+    nk = nano_entries(nano)
     emit({'kernels': [
         {'name': 'K1 fused RoPE attention (merged head-major qkv)', 'route': 'cuda',
          'source': 'hudiff_tpu_torch/csrc/rope_attention.cu',
@@ -684,7 +719,8 @@ def main():
          'max_abs_err': k1['max_abs_err'], 'excess_over_rtol': k1['excess_over_rtol'],
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
-         'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16'},
+         'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
+         **nk['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -700,7 +736,7 @@ def main():
          'stage_excess': {k: k2[k] for k in STAGE_KEYS},
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
-                  'tower blocks of one forward, bf16'},
+                  'tower blocks of one forward, bf16', **nk['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -711,7 +747,7 @@ def main():
          'plain_ms': k3['plain_ms'], 'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
          'library_ms': k3['library_ms'],
          'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
-                  '(three kernels); ms_standalone runs K1 for them first'},
+                  '(three kernels); ms_standalone runs K1 for them first', **nk['K3']},
         {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
                  'backward in their epilogues, one grouped weight-gradient GEMM, one '
                  'fixed-order sum)',
@@ -728,7 +764,7 @@ def main():
          'library_ms_per_step': k4['library_ms'],
          'launch_ms_one_dual_tower_call': k4['launch_ms'],
          'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
-                  'tower blocks of one step, bf16'},
+                  'tower blocks of one step, bf16', **nk['K4']},
         *later_kernels(results, api)]})
     emit({'phase': 'done', 'total_s': time.perf_counter() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -748,62 +784,64 @@ KERNEL_GROUPS = (('K4', ('bytenet_bwd_',)), ('K3', ('rope_attention_bwd_',)),
 KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7', 'K8')
 
 
-def kernel_groups(torch, prof, n):
-    """From a torch.profiler run over ``n`` repeats: device ms per repeat by
-    group (K1-K8, cuBLAS, other), the number of K1-K8 kernels seen, and
-    every kernel with device time, largest first."""
-    dev_time = lambda e: getattr(e, 'self_device_time_total',  # noqa: E731
-                                 getattr(e, 'self_cuda_time_total', 0))
-    # a user annotation (Optimizer.step#Adam.step) can appear on the device
-    # timeline as a range over the kernels it encloses: not a kernel, and
-    # counting it would count those kernels twice
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0
-                      and not getattr(e, 'is_user_annotation', False)),
-                     key=dev_time, reverse=True)
+def kernel_groups(events, n):
+    """From the device kernel events of ``n`` repeats (``profiled_run``):
+    device ms per repeat by group (K1-K8, cuBLAS, other), the number of
+    K1-K8 kernels seen, and every kernel with device time, largest first."""
+    by_name = {}
+    for e in events:
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
     groups = dict.fromkeys(KERNELS + ('cublas', 'other'), 0.0)
     seen = dict.fromkeys(KERNELS, 0)
-    for e in kernels:
-        key = e.key.lower()
+    for name, (ms, calls) in by_name.items():
+        key = name.lower()
         g = next((g for g, names in KERNEL_GROUPS if any(s in key for s in names)), 'other')
-        groups[g] += dev_time(e) / n / 1e3
+        groups[g] += ms / n
         if g in seen:
-            seen[g] += e.count
-    top = [{'kernel': e.key[:90], 'calls': e.count, 'ms_per_repeat': dev_time(e) / n / 1e3}
-           for e in kernels]
+            seen[g] += calls
+    top = sorted(({'kernel': name[:90], 'calls': calls, 'ms_per_repeat': ms / n}
+                  for name, (ms, calls) in by_name.items() if ms > 0),
+                 key=lambda t: t['ms_per_repeat'], reverse=True)
     return groups, seen, top
 
 
 def profiled(torch, window, n):
-    """torch.profiler over ``window()``, which sets the counters to 0 before
-    the kernels it profiles and synchronizes at its end: (counters read just
-    after, kernel_groups over ``n`` repeats, the first window's reading or
-    None). The profiler can miss a kernel record that a launch counter
-    cannot (PERF.md §6), so a window whose counters differ from the K1-K8
-    kernels seen is profiled once more, and the second reading is held."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-    first = None
-    for attempt in range(2):
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            window()
+    """``window()`` profiled (``profiled_run``; it sets the counters to 0
+    before the kernels it profiles and synchronizes at its end): (counters
+    read just after, kernel_groups over ``n`` repeats, the ``profiler``
+    record). The record holds ``warmup_run_missed``: the launches of each
+    kernel of K1-K8 whose records the profiler dropped in the warm-up run,
+    which ``profiled_run`` leaves out of the counts. A window whose counters
+    differ from the K1-K8 kernels seen after the marker is profiled again,
+    up to twice, the last reading held; the record then also keeps the
+    first reading and how many windows followed it."""
+    rec, windows = {}, 3
+    for attempt in range(windows):
+        warm = {}
+        before, after = profiled_run(torch, window, lambda: warm.update(counters()))
+        warm_seen = kernel_groups(before, n)[1]
+        rec.setdefault('warmup_run_missed', []).append(
+            {k: warm[k] - warm_seen[k] for k in KERNELS if warm[k] != warm_seen[k]})
         counted = counters()
-        groups, seen, top = kernel_groups(torch, prof, n)
-        if counted == seen or attempt:
-            return counted, (groups, seen, top), first
-        first = {'counted_launches': counted, 'profiled_launches': seen}
+        groups, seen, top = kernel_groups(after, n)
+        if counted == seen or attempt == windows - 1:
+            return counted, (groups, seen, top), rec
+        rec.setdefault('first_window', {'counted_launches': counted, 'profiled_launches': seen})
+        rec['first_window']['profiled_again'] = attempt + 1
 
 
-def profile(torch, model, hum, inputs):
+def profile(torch, model, hum, inputs, phase='profile'):
     """Device time by kernel over a few bf16 forwards at the main batch,
     from torch.profiler, beside the host-clock time of the same forwards
     and of warm sampler steps (forward + draw + write-back). Checks that the
     wrappers' launch counters rose by the number of K1 and K2 kernels the
-    profiler saw, and returns those numbers per forward."""
+    profiler saw, and returns those numbers per forward. The model's inputs
+    are the rows' tokens and the humanizer's conditioning (``COND``)."""
     import numpy as np
     rows = [inputs[i % len(inputs)] for i in range(MAIN_B)]
     args = [torch.as_tensor(np.stack([r[k] for r in rows]), dtype=torch.long,
-                            device='cuda') for k in ('tokens', 'region', 'chain')]
+                            device='cuda') for k in ('tokens', *hum.COND)]
     n = 5
     with torch.inference_mode():
         model(*args)
@@ -822,10 +860,10 @@ def profile(torch, model, hum, inputs):
         torch.cuda.synchronize()
         order = torch.as_tensor(np.stack([r['positions'][:20] for r in rows]),
                                 dtype=torch.long, device='cuda')
-        hum.run(*args, order, hum.generator)
+        hum.run(args[0], order, hum.generator, *args[1:])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hum.run(*args, order, hum.generator)
+        hum.run(args[0], order, hum.generator, *args[1:])
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / order.shape[1] * 1e3
 
@@ -837,14 +875,14 @@ def profile(torch, model, hum, inputs):
 
         counted, (groups, seen, top), first = profiled(torch, window, n)
     busy = sum(groups.values())
-    emit({'phase': 'profile', 'B': MAIN_B, 'forwards': n, 'wall_ms_per_forward': wall_ms,
+    emit({'phase': phase, 'B': MAIN_B, 'forwards': n, 'wall_ms_per_forward': wall_ms,
           'wall_ms_per_sampler_step': step_ms, 'host_issue_ms_per_forward': host_ms,
           'device_busy_ms_per_forward': busy,
           'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
           'kernels_per_forward': sum(t['calls'] for t in top) / n,
           'device_ms_per_forward_by_group': groups,
           'top': top[:12], 'counted_launches': counted, 'profiled_launches': seen,
-          'first_window': first})
+          'profiler': first})
     if counted != seen or any(v % n for v in seen.values()):
         fail(f'launch counters {counted} != kernels the profiler saw {seen}')
     return {k: v // n for k, v in seen.items()}
@@ -866,6 +904,81 @@ def reset_counters():
     from hudiff_tpu_torch.tools import fused_layer_probe as FL
     FA.launches = FB.launches = FA.bwd_launches = FB.bwd_launches = 0
     FA.rope_launches = FA.rope_bwd_launches = FA.attention_launches = FL.launches = 0
+
+
+def k2_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shape=None):
+    """K2 against its plain version at every block of ``towers`` ((D,
+    activation, blocks) over the dilation cycle up to ``r``), each length
+    and batch, f32 and bf16: one record a call, and a ``<phase>_forward_total``
+    over the calls of one (B, dtype) with times summed. bf16 calls also
+    time the PyTorch composition, split the excess by stage, and at
+    ``launch_shape`` (B, D, L, dilation) read each launch's device ms."""
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
+    out = {}
+    for B in batches:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0,
+                   'max_abs_err': 0.0, 'excess_over_rtol': 0.0, 'bytes_ms': 0.0,
+                   'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
+            for d, act, n_layers in towers:
+                h = d // 2
+                for Lc in lengths:
+                    for dil in dilation_schedule(n_layers, r):
+                        blk = ByteNetBlock(d, h, K, dilation=dil, activation=act)
+                        args = [t.to(dev, dtype) if t.dim() >= 2 else t.to(dev)
+                                for t in _block_params(torch, gen, blk)]
+                        x = torch.randn(B, Lc, d, generator=gen).to(dev, dtype)
+                        kw = dict(dilation=dil, activation_name=act)
+                        y = FB.bytenet_block(x, *args, **kw)
+                        ref = FB.bytenet_block_reference(x, *args, **kw)
+                        torch.cuda.synchronize()
+                        errs, ok = check_err(torch, 'K2', y, ref)
+                        rec = {'phase': phase, 'B': B, 'L': Lc, 'D': d, 'H': h, 'act': act,
+                               'dil': dil, 'dtype': name, **errs}
+                        if not ok:
+                            emit(rec)
+                            fail(f'K2 disagrees with its plain version: {rec}')
+                        s = dtype.itemsize
+                        nbytes = 2 * x.numel() * s + (2 * d * h + K * h * h) * s + 4 * (5 * h + 4 * d)
+                        taps = sum(max(0, Lc - abs(t - (K - 1) // 2) * dil) for t in range(K))
+                        flops = 2.0 * B * (Lc * 2 * d * h + taps * h * h)
+                        rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+                        t_bytes, t_ops = bound_parts(nbytes, flops, name)
+                        tot['bytes_ms'] += t_bytes
+                        tot['ops_ms'] += t_ops
+                        rec['ms'] = time_ms(torch, lambda: FB.bytenet_block(x, *args, **kw),
+                                            reps=5, windows=3)
+                        rec['plain_ms'] = time_ms(torch, lambda: FB.bytenet_block_reference(
+                            x, *args, **kw), reps=2, windows=3)
+                        if dtype == torch.bfloat16:
+                            rec.update(k2_stage_excess(torch, x, args, dil, act))
+                            lib = composition_params(args, dtype)
+                            rec['library_ms'] = time_ms(
+                                torch, lambda: block_composition(x, lib, dil, act),
+                                reps=5, windows=3)
+                            rec['library_max_abs_err'] = (block_composition(x, lib, dil, act)
+                                                          .float() - ref.float()).abs().max().item()
+                            tot['library_ms'] += rec['library_ms']
+                            if (B, d, Lc, dil) == launch_shape:
+                                rec['launch_ms'] = tot['launch_ms'] = launch_times(
+                                    torch, lambda: FB.bytenet_block(x, *args, **kw),
+                                    lambda: FB.launches)
+                        emit(rec)
+                        for key in ('ms', 'plain_ms', 'bound_ms'):
+                            tot[key] += rec[key]
+                        tot['calls'] += 1
+                        for key in ('max_abs_err', 'excess_over_rtol', *STAGE_KEYS):
+                            if key in rec:
+                                tot[key] = max(tot.get(key, 0.0), rec[key])
+                        del x, y, ref
+            # the calls together: whichever side dominates the sum
+            tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+            emit({'phase': f'{phase}_forward_total', 'B': B, 'dtype': name, **tot})
+            out[(B, name)] = tot
+            torch.cuda.empty_cache()
+    return out
 
 
 def k3_phase(torch, gen, dev):
@@ -965,19 +1078,18 @@ def _block_params(torch, gen, blk):
                                  blk.fc2.weight, blk.fc2.bias)]
 
 
-def k4_phase(torch, gen, dev, cfg):
-    """K4 against its plain version at every Ab tower shape (the 24 blocks
-    of a step), B = 16 and 128, f32 and bf16: dx elementwise, each
-    parameter gradient by max |err| / max |ref|; per-call times summed
-    over the 24 blocks. The parameters are f32, as training holds them."""
-    from hudiff_tpu_torch import constants as C
+def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shape=None):
+    """K4 against its plain version at every block of ``towers`` ((D,
+    activation, blocks) over the dilation cycle up to ``r``; the Ab towers
+    are the 24 blocks of a step), each length and batch, f32 and bf16: dx
+    elementwise, each parameter gradient by max |err| / max |ref|; per-call
+    times summed over the blocks in ``<phase>_step_total``. The parameters
+    are f32, as training holds them. At ``launch_shape`` (B, D, L,
+    dilation) each launch's device ms is read."""
     from hudiff_tpu_torch.ops import fused_bytenet as FB
     from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
-    towers = [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
-              (cfg.sum_d_model, 'relu', cfg.dual_layers)]
-    K = cfg.aa_kernel_size
     out = {}
-    for B in (MAIN_B, TRAIN_B):
+    for B in batches:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split('.')[-1]
             tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0, 'max_abs_err': 0.0,
@@ -985,8 +1097,8 @@ def k4_phase(torch, gen, dev, cfg):
                    'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
             for d, act, n_layers in towers:
                 h = d // 2
-                for Lc in (C.HEAVY_LEN, C.LIGHT_LEN):
-                    for dil in dilation_schedule(n_layers, cfg.r):
+                for Lc in lengths:
+                    for dil in dilation_schedule(n_layers, r):
                         torch.manual_seed(SEED + d + Lc + dil)
                         blk = ByteNetBlock(d, h, K, dilation=dil, activation=act)
                         params = [t.to(dev) for t in _block_params(torch, gen, blk)]
@@ -1004,7 +1116,7 @@ def k4_phase(torch, gen, dev, cfg):
                         rel = grad_rel_err(got, ref)
                         ok = ok and rel <= K4_GRAD_RTOL[name] and all(
                             bool(torch.isfinite(g).all().item()) for g in got)
-                        rec = {'phase': 'K4', 'B': B, 'L': Lc, 'D': d, 'H': h, 'act': act,
+                        rec = {'phase': phase, 'B': B, 'L': Lc, 'D': d, 'H': h, 'act': act,
                                'dil': dil, 'dtype': name, **errs, 'grad_rel_err': rel,
                                'grad_rtol': K4_GRAD_RTOL[name]}
                         if not ok:
@@ -1044,7 +1156,7 @@ def k4_phase(torch, gen, dev, cfg):
                             rec['library_ms'] = composition_backward_ms(torch, x, params, dy,
                                                                         dil, act)
                             tot['library_ms'] += rec['library_ms']
-                            if (B, d, Lc, dil) == (TRAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1):
+                            if (B, d, Lc, dil) == launch_shape:
                                 rec['launch_ms'] = tot['launch_ms'] = launch_times(
                                     torch, call, lambda: FB.bwd_launches)
                         emit(rec)
@@ -1056,7 +1168,7 @@ def k4_phase(torch, gen, dev, cfg):
                             tot[key] = max(tot.get(key, 0.0), rec.get(key, 0.0))
                         del x, dy, p, q, st
             tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
-            emit({'phase': 'K4_step_total', 'B': B, 'dtype': name, **tot})
+            emit({'phase': f'{phase}_step_total', 'B': B, 'dtype': name, **tot})
             out[(B, name)] = tot
             torch.cuda.empty_cache()
     return out
@@ -1094,19 +1206,51 @@ def _pair_batch(torch, B, seed):
     return tokens, chain, M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
 
 
-def train_step_f32(torch, cfg, dev):
+def _heavy_batch(torch, B, seed):
+    """(tokens, None, fixed Corrupted) for a heavy train step, as
+    ``_pair_batch`` draws them over the 152 heavy slots."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import masking as M
+    rs = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rs.randint(0, C.N_AA, (B, C.HEAVY_LEN)))
+    mask = torch.from_numpy(rs.rand(B, C.HEAVY_LEN) < 0.5) & ~torch.from_numpy(
+        C.HEAVY_CDR_INDEX != 0)
+    return tokens, None, M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
+
+
+def _kind_parts(kind):
+    """(model class, batch maker, ByteNet blocks a forward, phase suffix) of
+    the pair (HuDiff-Ab) or heavy (HuDiff-Nb) path."""
+    from hudiff_tpu_torch.models.denoiser import AntiTFNet, NanoAntiTFNet
+    if kind == 'pair':
+        return AntiTFNet, _pair_batch, lambda c: 2 * (c.n_encoder_layers + c.dual_layers), ''
+    return NanoAntiTFNet, _heavy_batch, lambda c: c.n_encoder_layers + c.dual_layers, '_nano'
+
+
+def _train_step_fn(model, kind, **kw):
+    """``step(state, tokens, chain_or_None, seed, corrupted=None)`` of the kind."""
+    from hudiff_tpu_torch.training import train_step as T
+    if kind == 'pair':
+        return T.make_pair_train_step(model, **kw)
+    heavy = T.make_heavy_train_step(model)
+    return lambda state, tokens, chain, seed, corrupted=None: heavy(state, tokens, seed,
+                                                                    corrupted)
+
+
+def train_step_f32(torch, cfg, dev, kind='pair'):
     """One full-width f32 train step (B = 2, dropout off, a fixed mask, TF32
     off) on the card against the CPU: the loss and every parameter's
     gradient, with the launches the card's step made. Beside it, how far
     the card's own gradients move when the token embedding is scaled by
     (1 + 1e-6): the model's conditioning, which the limits must allow for."""
-    from hudiff_tpu_torch.models.denoiser import AntiTFNet
     from hudiff_tpu_torch.ops import masking as M
     from hudiff_tpu_torch.training import train_step as T
+    model_cls, make_batch, blocks, suffix = _kind_parts(kind)
     torch.manual_seed(SEED)
-    cpu_model = AntiTFNet(cfg).eval()
+    cpu_model = model_cls(cfg).eval()
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    tokens, chain, cor = _pair_batch(torch, 2, SEED)
+    tokens, chain, cor = make_batch(torch, 2, SEED)
 
     def step(model, d):
         """(loss, {name: gradient on the CPU}, launches) of one step on d."""
@@ -1119,8 +1263,9 @@ def train_step_f32(torch, cfg, dev):
 
         state = T.TrainState(model, KeepGrads(model.parameters(), {}))
         reset_counters()
-        m = T.make_pair_train_step(model)(state, tokens.to(d), chain.to(d), SEED,
-                                          M.Corrupted(*(t.to(d) for t in cor)))
+        m = _train_step_fn(model, kind)(state, tokens.to(d),
+                                        None if chain is None else chain.to(d), SEED,
+                                        M.Corrupted(*(t.to(d) for t in cor)))
         return m['loss'].item(), kept, counters()
 
     def rel_errs(got, ref):
@@ -1140,10 +1285,9 @@ def train_step_f32(torch, cfg, dev):
             / sum((g_c[n] ** 2).sum().item() for n in g_c)) ** 0.5
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     expected = {'K1': 2 * cfg.cs_layers, 'K3': 6 * cfg.cs_layers,
-                'K2': K2_LAUNCHES * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
-                'K4': K4_LAUNCHES * 2 * (cfg.n_encoder_layers + cfg.dual_layers),
+                'K2': K2_LAUNCHES * blocks(cfg), 'K4': K4_LAUNCHES * blocks(cfg),
                 'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
-    emit({'phase': 'train_step_f32', 'B': 2, 'loss_cpu': loss_c, 'loss_card': loss_g,
+    emit({'phase': 'train_step_f32' + suffix, 'B': 2, 'loss_cpu': loss_c, 'loss_card': loss_g,
           'loss_rel_err': loss_rel, 'max_grad_rel_err': rel[worst], 'worst_param': worst,
           'worst_five': {n: rel[n] for n in order[:5]}, 'global_grad_rel_err': glob,
           'embed_scaled_1e-6_max_grad_rel_change': moved[most_moved],
@@ -1154,25 +1298,28 @@ def train_step_f32(torch, cfg, dev):
     if not (sorted(g_c) == sorted(g_g) and loss_rel <= TRAIN_STEP_LOSS_RTOL
             and rel[worst] <= TRAIN_STEP_RTOL and glob <= TRAIN_STEP_GLOBAL_RTOL
             and launched == expected):
-        fail('full-width f32 train step on the card disagrees with the CPU')
+        fail(f'full-width f32 {kind} train step on the card disagrees with the CPU')
 
 
-def pretrain_phase(torch, dev):
-    """``pretrain.run`` at the full width of configs/antibody_train.yml (bf16,
-    B = 128, synthetic data, batch_acc 2): the launch counts, finite losses,
-    changed parameters, a best-val checkpoint that restores to the same
-    logits, steps/s after a warm iteration and the peak memory."""
+def pretrain_phase(torch, dev, config=None, kind='pair'):
+    """``pretrain.run`` at the full width of ``config`` (PRETRAIN_CONFIG,
+    configs/antibody_train.yml; NANO_PRETRAIN_CONFIG, configs/heavy_train.yml)
+    in bf16 with synthetic data and batch_acc 2: the launch counts, finite
+    losses, changed parameters, a best-val checkpoint that restores (as the
+    kind's model) to the same logits, steps/s after a warm iteration and
+    the peak memory."""
     import numpy as np
-    from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
     from hudiff_tpu_torch.training import checkpoints as CKPT
     from hudiff_tpu_torch.training import pretrain as PT
     from hudiff_tpu_torch.training import train_step as T
     from hudiff_tpu_torch.utils.config import Namespace
-    cfg = Namespace.wrap(copy.deepcopy(PRETRAIN_CONFIG))
+    model_cls, make_batch, blocks, suffix = _kind_parts(kind)
+    cfg = Namespace.wrap(copy.deepcopy(config or PRETRAIN_CONFIG))
     mcfg = DenoiserConfig.from_dict(cfg.model)
     acc, B = cfg.train.batch_acc, cfg.train.batch_size
     torch.manual_seed(SEED)
-    model = AntiTFNet(mcfg, dtype=torch.bfloat16, device=dev)
+    model = model_cls(mcfg, dtype=torch.bfloat16, device=dev)
     before = {k: v.detach().clone() for k, v in model.named_parameters()}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
     shutil.rmtree(root, ignore_errors=True)
@@ -1181,8 +1328,8 @@ def pretrain_phase(torch, dev):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
-    log_dir = PT.run(cfg, synthetic=synthetic, max_iter=PRETRAIN_ITERS, logdir=root, seed=SEED,
-                     device='cuda', model=model)
+    log_dir = PT.run(cfg, kind=kind, synthetic=synthetic, max_iter=PRETRAIN_ITERS,
+                     logdir=root, seed=SEED, device='cuda', model=model)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counters()
@@ -1192,10 +1339,10 @@ def pretrain_phase(torch, dev):
     train = [r for r in rows if 'train/loss' in r]
     val = [r for r in rows if 'val/loss' in r]
     steps, val_forwards = PRETRAIN_ITERS * acc, max(1, min(4, synthetic // B))
-    blocks = 2 * (mcfg.n_encoder_layers + mcfg.dual_layers)
     expected = {'K1': (steps + val_forwards) * 2 * mcfg.cs_layers,
-                'K2': (steps + val_forwards) * blocks * K2_LAUNCHES,
-                'K3': steps * 2 * mcfg.cs_layers * 3, 'K4': steps * blocks * K4_LAUNCHES,
+                'K2': (steps + val_forwards) * blocks(mcfg) * K2_LAUNCHES,
+                'K3': steps * 2 * mcfg.cs_layers * 3,
+                'K4': steps * blocks(mcfg) * K4_LAUNCHES,
                 'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
     # host time at the end of iteration i is i * acc / steps_per_sec(i);
     # iteration 2 is warm and runs no validation
@@ -1204,20 +1351,23 @@ def pretrain_phase(torch, dev):
     changed = sum(not torch.equal(before[k], v.detach()) for k, v in model.named_parameters())
     ckpt_dir = os.path.join(log_dir, 'checkpoints')
     latest = CKPT.latest_step(ckpt_dir)
-    tokens, chain, _ = _pair_batch(torch, 2, SEED + 3)
-    region = torch.from_numpy(T.pair_region_batch(2))
-    args = [t.to(dev) for t in (tokens, region, chain)]
-    restored = AntiTFNet(mcfg, dtype=torch.bfloat16, device=dev)
-    restored.load_state_dict(CKPT.restore(ckpt_dir)['payload']['model'])
+    tokens, chain, _ = make_batch(torch, 2, SEED + 3)
+    region = torch.from_numpy(T.pair_region_batch(2) if kind == 'pair'
+                              else T.heavy_region_batch(2))
+    args = [t.to(dev) for t in (tokens, region, chain) if t is not None]
+    restored_ckpt = CKPT.restore(ckpt_dir)
+    restored = CKPT.model_class(restored_ckpt['kind'])(mcfg, dtype=torch.bfloat16, device=dev)
+    restored.load_state_dict(restored_ckpt['payload']['model'])
     loaded, _ = CKPT.load(os.path.join(ckpt_dir, f'step_{latest}.pt'), dtype=torch.bfloat16)
     with torch.inference_mode():
         ref = model.eval()(*args)
         diffs = [(m.eval()(*args) - ref).abs().max().item() for m in (restored, loaded)]
-    rec = {'phase': 'pretrain', 'B': B, 'batch_acc': acc, 'iterations': len(train),
+    rec = {'phase': 'pretrain' + suffix, 'B': B, 'batch_acc': acc, 'iterations': len(train),
            'steps': steps, 'wall_s': wall,
            'train_loss': [r['train/loss'] for r in train],
            'opt_steps': [int(r['train/opt_steps']) for r in train],
            'val_loss': [r['val/loss'] for r in val], 'saved_step': latest,
+           'restored_as': [type(m).__name__ for m in (restored, loaded)],
            'steps_per_sec': train[-1]['train/steps_per_sec'] if train else 'not measured',
            'steps_per_sec_warm': warm_sps, 'ms_per_step_warm': (
                1e3 / warm_sps if isinstance(warm_sps, float) else 'not measured'),
@@ -1231,28 +1381,34 @@ def pretrain_phase(torch, dev):
     ok = (rec['opt_steps'] == [acc * (i + 1) for i in range(PRETRAIN_ITERS)]
           and all(np.isfinite(rec['train_loss'])) and len(val) == 1
           and np.isfinite(rec['val_loss']).all() and latest == PRETRAIN_ITERS
+          and all(isinstance(m, model_cls) for m in (restored, loaded))
           and changed == len(before) and max(diffs) == 0.0 and launched == expected)
     if not ok:
-        fail('full-width pretraining failed its checks')
+        fail(f'full-width {kind} pretraining failed its checks')
     return {'model': model, 'launches': launched}
 
 
-def profile_train(torch, model, dev):
-    """Device time by kernel group over one warm bf16 train step at B = 128
-    (torch.profiler), beside the host-clock time of warm steps; checks that
-    the launch counters rose by the K1-K8 kernels the profiler saw (K5-K8
-    none), and returns those numbers per step."""
+def profile_train(torch, model, dev, config=None, kind='pair', expected=None):
+    """Device time by kernel group over one warm bf16 train step at the
+    config's batch (torch.profiler), beside the host-clock time of warm
+    steps; checks that the launch counters rose by the K1-K8 kernels the
+    profiler saw (K5-K8 none; ``expected``, when given, the exact counts),
+    and returns those numbers per step."""
     from hudiff_tpu_torch.training import pretrain as PT
     from hudiff_tpu_torch.training import schedules
     from hudiff_tpu_torch.training import train_step as T
     from hudiff_tpu_torch.utils.config import Namespace
-    cfg = Namespace.wrap(copy.deepcopy(PRETRAIN_CONFIG))
-    batch = next(PT.synthetic_batches('pair', TRAIN_B, SEED))
-    tokens, chain = (torch.as_tensor(batch[k], dtype=torch.long, device=dev)
-                     for k in ('tokens', 'chain_type'))
+    suffix = _kind_parts(kind)[3]
+    cfg = Namespace.wrap(copy.deepcopy(config or PRETRAIN_CONFIG))
+    B = cfg.train.batch_size
+    batch = next(PT.synthetic_batches(kind, B, SEED))
+    tokens = torch.as_tensor(batch['tokens'], dtype=torch.long, device=dev)
+    chain = (torch.as_tensor(batch['chain_type'], dtype=torch.long, device=dev)
+             if kind == 'pair' else None)
     opt = schedules.make_optimizer(cfg.train.optimizer, model.parameters())
     state = T.TrainState(model, opt, clip_norm=cfg.train.clip_norm)
-    step = T.make_pair_train_step(model, l_weight=cfg.train.l_loss_weight)
+    step = _train_step_fn(model, kind, **(
+        {'l_weight': cfg.train.l_loss_weight} if kind == 'pair' else {}))
     model.train()
     step(state, tokens, chain, SEED)
     torch.cuda.synchronize()
@@ -1270,16 +1426,254 @@ def profile_train(torch, model, dev):
 
     counted, (groups, seen, top), first = profiled(torch, window, 1)
     busy = sum(groups.values())
-    emit({'phase': 'profile_train', 'B': TRAIN_B, 'wall_ms_per_step': wall_ms,
+    emit({'phase': 'profile_train' + suffix, 'B': B, 'wall_ms_per_step': wall_ms,
           'steps_per_sec': 1e3 / wall_ms, 'device_busy_ms_per_step': busy,
           'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
           'kernels_per_step': sum(t['calls'] for t in top),
           'device_ms_per_step_by_group': groups,
           'top': top[:15], 'counted_launches': counted, 'profiled_launches': seen,
-          'first_window': first})
-    if counted != seen or not all(seen[k] for k in ('K1', 'K2', 'K3', 'K4')):
-        fail(f'launch counters {counted} != kernels the profiler saw {seen}')
+          'expected_launches': expected, 'profiler': first})
+    if (counted != seen or not all(seen[k] for k in ('K1', 'K2', 'K3', 'K4'))
+            or (expected is not None and seen != expected)):
+        fail(f'launch counters {counted} != kernels the profiler saw {seen}'
+             + (f' or != {expected}' if expected else ''))
     return seen
+
+
+def attention_nano_phase(torch, gen, dev):
+    """K1 and K3 at the nano path's attention shape (L = 152, 8 x 64, qkv
+    [B, 152, 1536]), f32 and bf16, against their plain versions: K1 at the
+    sampler's batch and the training batch; K3 at the training batch, given
+    K1's residuals as autograd calls it, against both plain versions. Timed
+    as the Ab phases time them."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    heads, hd, L = 8, 64, C.HEAVY_LEN
+    cos, sin = rope_tables(hd, L, device=dev)
+    scale = 1.0 / hd ** 0.5
+    out = {}
+    for B in (MAIN_B, NANO_TRAIN_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
+            o = FA.rope_attention_qkv(qkv, cos, sin, scale, heads)
+            ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
+            torch.cuda.synchronize()
+            errs, ok = check_err(torch, 'K1', o, ref)
+            rec = {'phase': 'K1_nano', 'B': B, 'L': L, 'dtype': name, **errs}
+            if not ok:
+                emit(rec)
+                fail(f'K1 disagrees with its plain version at L = {L} ({name}, B={B})')
+            del o, ref
+            qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
+            rec.update(
+                ms=time_ms(torch, lambda: FA.rope_attention_qkv(qkv, cos, sin, scale, heads)),
+                plain_ms=time_ms(torch, lambda: FA.rope_attention_qkv_reference(
+                    qkv, cos, sin, scale, heads), reps=2, windows=3),
+                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qr, kr, vr, scale=scale)))
+            nbytes = qkv.numel() * qkv.element_size() * 4 // 3 + 2 * cos.numel() * 4
+            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, 4.0 * B * heads * L * L * hd,
+                                                        name)
+            emit(rec)
+            out[('K1', B, name)] = rec
+            if B != NANO_TRAIN_B:
+                continue
+            do = torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
+            _, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, True)
+            res = dict(out=o32, lse=lse)
+            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
+            again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
+            alone = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
+            ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
+            twin = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads,
+                                                            o32, lse)
+            torch.cuda.synchronize()
+            errs, ok = backward_checks(torch, 'K3', got, again, alone, ref, twin)
+            rec = {'phase': 'K3_nano', 'B': B, 'L': L, 'dtype': name, **errs}
+            if not ok:
+                emit(rec)
+                fail(f'K3 disagrees with its plain versions or repeats apart at L = {L} '
+                     f'({name}, B={B})')
+            del got, again, alone, ref, twin
+            qr, kr, vr = (t.requires_grad_() for t in (qr, kr, vr))
+            o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+            dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+            rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
+                o, (qr, kr, vr), dO, retain_graph=True))
+            del o, dO
+            rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
+                qkv, cos, sin, do, scale, heads, **res))
+            rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
+                qkv, cos, sin, do, scale, heads), reps=1, windows=3)
+            nbytes = (2 * qkv.numel() + do.numel()) * qkv.element_size() + 2 * cos.numel() * 4
+            rec['bound_ms'], rec['bound_by'] = bound_ms(
+                nbytes, 5 * 2.0 * B * heads * L * L * hd, name)
+            emit(rec)
+            out[('K3', B, name)] = rec
+            del qkv, do, qr, kr, vr, o32, lse
+            torch.cuda.empty_cache()
+    return out
+
+
+class _KeptRows:
+    """Mixed into a humanizer: keeps each nanobody's rows as sampled, before
+    the validity filter, so that every row's CDRs can be checked."""
+
+    def _filtered(self, inp, out):
+        self.sampled.append((inp, out))
+        return super()._filtered(inp, out)
+
+
+def nano_phases(torch, dev):
+    """The nano path (HuDiff-Nb) at the full width of configs/heavy_train.yml:
+    K1-K4 at its shapes against their plain versions, the f32 forward card
+    against CPU, a bf16 humanization round through
+    ``NanoHumanizer.humanize_many`` with its launch check and a profile of
+    forwards, the f32 heavy train step card against CPU, ``pretrain.run
+    (kind='heavy')`` at B = 512 and a profile of one warm step."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig, NanoAntiTFNet
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    cfg = DenoiserConfig.from_dict(NANO_PRETRAIN_CONFIG['model'])
+    # inputs from a generator of their own: the phases after this one draw
+    # what they drew before it existed
+    gen = torch.Generator(device='cpu').manual_seed(SEED + 7)
+    out = {'attention': attention_nano_phase(torch, gen, dev)}
+    torch.manual_seed(SEED + 7)   # the blocks' initial weights
+    nano_conv = [(cfg.sum_d_model, 'gelu', cfg.dual_layers)]
+    K, L = cfg.aa_kernel_size, C.HEAVY_LEN
+    out['K2'] = k2_phase(torch, gen, dev, nano_conv, (MAIN_B, TRAIN_B, NANO_TRAIN_B), (L,),
+                         K, cfg.r, 'K2_nano', launch_shape=(MAIN_B, cfg.sum_d_model, L, 1))
+    out['K4'] = k4_phase(torch, gen, dev, nano_conv, (MAIN_B, NANO_TRAIN_B), (L,), K, cfg.r,
+                         'K4_nano', launch_shape=(NANO_TRAIN_B, cfg.sum_d_model, L, 1))
+
+    # the full-width forward, f32 on the card vs the CPU
+    torch.manual_seed(SEED)
+    cpu_model = NanoAntiTFNet(cfg).eval()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rs = np.random.RandomState(SEED)
+    tokens = torch.from_numpy(rs.randint(0, C.N_TOKENS, (2, L))).long()
+    region = torch.from_numpy(np.tile(C.HEAVY_REGION_INDEX, (2, 1))).long()
+    with torch.inference_mode():
+        ref = cpu_model(tokens, region)
+        got = gpu_model(tokens.to(dev), region.to(dev)).cpu()
+    err = (got - ref).abs().max().item()
+    emit({'phase': 'forward_f32_nano', 'B': 2, 'shape': list(got.shape), 'max_abs_err': err,
+          'tol': FORWARD_ATOL, 'max_abs_logit': ref.abs().max().item()})
+    if not (got.shape == (2, L, C.N_TOKENS) and torch.isfinite(got).all().item()
+            and err <= FORWARD_ATOL):
+        fail('full-width f32 nano forward on the card disagrees with the CPU')
+    del cpu_model, gpu_model
+
+    # a full-width humanization round, bf16 cast-once: host prep, the
+    # sampler's 93 forwards and the validity filter timed apart
+    class Humanizer(_KeptRows, HZ.NanoHumanizer):
+        sampled = []
+
+    torch.manual_seed(SEED + 1)
+    model = NanoAntiTFNet(cfg, dtype=torch.bfloat16)
+    hum = Humanizer(model, batch_size=MAIN_B // 2, seed=SEED, device='cuda',
+                    device_batch=MAIN_B)
+    t0 = time.perf_counter()
+    inputs = [HZ.nano_input(VHH1), HZ.nano_input(VHH2)]
+    prep_s = time.perf_counter() - t0
+    if any(inp is None for inp in inputs):
+        fail('nano_input rejected a test nanobody')
+    steps = HZ._packed_pad_to(inputs)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = hum.humanize_many(inputs, rows_per_input=MAIN_B // 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'K1': FA.launches, 'K2': FB.launches}
+    cdr = C.HEAVY_CDR_INDEX != 0
+    for inp, g in hum.sampled:
+        keep = inp['tokens'] != C.IDX_MSK
+        if (g.shape != (MAIN_B // 2, L) or (g == C.IDX_MSK).any() or (g < 0).any()
+                or (g >= C.N_TOKENS - 1).any() or not (g[:, cdr] == inp['clean'][cdr]).all()
+                or not (g[:, keep] == inp['tokens'][keep]).all()):
+            fail('nano humanization output fails the CDR / protected-slot checks')
+    sampler_s = wall - hum.filter_s
+    emit({'phase': 'humanize_nano', 'rows': MAIN_B, 'forwards': steps, 'wall_s': wall,
+          'sampler_s': sampler_s, 'filter_s': hum.filter_s, 'nano_input_s': prep_s,
+          'seqs_per_s': MAIN_B / sampler_s, 'seqs_per_s_with_filter': MAIN_B / wall,
+          'ms_per_forward': sampler_s / steps * 1e3,
+          'rows_checked': sum(len(g) for _, g in hum.sampled),
+          'rows_aligning_as_heavy': sum(len(r['seqs']) for r in res if r is not None),
+          'launches': launches,
+          'launches_per_forward': {k: v / steps for k, v in launches.items()},
+          'cdr_unchanged': True})
+    if steps != NANO_FORWARDS or len(hum.sampled) != len(inputs):
+        fail(f'the nano round ran {steps} forwards over {len(hum.sampled)} nanobodies')
+    seen = profile(torch, model, hum, inputs, phase='profile_nano')
+    per_forward = {'K1': 2 * cfg.cs_layers,
+                   'K2': K2_LAUNCHES * (cfg.n_encoder_layers + cfg.dual_layers)}
+    expected = {k: v * steps for k, v in per_forward.items()}
+    emit({'phase': 'launch_check_nano', 'launches': launches, 'expected': expected,
+          'profiled_launches_per_forward': seen, 'expected_per_forward': per_forward})
+    if launches != expected or any(seen[k] != per_forward.get(k, 0) for k in seen):
+        fail(f'nano kernel launches {launches} do not match the profiled forwards {seen}')
+    del model, hum
+    out.update(round=launches, steps=steps, per_forward=seen)
+
+    # training: the f32 step, pretrain.run at B = 512 and a profiled step
+    train_step_f32(torch, cfg, dev, kind='heavy')
+    pre = pretrain_phase(torch, dev, NANO_PRETRAIN_CONFIG, kind='heavy')
+    blocks = cfg.n_encoder_layers + cfg.dual_layers
+    out['per_step'] = profile_train(
+        torch, pre['model'], dev, NANO_PRETRAIN_CONFIG, kind='heavy', expected={
+            'K1': 2 * cfg.cs_layers, 'K2': K2_LAUNCHES * blocks,
+            'K3': 3 * 2 * cfg.cs_layers, 'K4': K4_LAUNCHES * blocks,
+            'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0})
+    out['pretrain'] = pre['launches']
+    del pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def nano_entries(nano):
+    """The kernels line's nano keys for K1-K4: launches per forward, per
+    humanization round and per train step of the nano path, and each
+    kernel's readings at its nano shapes."""
+    att = nano['attention']
+    k1, k1_f32 = att[('K1', MAIN_B, 'bfloat16')], att[('K1', MAIN_B, 'float32')]
+    k3, k3_f32 = att[('K3', NANO_TRAIN_B, 'bfloat16')], att[('K3', NANO_TRAIN_B, 'float32')]
+    k2, k2_f32 = nano['K2'][(MAIN_B, 'bfloat16')], nano['K2'][(MAIN_B, 'float32')]
+    k2_train = nano['K2'][(NANO_TRAIN_B, 'bfloat16')]
+    k4, k4_f32 = nano['K4'][(NANO_TRAIN_B, 'bfloat16')], nano['K4'][(NANO_TRAIN_B, 'float32')]
+    out = {}
+    for k, rec, rec_f32, shape in (
+            ('K1', k1, k1_f32, f'B={MAIN_B} L=152 H=8 D=64 bf16'),
+            ('K2', k2, k2_f32, f'B={MAIN_B} L=152 D=512 H=256 GELU bf16, mean over the '
+                               f'{k2["calls"]} nano_conv blocks'),
+            ('K3', k3, k3_f32, f'B={NANO_TRAIN_B} L=152 H=8 D=64 bf16, given K1\'s residuals'),
+            ('K4', k4, k4_f32, f'B={NANO_TRAIN_B} L=152 D=512 H=256 GELU bf16, mean over '
+                               f'the {k4["calls"]} nano_conv blocks')):
+        n = rec.get('calls', 1)
+        out[k] = {'nano_launches_per_forward': nano['per_forward'][k],
+                  'nano_launches_round': nano['round'].get(k, 0),
+                  'nano_launches_per_step': nano['per_step'][k],
+                  'nano_launches_pretrain': nano['pretrain'][k],
+                  'nano_max_abs_err': rec['max_abs_err'],
+                  'nano_excess_over_rtol': rec['excess_over_rtol'],
+                  'nano_max_abs_err_f32': rec_f32['max_abs_err'],
+                  'nano_ms': rec['ms'] / n, 'nano_plain_ms': rec['plain_ms'] / n,
+                  'nano_bound_ms': rec['bound_ms'] / n, 'nano_shape': shape}
+    out['K2'].update(nano_stage_excess={k: k2[k] for k in STAGE_KEYS},
+                     nano_B512_excess_over_rtol=k2_train['excess_over_rtol'],
+                     nano_B512_excess_block_f32_ln=k2_train['excess_block_f32_ln'],
+                     nano_conv_ms_per_forward=k2['ms'])
+    out['K4'].update(nano_grad_rel_err=k4['grad_rel_err'],
+                     nano_grad_rel_err_f32=k4_f32['grad_rel_err'],
+                     nano_conv_ms_per_step=k4['ms'])
+    return out
 
 
 def _rotated_bhld(torch, q, k, v, cos, sin, heads):
@@ -1481,7 +1875,7 @@ def attention_api_phase(torch, gen, dev):
            'device_busy_ms_per_step': busy,
            'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
            'device_ms_per_step_by_group': groups, 'top': top[:8],
-           'counted_launches': counted, 'profiled_launches': seen, 'first_window': first}
+           'counted_launches': counted, 'profiled_launches': seen, 'profiler': first}
     emit(rec)
     if not (finite and rel[worst] <= ATTN_API_F32_RTOL and loss_rel <= ATTN_API_F32_RTOL):
         fail('the RoPE attention layer through rope_attention fails its checks')
@@ -1683,7 +2077,7 @@ def k8_phase(torch, dev):
         cublas_work()
         torch.cuda.synchronize()
 
-    counted, (_, seen, top), rec['first_window'] = profiled(torch, window, 3)
+    counted, (_, seen, top), rec['profiler'] = profiled(torch, window, 3)
     rec['kernels'] = [{'kernel': t['kernel'][:60], 'calls': t['calls'],
                        'ms_per_call': t['ms_per_repeat']}
                       for t in top if 'fused_layer_' in t['kernel']]

@@ -1,9 +1,10 @@
-"""OA-ARDM paired-antibody denoiser (HuDiff-Ab) in PyTorch.
+"""OA-ARDM denoisers in PyTorch: paired antibody (HuDiff-Ab) and nanobody
+(HuDiff-Nb).
 
-Counterpart of hudiff_tpu/models/denoiser.py:29-271. The two hot stages
+Counterpart of hudiff_tpu/models/denoiser.py:29-317. The two hot stages
 run through the port's kernels, routed by the tensors' device alone:
-RoPE attention (ops/fused_attention.py, K1) and the ByteNet blocks of all
-four towers (ops/fused_bytenet.py, K2). Everything else is plain torch.
+RoPE attention (ops/fused_attention.py, K1) and the ByteNet blocks of every
+tower (ops/fused_bytenet.py, K2). Everything else is plain torch.
 
 ``dtype`` is the compute type (bf16 on the card for sampling and
 training). Parameters are created in f32; the sampler casts every >=2-D f32
@@ -24,7 +25,7 @@ route.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -77,6 +78,14 @@ class DenoiserConfig:
             aa_kernel_size=13, s_model=64, r_model=64, n_pos_model=64,
             sum_d_model=(3 * 64 if self.max_len == C.PAIR_LEN else 2 * 64),
             dual_layers=2, att_model=512, dim_feedforward=512, cs_layers=1)
+
+
+def nano_config(**overrides) -> DenoiserConfig:
+    """Default HuDiff-Nb config (configs/heavy_train.yml)."""
+    base = dict(max_len=C.HEAVY_LEN, sum_d_model=512, dim_feedforward=256,
+                dropout=0.5)
+    base.update(overrides)
+    return DenoiserConfig(**base)
 
 
 class RoPEAttention(nn.Module):
@@ -195,5 +204,43 @@ class AntiTFNet(nn.Module):
         pos = self.pos_encoder(self.region_encoder(region))
         feature = torch.cat([emb + pos + side, pos, side], dim=-1)
         feature = self.self_att(self.dual_conv(feature))
+        feature = norm(feature, self.last_norm)
+        return dense(feature, self.decoder, torch.float32)
+
+
+class NanoAntiTFNet(nn.Module):
+    """HuDiff-Nb heavy-only denoiser: tokens [B, 152] -> logits [B, 152, 23].
+
+    token embed -> one ByteNet stack -> (+pos) -> concat(2d) -> GELU
+    ``nano_conv`` stack -> RoPE self-attention -> LN -> decoder (f32). No
+    side embedder: ``chain_type`` is accepted and unused."""
+
+    def __init__(self, cfg: DenoiserConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        kw = dict(device=device)
+        self.aa_embed = nn.Embedding(cfg.n_tokens, cfg.d_embedding, **kw)
+        self.aa_encoder = ByteNetStack(cfg.n_encoder_layers, cfg.d_model,
+                                       cfg.aa_kernel_size, cfg.r,
+                                       activation=cfg.activation,
+                                       dropout=cfg.dropout, **kw)
+        self.region_encoder = RegionEmbedder(cfg.n_region, cfg.r_embedding,
+                                             cfg.r_model, dtype=dtype, **kw)
+        self.pos_encoder = PosEmbedder(cfg.n_pos_model, cfg.max_len, dtype=dtype, **kw)
+        self.nano_conv = ByteNetStack(cfg.dual_layers, cfg.sum_d_model,
+                                      cfg.aa_kernel_size, cfg.r, activation='gelu',
+                                      dropout=cfg.dropout, **kw)
+        self.self_att = SelfAttNet(cfg.sum_d_model, cfg.att_model,
+                                   cfg.dim_feedforward, cfg.nhead, cfg.max_len,
+                                   cfg.cs_layers, dtype=dtype, **kw)
+        self.last_norm = nn.LayerNorm(cfg.sum_d_model, eps=LN_EPS, **kw)
+        self.decoder = nn.Linear(cfg.sum_d_model, cfg.n_tokens, **kw)
+
+    def forward(self, tokens: torch.Tensor, region: torch.Tensor,
+                chain_type: Optional[torch.Tensor] = None) -> torch.Tensor:
+        emb = self.aa_encoder(self.aa_embed(tokens).to(self.dtype))
+        pos = self.pos_encoder(self.region_encoder(region))
+        feature = torch.cat([emb + pos, pos], dim=-1)
+        feature = self.self_att(self.nano_conv(feature))
         feature = norm(feature, self.last_norm)
         return dense(feature, self.decoder, torch.float32)

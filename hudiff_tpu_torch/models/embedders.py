@@ -1,6 +1,7 @@
 """Conditioning embedders: sinusoidal positions, chain side, region type.
 
-Counterpart of hudiff_tpu/models/embedders.py:14-121. Each module computes
+Counterpart of hudiff_tpu/models/embedders.py:14-121 (``NanoSideEmbedder``
+included). Each module computes
 in ``dtype`` (its parameters may be f32 or, after the sampler's cast-once,
 bf16); LayerNorms run in f32 with the JAX package's numerics (ops/norm.py).
 """
@@ -80,6 +81,26 @@ class SideEmbedder(nn.Module):
         h = dense(h, self.fc2, self.dtype)                          # [B, 2, d]
         return torch.cat([h[:, 0:1].expand(-1, self.h_len, -1),
                           h[:, 1:2].expand(-1, self.l_len, -1)], dim=1)
+
+
+class NanoSideEmbedder(nn.Module):
+    """Single-chain variant: chain types [B] -> [B, h_len, d]. The JAX
+    package defines it and no model calls it; nor does the port's."""
+
+    def __init__(self, n_side: int, s_embedding: int, d: int, h_len: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype, self.h_len = dtype, h_len
+        self.embed = nn.Embedding(n_side, s_embedding, device=device)
+        self.fc1 = nn.Linear(s_embedding, d, device=device)
+        self.ln = nn.LayerNorm(d, eps=LN_EPS, device=device)
+        self.fc2 = nn.Linear(d, d, device=device)
+
+    def forward(self, chain_type: torch.Tensor) -> torch.Tensor:
+        h = self.embed(chain_type).to(self.dtype)                  # [B, s]
+        h = F.relu(norm(dense(h, self.fc1, self.dtype), self.ln))
+        h = dense(h, self.fc2, self.dtype)                          # [B, d]
+        return h[:, None].expand(-1, self.h_len, -1)
 
 
 class RegionEmbedder(nn.Module):

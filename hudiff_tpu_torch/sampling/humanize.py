@@ -1,21 +1,26 @@
-"""Paired-antibody humanization (HuDiff-Ab) on the card.
+"""Humanization on the card: paired antibodies (HuDiff-Ab) and nanobodies
+(HuDiff-Nb).
 
-Counterpart of hudiff_tpu/sampling/humanize.py (the ``ab`` path: host prep
-``pair_input``, packed batching, ``PairHumanizer`` and the CLI). The host
-helpers are copied, the device work is the port's sampler and denoiser.
-Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
-without a card they raise rather than fall back.
+Counterpart of hudiff_tpu/sampling/humanize.py (the ``ab`` and ``nano``
+paths: host prep ``pair_input`` / ``nano_input``, packed batching,
+``PairHumanizer`` / ``NanoHumanizer`` and the CLI). The host helpers are
+copied, the device work is the port's sampler and denoiser. Entry points
+run on ``cuda`` unless the caller passes ``device='cpu'``; without a card
+they raise rather than fall back.
 
 Usage:
   python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt \
       --data-fpath humanization_pair_data_filter.csv --batch-size 64
   python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt --hseq ... --lseq ...
+  python -m hudiff_tpu_torch.sampling.humanize nano --ckpt NB.pt --vhh-seq ... \
+      [--sample-method inpaint]
 """
 from __future__ import annotations
 
 import argparse
 import csv
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,6 +88,57 @@ def pair_input(h_seq: str, l_seq: str, finetune: bool = False
             'h_grid': h['grid'], 'l_grid': l['grid'], 'l_group': l_group}
 
 
+# Copied from hudiff_tpu/sampling/humanize.py:166-218.
+def _is_heavy_type(seq) -> bool:
+    """True when ``seq`` is a string that aligns as a heavy-group chain above
+    the fragment floor: the acceptance test behind nano_input and the
+    nano FASTA record scan."""
+    if not isinstance(seq, str) or not seq.strip():
+        return False
+    try:
+        group, _, score = AL.detect_chain_type(seq)
+    except ValueError:
+        return False
+    return group == 'H' and score >= AL.MIN_CHAIN_SCORE
+
+
+def nano_input(vhh_seq: str, finetune: bool = False, inpaint: bool = False
+               ) -> Optional[Dict[str, np.ndarray]]:
+    """152-grid input for one nanobody
+    (reference batch_input_element, nanosample.py:124-149)."""
+    try:
+        group, _, score = AL.detect_chain_type(vhh_seq)
+    except (ValueError, TypeError):
+        return None  # unalignable / non-string input
+    if score < AL.MIN_CHAIN_SCORE:
+        return None  # fragment / non-antibody input
+    if group != 'H':
+        # a kappa/lambda light chain aligns fine but is not a nanobody; the
+        # chain_hint below bypasses grid_string's heavy gate, so the gate
+        # is applied here
+        return None
+    h = IMGT.grid_string(vhh_seq, heavy=True, chain_hint='VHH')
+    if h is None:
+        return None
+    tokens = _TOK.seq2idx(h['grid'])
+    region = np.asarray(C.HEAVY_REGION_INDEX)
+    if inpaint:
+        cdr = C.INPAINT_HEAVY_CDR_INDEX
+        mask = cdr == 0
+    elif finetune:
+        cdr = C.HEAVY_CDR_KABAT_NO_VERNIER
+        mask = (cdr == 0) & (tokens != C.IDX_PAD)
+    else:
+        cdr = C.HEAVY_CDR_INDEX
+        mask = cdr == 0
+    positions = np.nonzero(mask)[0].astype(np.int32)
+    src = tokens.copy()
+    src[mask] = C.IDX_MSK
+    return {'tokens': src, 'clean': tokens, 'region': region,
+            'positions': positions, 'pad_to': int(np.count_nonzero(cdr == 0)),
+            'aho': h['aho']}
+
+
 def grid_identity(a: np.ndarray, b: np.ndarray) -> float:
     """Fraction of identical residues over slots occupied in either grid."""
     occ = (a != C.IDX_PAD) | (b != C.IDX_PAD)
@@ -102,11 +158,16 @@ def select_most_similar(parental: np.ndarray, candidates: np.ndarray) -> int:
 # Model loading
 # ---------------------------------------------------------------------------
 
-def load_denoiser(ckpt_path: str, device='cuda', use_bf16: bool = True):
-    """(model, finetuned) from a port checkpoint (training/checkpoints.save)."""
+def load_denoiser(ckpt_path: str, kind: str, device='cuda', use_bf16: bool = True):
+    """(model, finetuned) from a port checkpoint (training/checkpoints.save).
+    The checkpoint's ``kind`` decides the model and must be ``kind``
+    ('pair' or 'heavy')."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     model, config = CKPT.load(ckpt_path, dtype=dtype, device=dev)
+    found = config.get('kind', 'pair')
+    if kind != found:
+        raise ValueError(f'{ckpt_path} holds a {found!r} model, not a {kind!r} one')
     return model, bool(config.get('finetuned', False))
 
 
@@ -180,13 +241,15 @@ def _result(inp: Dict, out: np.ndarray) -> Dict:
             'best_idx': best, 'best': (h_seqs[best], l_seqs[best])}
 
 
-class PairHumanizer:
-    """Humanizes paired antibodies with one ``AntiTFNet`` on ``device``.
+class _Humanizer:
+    """One denoiser on ``device`` and its sampler.
 
     The model is moved to ``device``; a bf16 model gets its parameters cast
     to bf16 once, in place (sampler.cast_params_once). Orders are drawn
     from a numpy generator and tokens from a ``torch.Generator`` on the
-    device, both seeded with ``seed``."""
+    device, both seeded with ``seed``. ``COND`` names the row keys the
+    model is conditioned on."""
+    COND: Tuple[str, ...] = ()
 
     def __init__(self, model, batch_size: int = 16, shuffle: bool = True,
                  seed: int = 2023, device='cuda',
@@ -205,10 +268,41 @@ class PairHumanizer:
         order = S.build_order_rows([r['positions'] for r in rows],
                                    rng=self.order_rng, shuffle=self.shuffle,
                                    pad_to=pad_to)
-        out = self.run(put('tokens'), put('region'), put('chain'),
+        out = self.run(put('tokens'),
                        torch.as_tensor(order, dtype=torch.long, device=self.device),
-                       self.generator)
+                       self.generator, *(put(k) for k in self.COND))
         return out.cpu().numpy().astype(np.int32)
+
+    def sample_rows(self, rows: List[Dict], pad_to: int,
+                    batch: Optional[int] = None) -> np.ndarray:
+        """One round over heterogeneous packed rows (each row dict carries
+        its own tokens, conditioning and positions). A short chunk is padded
+        by repeating its last row; the extra outputs are dropped."""
+        n = len(rows)
+        B = batch or self.device_batch
+        if not 0 < n <= B:
+            raise ValueError(f'sample_rows: {n} rows for a batch of {B}')
+        return self._sample(rows + [rows[-1]] * (B - n), pad_to)[:n]
+
+    def _packed_grids(self, inputs: List[Optional[Dict]], rows_per_input: int,
+                      pad_to: Optional[int]) -> Dict[int, np.ndarray]:
+        """Every input gets ``rows_per_input`` candidate rows; rows from many
+        inputs share rounds of ``device_batch`` rows. {input index: grids}."""
+        stream: List[Tuple[int, Dict]] = []
+        for i, inp in enumerate(inputs):
+            if inp is not None:
+                stream.extend([(i, inp)] * rows_per_input)
+        pad_to = pad_to or _packed_pad_to(inputs)
+        grids: Dict[int, List[np.ndarray]] = {}
+        for chunk, out in iter_packed_chunks(self, stream, pad_to):
+            for (i, _), row in zip(chunk, out):
+                grids.setdefault(i, []).append(row)
+        return {i: np.stack(g) for i, g in grids.items()}
+
+
+class PairHumanizer(_Humanizer):
+    """Humanizes paired antibodies with one ``AntiTFNet`` on ``device``."""
+    COND = ('region', 'chain')
 
     def __call__(self, h_seq: str, l_seq: str, finetune: bool = False
                  ) -> Optional[Dict[str, object]]:
@@ -219,33 +313,69 @@ class PairHumanizer:
             len(inp['positions']), inp['pad_to']))
         return _result(inp, out)
 
-    def sample_rows(self, rows: List[Dict], pad_to: int,
-                    batch: Optional[int] = None) -> np.ndarray:
-        """One round over heterogeneous packed rows (each row dict carries
-        its own tokens/region/chain/positions). A short chunk is padded by
-        repeating its last row; the extra outputs are dropped."""
-        n = len(rows)
-        B = batch or self.device_batch
-        if not 0 < n <= B:
-            raise ValueError(f'sample_rows: {n} rows for a batch of {B}')
-        return self._sample(rows + [rows[-1]] * (B - n), pad_to)[:n]
-
     def humanize_many(self, inputs: List[Optional[Dict]], rows_per_input: int,
                       pad_to: Optional[int] = None) -> List[Optional[Dict]]:
         """Every antibody gets ``rows_per_input`` candidate rows; rows from
         many antibodies share rounds of ``device_batch`` rows."""
-        stream: List[Tuple[int, Dict]] = []
-        for i, inp in enumerate(inputs):
-            if inp is not None:
-                stream.extend([(i, inp)] * rows_per_input)
-        pad_to = pad_to or _packed_pad_to(inputs)
-        grids: Dict[int, List[np.ndarray]] = {}
-        for chunk, out in iter_packed_chunks(self, stream, pad_to):
-            for (i, _), row in zip(chunk, out):
-                grids.setdefault(i, []).append(row)
-        return [None if inp is None or i not in grids
-                else _result(inp, np.stack(grids[i]))
+        grids = self._packed_grids(inputs, rows_per_input, pad_to)
+        return [None if inp is None or i not in grids else _result(inp, grids[i])
                 for i, inp in enumerate(inputs)]
+
+
+def _nano_result(inp: Dict, out: np.ndarray) -> Optional[Dict]:
+    """The candidates that still align as heavy chains (reference
+    nanosample.py:338-353), the best of them by grid identity; None when
+    none does."""
+    seqs = [_TOK.idx2seq(row) for row in out]
+    valid = [k for k, a in enumerate(AL.align_to_aho_batch(seqs, 'H')) if a is not None]
+    if not valid:
+        return None
+    grids = out[valid]
+    vseqs = [seqs[k] for k in valid]
+    best = select_most_similar(inp['clean'], grids)
+    return {'seqs': vseqs, 'grids': grids, 'best_idx': best, 'best': vseqs[best]}
+
+
+class NanoHumanizer(_Humanizer):
+    """Humanizes nanobodies with one ``NanoAntiTFNet`` on ``device``.
+
+    A candidate is returned only if it still aligns as a heavy chain; the
+    filter runs the pure-Python aligner on the host, and ``filter_s``
+    accumulates the seconds it took."""
+    COND = ('region',)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.filter_s = 0.0
+
+    def _filtered(self, inp: Dict, out: np.ndarray) -> Optional[Dict]:
+        t0 = time.perf_counter()
+        try:
+            return _nano_result(inp, out)
+        finally:
+            self.filter_s += time.perf_counter() - t0
+
+    def humanize_many(self, inputs: List[Optional[Dict]], rows_per_input: int,
+                      pad_to: Optional[int] = None) -> List[Optional[Dict]]:
+        """Packed nanobody humanization with the validity filter applied
+        per nanobody."""
+        grids = self._packed_grids(inputs, rows_per_input, pad_to)
+        return [None if inp is None or i not in grids else self._filtered(inp, grids[i])
+                for i, inp in enumerate(inputs)]
+
+    def __call__(self, vhh_seq: str, finetune: bool = False, inpaint: bool = False,
+                 max_retry: int = 3) -> Optional[Dict[str, object]]:
+        """``batch_size`` candidates for one nanobody, resampled up to
+        ``max_retry`` rounds until one aligns as a heavy chain."""
+        inp = nano_input(vhh_seq, finetune=finetune, inpaint=inpaint)
+        if inp is None:
+            return None
+        pad_to = _bucket_order_width(len(inp['positions']), inp['pad_to'])
+        for _ in range(max_retry):
+            res = self._filtered(inp, self._sample([inp] * self.batch_size, pad_to))
+            if res is not None:
+                return res
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +413,7 @@ def _write_csv_header(path: str) -> None:
 
 def run_ab(args) -> str:
     model, finetuned = load_denoiser(args.ckpt, device=args.device,
-                                     use_bf16=not args.fp32)
+                                     use_bf16=not args.fp32, kind='pair')
     finetune = (args.ckpt_version == 'finetune') if args.ckpt_version else finetuned
     log_dir = get_new_log_dir(args.logdir, prefix=f'ab_humanize_{args.seed}')
     logger = get_logger('humanize', log_dir)
@@ -387,38 +517,155 @@ def _packed_pair_loop(hum: PairHumanizer, pairs, finetune: bool, args,
             logger.info('humanized %s (%d candidates)', name, len(unique[i]))
 
 
+def load_vhh_rows(data_fpath: str, logger=None) -> List[Tuple[str, str]]:
+    """(row index, sequence) of each non-empty cell of a CSV's ``vhhseq``
+    (else ``vhh_seq``) column; empty cells are skipped with a warning."""
+    with open(data_fpath, newline='') as f:
+        reader = csv.DictReader(f)
+        col = 'vhhseq' if 'vhhseq' in (reader.fieldnames or ()) else 'vhh_seq'
+        cells = [r.get(col) for r in reader]
+    rows = [(str(i), s) for i, s in enumerate(cells) if s and s.strip()]
+    if len(rows) < len(cells) and logger is not None:
+        logger.warning('skipped %d rows with missing %s', len(cells) - len(rows), col)
+    return rows
+
+
+def run_nano(args) -> str:
+    model, finetuned = load_denoiser(args.ckpt, device=args.device,
+                                     use_bf16=not args.fp32, kind='heavy')
+    finetune = (args.ckpt_version == 'finetune') if args.ckpt_version else finetuned
+    log_dir = get_new_log_dir(args.logdir, prefix=f'nano_humanize_{args.seed}')
+    logger = get_logger('humanize', log_dir)
+    save_fpath = os.path.join(log_dir, 'sample_humanization_result.csv')
+    with open(save_fpath, 'w', encoding='UTF-8') as f:
+        f.write('Specific,name,vhh_seq,\n')
+
+    hum = NanoHumanizer(model, batch_size=args.batch_size,
+                        shuffle=(args.sample_order == 'shuffle'), seed=args.seed,
+                        device=args.device,
+                        device_batch=max(args.pack_size, args.batch_size))
+    inpaint = args.sample_method == 'inpaint'
+    if args.fasta:
+        # the first heavy-type record, so that a complex FASTA whose first
+        # record is a light chain is not humanized as a nanobody
+        from ..eval.biophi import read_fasta
+        records = read_fasta(args.fasta)
+        rec = next((r for r in records if _is_heavy_type(r[1])), None)
+        if rec is None:
+            raise SystemExit(f'no heavy-type record found in {args.fasta} '
+                             f'({len(records)} records scanned)')
+        rows = [(rec[0].split()[0], rec[1])]
+    elif args.vhh_seq:
+        rows = [('input', args.vhh_seq)]
+    elif args.data_fpath:
+        rows = load_vhh_rows(args.data_fpath, logger)
+    else:
+        raise SystemExit('nano needs --vhh-seq, --fasta or --data-fpath')
+
+    if len(rows) > 1:
+        _packed_nano_loop(hum, rows, finetune, inpaint, args, logger, save_fpath)
+        logger.info('results: %s', save_fpath)
+        return save_fpath
+    for name, seq in rows:
+        with open(save_fpath, 'a', encoding='UTF-8') as f:
+            f.write(f'camel,{name},{seq}\n')
+
+        def round_fn():
+            res = hum(seq, finetune=finetune, inpaint=inpaint)
+            if res is None:
+                return None
+            return [res['best']] if args.similarity_search else res['seqs']
+
+        target = 1 if args.similarity_search else args.sample_number
+        unique, failed = collect_unique(round_fn, target, args.max_retry)
+        if failed and not unique:
+            logger.warning('could not align/humanize %s; skipped', name)
+            continue
+        with open(save_fpath, 'a', encoding='UTF-8') as f:
+            for sq in unique:
+                f.write(f'humanization,{name}human_sample,{sq}\n')
+        logger.info('humanized %s (%d candidates)', name, len(unique))
+    logger.info('results: %s', save_fpath)
+    return save_fpath
+
+
+def _packed_nano_loop(hum: NanoHumanizer, rows, finetune: bool, inpaint: bool, args,
+                      logger, save_fpath: str) -> None:
+    """Dataset-scale nanobody humanization: candidate rows of every
+    unfinished nanobody share rounds (NanoHumanizer.humanize_many);
+    per-nanobody semantics are those of the single-nanobody loop."""
+    n = len(rows)
+    inputs = [nano_input(seq, finetune=finetune, inpaint=inpaint) for _, seq in rows]
+    target = 1 if args.similarity_search else args.sample_number
+    unique: List[list] = [[] for _ in range(n)]
+    seen: List[set] = [set() for _ in range(n)]
+    run_pad_to = _packed_pad_to(inputs)
+    for _ in range(args.max_retry):
+        active = [i for i in range(n)
+                  if inputs[i] is not None and len(unique[i]) < target]
+        if not active:
+            break
+        results = hum.humanize_many([inputs[i] for i in active],
+                                    rows_per_input=args.batch_size, pad_to=run_pad_to)
+        for i, res in zip(active, results):
+            if res is not None:
+                cands = [res['best']] if args.similarity_search else res['seqs']
+                _dedup_into(seen[i], unique[i], cands, target)
+    with open(save_fpath, 'a', encoding='UTF-8') as f:
+        for i, (name, seq) in enumerate(rows):
+            f.write(f'camel,{name},{seq}\n')
+            if inputs[i] is None or not unique[i]:
+                logger.warning('could not align/humanize %s; skipped', name)
+                continue
+            for sq in unique[i]:
+                f.write(f'humanization,{name}human_sample,{sq}\n')
+            logger.info('humanized %s (%d candidates)', name, len(unique[i]))
+
+
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest='cmd', required=True)
-    q = sub.add_parser('ab')
-    q.add_argument('--ckpt', required=True, help='port checkpoint (.pt)')
-    q.add_argument('--ckpt-version', choices=['pretrain', 'finetune'], default=None)
-    q.add_argument('--data-fpath', default=None)
-    q.add_argument('--batch-size', type=int, default=16)
-    q.add_argument('--sample-number', type=int, default=1)
-    q.add_argument('--max-retry', type=int, default=8,
-                   help='resampling rounds to reach --sample-number unique candidates')
-    q.add_argument('--seed', type=int, default=2023)
-    q.add_argument('--sample-order', default='shuffle', choices=['shuffle', 'sequential'])
-    q.add_argument('--similarity-search', action='store_true', default=True)
-    q.add_argument('--no-similarity-search', dest='similarity_search',
-                   action='store_false')
-    q.add_argument('--logdir', default='./logs')
-    q.add_argument('--fp32', action='store_true')
-    q.add_argument('--pack-size', type=int, default=256,
-                   help='device batch for dataset-mode packed sampling')
-    q.add_argument('--device', default='cuda',
-                   help="torch device; 'cpu' runs the plain versions of the kernels")
-    q.add_argument('--fasta', default=None, help='humanize the chain pair in this FASTA')
-    q.add_argument('--hseq', default=None)
-    q.add_argument('--lseq', default=None)
-    q.add_argument('--fa-version', default='v001',
-                   help='name prefix for the exported BioPhi FASTA')
-    q.add_argument('--structure-fasta', action='store_true',
-                   help='also write per-antibody FASTAs for structure prediction')
+    for name in ('ab', 'nano'):
+        q = sub.add_parser(name)
+        q.add_argument('--ckpt', required=True, help='port checkpoint (.pt)')
+        q.add_argument('--ckpt-version', choices=['pretrain', 'finetune'], default=None)
+        q.add_argument('--data-fpath', default=None)
+        q.add_argument('--batch-size', type=int, default=16)
+        q.add_argument('--sample-number', type=int, default=1)
+        q.add_argument('--max-retry', type=int, default=8,
+                       help='resampling rounds to reach --sample-number unique candidates')
+        q.add_argument('--seed', type=int, default=2023)
+        q.add_argument('--sample-order', default='shuffle',
+                       choices=['shuffle', 'sequential'])
+        q.add_argument('--similarity-search', action='store_true', default=True)
+        q.add_argument('--no-similarity-search', dest='similarity_search',
+                       action='store_false')
+        q.add_argument('--logdir', default='./logs')
+        q.add_argument('--fp32', action='store_true')
+        q.add_argument('--pack-size', type=int, default=256,
+                       help='device batch for dataset-mode packed sampling')
+        q.add_argument('--device', default='cuda',
+                       help="torch device; 'cpu' runs the plain versions of the kernels")
+        if name == 'ab':
+            q.add_argument('--fasta', default=None,
+                           help='humanize the chain pair in this FASTA')
+            q.add_argument('--hseq', default=None)
+            q.add_argument('--lseq', default=None)
+            q.add_argument('--fa-version', default='v001',
+                           help='name prefix for the exported BioPhi FASTA')
+            q.add_argument('--structure-fasta', action='store_true',
+                           help='also write per-antibody FASTAs for structure prediction')
+        else:
+            q.add_argument('--fasta', default=None,
+                           help="humanize this FASTA's first heavy-type record")
+            q.add_argument('--vhh-seq', default=None)
+            q.add_argument('--sample-method', default='FR', choices=['FR', 'inpaint'],
+                           help='FR: resample every framework slot; inpaint: '
+                                'the inpainting mask (INPAINT_HEAVY_CDR_INDEX)')
     args = p.parse_args(argv)
     seed_all(args.seed)
-    return run_ab(args)
+    return run_ab(args) if args.cmd == 'ab' else run_nano(args)
 
 
 if __name__ == '__main__':

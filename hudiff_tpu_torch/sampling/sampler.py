@@ -68,15 +68,12 @@ def cast_params_once(model: torch.nn.Module) -> torch.nn.Module:
 
 
 def make_model_sampler(model: torch.nn.Module):
-    """``run(tokens, region, chain, order, generator) -> tokens`` for a
-    paired denoiser (the counterpart of ``make_jit_sampler``). Puts the
+    """``run(tokens, order, generator, *cond) -> tokens`` for a denoiser
+    conditioned on ``cond``: ``(region, chain)`` for the paired one,
+    ``(region,)`` for the nanobody one (the counterpart of
+    ``make_jit_sampler`` with and without ``has_chain_type``). Puts the
     model in eval mode and applies ``cast_params_once`` to it."""
-    sampler = make_scan_sampler(cast_params_once(model.eval()))
-
-    def run(tokens, region, chain, order, generator):
-        return sampler(tokens, order, generator, region, chain)
-
-    return run
+    return make_scan_sampler(cast_params_once(model.eval()))
 
 
 def build_order_rows(position_sets: Sequence[Sequence[int]],

@@ -1,4 +1,5 @@
-"""Pretraining CLI for HuDiff-Ab (paired), in PyTorch.
+"""Pretraining CLI for HuDiff-Ab (paired) and HuDiff-Nb (heavy-only), in
+PyTorch.
 
 Counterpart of hudiff_tpu/training/pretrain.py. The step (OA-ARDM
 corruption, forward, loss, backward, update) runs on the card through the
@@ -16,14 +17,17 @@ Usage:
   # full width on the card (the default device):
   python -m hudiff_tpu_torch.training.pretrain --config configs/antibody_train.yml \\
       --synthetic 1024 --max-iter 10
+  # the nanobody model (--kind heavy, inferred from the config's name):
+  python -m hudiff_tpu_torch.training.pretrain --config configs/heavy_train.yml \\
+      --synthetic 1024 --max-iter 10
 
 Not ported yet, and refused with a message naming the ROADMAP.md item:
-``--data`` (the OAS loader), ``--kind heavy`` (NanoAntiTFNet), ``--tp`` and
-``--multihost`` (parallelism).
+``--data`` (the OAS loader), ``--tp`` and ``--multihost`` (parallelism).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Dict, Iterator, Optional
@@ -33,7 +37,7 @@ import torch
 
 from .. import constants as C
 from ..data import pipeline
-from ..models.denoiser import AntiTFNet, DenoiserConfig
+from ..models.denoiser import DenoiserConfig, nano_config
 from ..utils.config import Namespace, load_yaml
 from ..utils.device import resolve_device
 from . import checkpoints, schedules, train_step as T
@@ -43,8 +47,6 @@ from .logger import (MetricsWriter, count_parameters, get_logger, get_new_log_di
 WAITS = {
     'data': "--data: real OAS data waits for the port's OAS loader "
             "(ROADMAP.md queue 1, 'OAS data loader'); use --synthetic N",
-    'heavy': "--kind heavy: the nanobody step waits for NanoAntiTFNet "
-             "(ROADMAP.md queue 1, 'heavy/nano training')",
     'parallel': "--tp/--multihost: parallelism waits for its port "
                 "(ROADMAP.md queue 1, 'parallelism')",
 }
@@ -65,16 +67,23 @@ def synthetic_batches(kind: str, batch_size: int, seed: int = 0
         yield batch
 
 
+def model_config(cfg: Namespace, kind: str) -> DenoiserConfig:
+    """``cfg.model`` over the kind's defaults (``nano_config`` for heavy)."""
+    base = dataclasses.asdict(nano_config()) if kind == 'heavy' else {}
+    return DenoiserConfig.from_dict({**base, **dict(cfg.model)})
+
+
 def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
         logdir: str = './logs', synthetic: int = 0, max_iter: Optional[int] = None,
         valid_step: Optional[int] = None, resume: Optional[str] = None,
         seed: Optional[int] = None, use_bf16: bool = True, tag: str = '',
-        device='cuda', model: Optional[AntiTFNet] = None) -> str:
-    """Pretrain and return the run directory. ``model``, when given, is
-    trained in place (it must match ``cfg.model`` and lie on ``device``);
-    otherwise one is built from ``cfg.model`` after seeding torch."""
-    if kind != 'pair':
-        raise NotImplementedError(WAITS['heavy'])
+        device='cuda', model: Optional[torch.nn.Module] = None) -> str:
+    """Pretrain ``AntiTFNet`` (``kind='pair'``) or ``NanoAntiTFNet``
+    (``'heavy'``) and return the run directory. ``model``, when given, is
+    trained in place (it must match ``cfg.model`` and ``kind`` and lie on
+    ``device``); otherwise one is built from ``cfg.model`` after seeding
+    torch."""
+    model_cls = checkpoints.model_class(kind)
     if not synthetic:
         raise NotImplementedError(WAITS['data'])
     dev = resolve_device(device)
@@ -87,10 +96,13 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
     metrics_writer = MetricsWriter(log_dir)
     snapshot_source(log_dir)
 
-    model_cfg = DenoiserConfig.from_dict(cfg.model)
+    model_cfg = model_config(cfg, kind)
     if model is None:
-        model = AntiTFNet(model_cfg, dtype=torch.bfloat16 if use_bf16 else torch.float32,
+        model = model_cls(model_cfg, dtype=torch.bfloat16 if use_bf16 else torch.float32,
                           device=dev)
+    elif not isinstance(model, model_cls):
+        raise ValueError(f'--kind {kind} trains a {model_cls.__name__}, '
+                         f'not a {type(model).__name__}')
     logger.info('parameters: %d', count_parameters(model))
 
     batch_size = cfg.train.batch_size
@@ -111,6 +123,8 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
     best_val = float('inf')
     if resume:
         restored = checkpoints.restore(resume)
+        if restored['kind'] != kind:
+            raise ValueError(f"{resume} holds a {restored['kind']!r} model, not {kind!r}")
         model.load_state_dict(restored['payload']['model'])
         optimizer.load_state_dict(restored['payload']['optimizer'])
         # checkpoints are labeled by iteration; state.step counts optimizer
@@ -127,13 +141,23 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
 
     loss_type = cfg.train.get('loss_type', 'merge')
     l_weight = cfg.train.get('l_loss_weight', 1.0)
-    step_fn = T.make_pair_train_step(model, loss_type=loss_type, l_weight=l_weight)
-    eval_fn = T.make_eval_step(model, loss_type=loss_type, l_weight=l_weight, pair=True)
+    pair = kind == 'pair'
+    if pair:
+        pair_step = T.make_pair_train_step(model, loss_type=loss_type, l_weight=l_weight)
+
+        def step_fn(state, batch, seed):
+            return pair_step(state, batch['tokens'], batch['chain_type'], seed)
+    else:
+        heavy_step = T.make_heavy_train_step(model)
+
+        def step_fn(state, batch, seed):
+            return heavy_step(state, batch['tokens'], seed)
+    eval_fn = T.make_eval_step(model, loss_type=loss_type, l_weight=l_weight, pair=pair)
 
     ckpt_dir = os.path.join(log_dir, 'checkpoints')
     os.makedirs(ckpt_dir, exist_ok=True)
     data_seed = seed + 17
-    config = {'model': dict(cfg.model), 'kind': kind,
+    config = {'model': dataclasses.asdict(model_cfg), 'kind': kind,
               'train': cfg.train.to_dict() if hasattr(cfg.train, 'to_dict')
               else dict(cfg.train)}
 
@@ -147,7 +171,7 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
         sums: Dict[str, torch.Tensor] = {}
         for _ in range(batch_acc):
             batch = next(train_feed)
-            m = step_fn(state, batch['tokens'], batch['chain_type'], data_seed)
+            m = step_fn(state, batch, data_seed)
             for k, v in m.items():
                 sums[k] = sums[k] + v if k in sums else v
         it += 1
@@ -163,7 +187,7 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
         if it % max(valid_step, 1) == 0 or it >= max_iter:
             # full-split validation: average over every val batch
             def _val_step(vbatch, j, _it=it):
-                return eval_fn(vbatch['tokens'], vbatch['chain_type'],
+                return eval_fn(vbatch['tokens'], vbatch.get('chain_type'),
                                T.generator(dev, seed, _it, j))
 
             vm = T.evaluate(_val_step, val_feed, n_val_batches)
@@ -211,8 +235,6 @@ def main(argv=None):
                          or cfg.get('name') == 'nano' else 'pair')
     if args.data:
         p.error(WAITS['data'])
-    if kind != 'pair':
-        p.error(WAITS['heavy'])
     if args.tp != 1 or args.multihost:
         p.error(WAITS['parallel'])
     if not args.synthetic:

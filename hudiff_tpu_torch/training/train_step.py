@@ -14,7 +14,8 @@ Each step draws its corruption from a ``torch.Generator`` on the tokens'
 device seeded from ``(seed, state.step)``, as ``fold_in(rng, state.step)``
 keys the JAX step (train_step.py:79); torch's draws are not JAX's. A step
 may instead be handed a fixed ``Corrupted``, which the parity tests use.
-The heavy (nanobody) step waits for ``NanoAntiTFNet``.
+The pair step trains ``AntiTFNet`` on [B, 291] grids, the heavy step
+``NanoAntiTFNet`` on [B, 152] ones.
 """
 from __future__ import annotations
 
@@ -110,6 +111,42 @@ def make_pair_train_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
     return step
 
 
+def make_heavy_train_step(model) -> Callable:
+    """Nanobody pretrain step ``step(state, tokens, seed, corrupted=None) ->
+    metrics`` on clean [B, 152] grids: the framework is corrupted, the CDRs
+    are protected (reference nanobody_scripts/nanotrain.py:43-335)."""
+    rows = {}
+
+    def step(state: TrainState, tokens: torch.Tensor, seed: int,
+             corrupted: Optional[masking.Corrupted] = None) -> Dict[str, torch.Tensor]:
+        dev = tokens.device
+        if dev not in rows:
+            rows[dev] = _heavy_rows(dev)
+        cdr_row, region_row = rows[dev]
+        B = tokens.shape[0]
+        protected = (cdr_row != 0).expand(B, C.HEAVY_LEN)
+        cor = corrupted if corrupted is not None else masking.corrupt(
+            generator(dev, seed, state.step), tokens, protected)
+        logits = state.model(cor.src, region_row.expand(B, C.HEAVY_LEN))
+        m = _heavy_loss(logits, tokens, cor.mask, protected)
+        m['loss'].backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in m.items()}
+
+    return step
+
+
+def _heavy_rows(device):
+    return (torch.as_tensor(C.HEAVY_CDR_INDEX, dtype=torch.long, device=device),
+            torch.as_tensor(C.HEAVY_REGION_INDEX, dtype=torch.long, device=device))
+
+
+def _heavy_loss(logits, tokens, mask, cdr_mask):
+    m = losses.heavy_oardm_loss(logits, tokens, mask, cdr_mask)
+    m['loss'] = m['ce'] + m['cdr_ce']
+    return m
+
+
 def evaluate(step_metrics_fn: Callable[[Dict[str, Any], int], Dict[str, Any]],
              val_feed, n_batches: int) -> Dict[str, float]:
     """Average eval metrics over the FULL validation split (``n_batches``
@@ -131,17 +168,15 @@ def make_eval_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
                    pair: bool = True) -> Callable:
     """Validation step ``step(tokens, chain_type, generator) -> metrics``:
     deterministic forward (``model.eval()``, no autograd), the same losses,
-    no update; the model's mode is restored afterwards."""
-    if not pair:
-        raise NotImplementedError('the heavy eval step waits for NanoAntiTFNet '
-                                  "(ROADMAP.md queue 1, 'heavy/nano training')")
+    no update; the model's mode is restored afterwards. ``pair=False`` is
+    the heavy (nanobody) step: ``chain_type`` is ignored (pass None)."""
     rows = {}
 
-    def step(tokens: torch.Tensor, chain_type: torch.Tensor,
+    def step(tokens: torch.Tensor, chain_type: Optional[torch.Tensor],
              gen: torch.Generator) -> Dict[str, torch.Tensor]:
         dev = tokens.device
         if dev not in rows:
-            rows[dev] = _pair_rows(dev)
+            rows[dev] = _pair_rows(dev) if pair else _heavy_rows(dev)
         cdr_row, region_row = rows[dev]
         B, L = tokens.shape
         protected = (cdr_row != 0).expand(B, L)
@@ -150,6 +185,9 @@ def make_eval_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
         model.eval()
         try:
             with torch.no_grad():
+                if not pair:
+                    return _heavy_loss(model(cor.src, region_row.expand(B, L)), tokens,
+                                       cor.mask, protected)
                 logits = model(cor.src, region_row.expand(B, L), chain_type)
                 return _pair_loss(logits, tokens, cor.mask, protected, loss_type, l_weight)
         finally:

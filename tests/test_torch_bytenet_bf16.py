@@ -24,8 +24,10 @@ spacings. So the forward is held to the card's K2 limit (excess 2.5e-2;
 largest readings here, all GELU: p 8.5e-3, q 1.4e-2, y 2.1e-2), and a
 second test holds the Pallas forward against the same plain stages with
 the LayerNorm output kept in f32, where the excess is what one rounding
-flip carries (limit 1e-2, largest reading 5.6e-3). The backward has no such
-point: dx excess 1e-3 (largest reading 9.5e-5), gradients rtol 1e-3
+flip carries (limit 1e-2, largest reading 5.6e-3). The same two limits
+hold at the nano_conv tower's width, D 512 / H 256 GELU at L = 17
+(largest readings, y: 1.7e-2 as the plain version rounds, 4.8e-3 kept in
+f32). The backward has no such point: dx excess 1e-3 (largest reading 9.5e-5), gradients rtol 1e-3
 (largest reading 9.8e-5). The residual-taking plain backward (given the
 rows' LayerNorm statistics, as K2 writes them for K4) is held to the same
 limits, given statistics taken from the same rows in f32.
@@ -47,6 +49,7 @@ Y_EXCESS_F32_LN = 1e-2
 DX_EXCESS = 1e-3
 GRAD_RTOL = 1e-3
 CASES = [(act, dil, L) for act in ('relu', 'gelu') for dil in (1, 4, 32) for L in (17, 139)]
+NANO_DH, NANO_L = (512, 256), 17   # the nano_conv tower (configs/heavy_train.yml)
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +61,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _block(seed, L):
+def _block(seed, L, D=D, H=H):
     """(Flax-layout parameters, x, dy) from a seed, all f32."""
     rs = np.random.RandomState(seed)
     n = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
@@ -95,9 +98,9 @@ def _excess(out, ref):
     return ((out - ref).abs() - BF16_RTOL * ref.abs()).max().item()
 
 
-def _forwards(act, dil, L):
+def _forwards(act, dil, L, D=D, H=H):
     """(Pallas (y, p, q), plain (y, p, q)) on one block's bf16 input."""
-    prm, x, _ = _block(dil * 100 + L + (act == 'gelu'), L)
+    prm, x, _ = _block(dil * 100 + L + (act == 'gelu'), L, D, H)
     y_j, _, p_j, q_j = JPB._pallas_fwd(jnp.asarray(x, jnp.bfloat16), _jax_params(prm), K, dil,
                                        act, True)
     plain = FB._reference_parts(_bf16(x), *_port_params(prm), dilation=dil,
@@ -126,9 +129,35 @@ def test_pallas_fwd_activates_the_layernorm_output_in_f32(monkeypatch, dil, L):
         assert err <= Y_EXCESS_F32_LN, f'{name} excess {err} over {BF16_RTOL} |ref|'
 
 
+@pytest.mark.parametrize('dil', [1, 32])
+def test_plain_k2_bf16_matches_pallas_fwd_nano_conv_width(dil, monkeypatch):
+    """The nano_conv tower's width (D 512, H 256, GELU) at L = 17: the plain
+    forward against the Pallas one, to the same limit, and with the
+    LayerNorm output kept in f32 to the tighter one."""
+    pallas, plain = _forwards('gelu', dil, NANO_L, *NANO_DH)
+    for name, got, ref in zip('ypq', plain, pallas):
+        err = _excess(got, ref)
+        assert err <= Y_EXCESS, f'{name} excess {err} over {BF16_RTOL} |ref|'
+    monkeypatch.setattr(FB, 'layer_norm', lambda x, g, b: F.layer_norm(
+        x.float(), (x.shape[-1],), g.float(), b.float(), FB.LN_EPS))
+    pallas, plain = _forwards('gelu', dil, NANO_L, *NANO_DH)
+    for name, got, ref in zip('ypq', plain, pallas):
+        err = _excess(got, ref)
+        assert err <= Y_EXCESS_F32_LN, f'{name} excess {err} over {BF16_RTOL} |ref| (f32 LN)'
+
+
 @pytest.mark.parametrize('act,dil,L', CASES)
 def test_plain_k4_bf16_matches_pallas_bwd(act, dil, L):
-    prm, x, dy = _block(dil * 100 + L + 7 * (act == 'gelu'), L)
+    _check_k4(act, dil, L)
+
+
+@pytest.mark.parametrize('dil', [1, 32])
+def test_plain_k4_bf16_matches_pallas_bwd_nano_conv_width(dil):
+    _check_k4('gelu', dil, NANO_L, *NANO_DH)
+
+
+def _check_k4(act, dil, L, D=D, H=H):
+    prm, x, dy = _block(dil * 100 + L + 7 * (act == 'gelu'), L, D, H)
     packed = _jax_params(prm)
     _, xp, p_j, q_j = JPB._pallas_fwd(jnp.asarray(x, jnp.bfloat16), packed, K, dil, act, True)
     outs = JPB._pallas_bwd(xp, p_j, q_j, packed, jnp.asarray(dy, jnp.bfloat16), K, dil, act,

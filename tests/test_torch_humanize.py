@@ -176,14 +176,14 @@ def test_cuda_entry_points_raise_without_a_card(demo_ckpt):
     if torch.cuda.is_available():
         pytest.skip('a card is present')
     with pytest.raises(RuntimeError, match='CUDA'):
-        H.load_denoiser(demo_ckpt)
-    model, _ = H.load_denoiser(demo_ckpt, device='cpu', use_bf16=False)
+        H.load_denoiser(demo_ckpt, 'pair')
+    model, _ = H.load_denoiser(demo_ckpt, 'pair', device='cpu', use_bf16=False)
     with pytest.raises(RuntimeError, match='CUDA'):
         H.PairHumanizer(model)
 
 
 def test_humanize_many_keeps_cdrs(demo_ckpt):
-    model, finetuned = H.load_denoiser(demo_ckpt, device='cpu', use_bf16=False)
+    model, finetuned = H.load_denoiser(demo_ckpt, 'pair', device='cpu', use_bf16=False)
     assert not finetuned
     hum = H.PairHumanizer(model, batch_size=2, seed=7, device='cpu', device_batch=5)
     inputs = [H.pair_input(H1, L1), H.pair_input(H2, L2), None]

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from hudiff_tpu_torch import constants as C
-from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig
+from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig, NanoAntiTFNet, nano_config
 from hudiff_tpu_torch.ops import _build
 from hudiff_tpu_torch.ops import fused_attention as FA
 from hudiff_tpu_torch.ops import fused_bytenet as FB
@@ -90,6 +90,7 @@ def _block(d, h, k, dil, act, gen):
 @pytest.mark.parametrize('d,h,k,act,L,dil', [(768, 384, 7, 'relu', 152, 1),
                                              (768, 384, 7, 'relu', 139, 32),
                                              (256, 128, 7, 'gelu', 152, 16),
+                                             (512, 256, 7, 'gelu', 152, 8),
                                              (192, 96, 13, 'relu', 139, 2),
                                              (64, 32, 13, 'gelu', 152, 1)])
 def test_k2_matches_plain(dev, dtype, rtol, atol, d, h, k, act, L, dil):
@@ -241,7 +242,8 @@ def test_k3_matches_plain(dev, dtype, rtol, atol, B, L):
 @pytest.mark.parametrize('d,h,k,act,B,L,dil', [(64, 32, 7, 'gelu', 3, 17, 2),
                                                (96, 64, 13, 'relu', 3, 17, 1),
                                                (768, 384, 7, 'relu', 4, 139, 32),
-                                               (256, 128, 7, 'gelu', 4, 152, 4)])
+                                               (256, 128, 7, 'gelu', 4, 152, 4),
+                                               (512, 256, 7, 'gelu', 4, 152, 2)])
 def test_k4_matches_plain(dev, dtype, rtol, atol, d, h, k, act, B, L, dil):
     gen = torch.Generator().manual_seed(d + L + dil)
     blk = _block(d, h, k, dil, act, gen).to(dev)
@@ -386,6 +388,79 @@ def test_test_size_train_step_matches_cpu(dev):
         if d == dev:
             assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 6)
             assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (6 * 3, 6 * 5)
+        grads.append((m['loss'].item(), keep))
+    (loss_c, g_c), (loss_g, g_g) = grads
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    assert sorted(g_c) == sorted(g_g)
+    for n in g_c:
+        rel = ((g_g[n] - g_c[n]).abs().max() / g_c[n].abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-4, f'{n}: {rel}'
+
+
+VHH = ('QVQLVESGGGLVQAGGSLRLSCAASGRTFSSYAMGWFRQAPGKEREFVAAISWSGGSTYYADSVKGRF'
+       'TISRDNAKNTVYLQMNSLKPEDTAVYYCAADRGSYYYTRNQYDYWGQGTQVTVSS')
+
+
+def test_test_size_nano_forward_matches_cpu(dev):
+    """f32 logits of the test-size NanoAntiTFNet on the card against the
+    CPU's plain path; atol 1e-4."""
+    torch.manual_seed(0)
+    model = NanoAntiTFNet(nano_config().test_size()).eval()
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, C.N_TOKENS,
+                                                               (2, C.HEAVY_LEN))).long()
+    region = torch.from_numpy(np.tile(C.HEAVY_REGION_INDEX, (2, 1))).long()
+    with torch.inference_mode():
+        ref = model(tokens, region)
+        out = model.to(dev)(tokens.to(dev), region.to(dev)).cpu()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_nano_humanize_on_card_keeps_cdrs_and_runs_the_kernels(dev):
+    torch.manual_seed(1)
+    hum = HZ.NanoHumanizer(NanoAntiTFNet(nano_config().test_size(), dtype=torch.bfloat16),
+                           batch_size=4, seed=3, device='cuda')
+    inp = HZ.nano_input(VHH)
+    k1, k2 = FA.launches, FB.launches
+    rows = hum.sample_rows([inp] * 4, len(inp['positions']))
+    steps = len(inp['positions'])
+    assert steps == 93
+    assert FA.launches - k1 == 2 * steps          # cs_layers = 1: two attentions
+    assert FB.launches - k2 == (1 + 2) * 3 * steps   # 1 aa + 2 nano_conv blocks, 3 kernels
+    cdr = C.HEAVY_CDR_INDEX != 0
+    keep = inp['tokens'] != C.IDX_MSK
+    assert (rows != C.IDX_MSK).all()
+    assert (rows[:, cdr] == inp['clean'][cdr]).all()
+    assert (rows[:, keep] == inp['tokens'][keep]).all()
+
+
+def test_test_size_heavy_train_step_matches_cpu(dev):
+    """One f32 heavy train step of the test-size NanoAntiTFNet (dropout
+    off, a fixed mask, TF32 off) on the card against the CPU: the loss to
+    1e-5 relative and every parameter's gradient to max |err| <= 1e-4
+    max |ref|, as the pair step is held."""
+    torch.manual_seed(0)
+    cpu = NanoAntiTFNet(nano_config().test_size()).eval()
+    card = NanoAntiTFNet(nano_config().test_size()).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    rs = np.random.RandomState(0)
+    tokens = torch.from_numpy(rs.randint(0, C.N_AA, (2, C.HEAVY_LEN)))
+    mask = torch.from_numpy(rs.rand(2, C.HEAVY_LEN) < 0.5)
+    mask &= ~torch.from_numpy(C.HEAVY_CDR_INDEX != 0)
+    cor = M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
+    grads = []
+    for model, d in ((cpu, 'cpu'), (card, dev)):
+        state = T.TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+        keep = {}
+        for n, prm in model.named_parameters():
+            prm.register_post_accumulate_grad_hook(
+                lambda t, n=n: keep.__setitem__(n, t.grad.detach().cpu().clone()))
+        k = (FA.launches, FA.bwd_launches, FB.launches, FB.bwd_launches)
+        m = T.make_heavy_train_step(model)(state, tokens.to(d), 0,
+                                           M.Corrupted(*(t.to(d) for t in cor)))
+        if d == dev:
+            assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 6)
+            assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (3 * 3, 3 * 5)
         grads.append((m['loss'].item(), keep))
     (loss_c, g_c), (loss_g, g_g) = grads
     assert loss_g == pytest.approx(loss_c, rel=1e-5)

@@ -356,7 +356,6 @@ def test_pretrain_cli_resume(tmp_path):
 
 @pytest.mark.parametrize('args,match', [
     (['--data', 'x'], 'OAS data loader'),
-    (['--kind', 'heavy'], 'NanoAntiTFNet'),
     (['--tp', '2'], 'parallelism'),
     (['--multihost'], 'parallelism'),
 ])
@@ -378,3 +377,18 @@ def test_chip_smoke_pretrain_config_is_antibody_train_yml():
     ref = load_yaml(os.path.join(REPO, 'configs', 'antibody_train.yml')).to_dict()
     assert (literal['train'].pop('batch_acc'), ref['train'].pop('batch_acc')) == (2, 300)
     assert literal == ref
+
+
+def test_chip_smoke_nano_pretrain_config_is_heavy_train_yml():
+    """chip_smoke.py trains the nano model from a literal of
+    configs/heavy_train.yml, batch_acc lowered from 300 to 2 as above."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location('chip_smoke',
+                                                  os.path.join(REPO, 'chip_smoke.py'))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    literal = json.loads(json.dumps(smoke.NANO_PRETRAIN_CONFIG))
+    ref = load_yaml(os.path.join(REPO, 'configs', 'heavy_train.yml')).to_dict()
+    assert (literal['train'].pop('batch_acc'), ref['train'].pop('batch_acc')) == (2, 300)
+    assert literal == ref
+    assert smoke.NANO_TRAIN_B == ref['train']['batch_size'] == 512
