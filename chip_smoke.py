@@ -59,7 +59,23 @@ version on the card. Then:
   at B = 512, a checkpoint that restores as ``NanoAntiTFNet``) and
   ``profile_train_nano`` (K1-K4 10 / 36 / 30 / 60 a step). The kernels
   line's K1-K4 entries carry the nano readings under ``nano_*`` keys
-  (``nano_conv_ms_*``: the six nano_conv calls only, not the aa tower's).
+  (``nano_conv_ms_*``: the six nano_conv calls only, not the aa tower's);
+- fine-tuning against frozen AbNatiV scorers (the eighth slice), after
+  the nano phases: ``abnativ_f32`` (one scorer at the released hparams,
+  f32, card against CPU: outputs, codebook indices and input gradients
+  with straight-through off and on), ``finetune_step_f32_nano`` and
+  ``finetune_step_f32_ab`` (one full-width f32 fine-tune step card against
+  CPU with injected corruption and Gumbel uniforms: the pretrain step's
+  limits and the same hard choices), ``finetune_nano`` (the ``finetune
+  nano`` CLI on configs/nano_finetune.yml, B = 512, with cross-training,
+  from ``pretrain_nano``'s best checkpoint and scorer files written in the
+  reference layout; then a ``NanoHumanizer`` round with ``finetune=True``
+  from its best checkpoint), ``profile_finetune_nano`` (one warm step:
+  device ms by group with AbNatiV's share, the launch check), and
+  ``finetune_ab`` / ``profile_finetune_ab`` the same for HuDiff-Ab
+  (configs/antibody_finetune.yml, B = 32, three scorers, a
+  ``PairHumanizer`` round). K1-K4 carry ``finetune_nano_*`` and
+  ``finetune_ab_*`` launch keys.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -76,6 +92,7 @@ L2-resident, as they are on the main path where each kernel reads what the
 previous op wrote.
 """
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -212,6 +229,19 @@ NANO_PRETRAIN_CONFIG = {
               'scheduler': {'type': 'plateau', 'factor': 0.6, 'patience': 10,
                             'min_lr': 1.e-5, 'multiplier': 10, 'total_epoch': 20}},
 }
+# The fine-tune slice (HuDiff-Ab and HuDiff-Nb against frozen AbNatiV
+# scorers): the CLI reads configs/nano_finetune.yml and
+# configs/antibody_finetune.yml (the card machine has PyYAML) for
+# FINETUNE_ITERS iterations with a validation every FINETUNE_VALID (Nb: a
+# cross-training step at iteration 5).
+FINETUNE_CONFIGS = {'heavy': 'configs/nano_finetune.yml',
+                    'pair': 'configs/antibody_finetune.yml'}
+FINETUNE_ITERS, FINETUNE_VALID, FINETUNE_VAL_BATCHES = 6, 3, 2
+FINETUNE_STEP_B = {'heavy': 8, 'pair': 4}   # the f32 step, card against CPU
+ABNATIV_B = 64
+# AbNatiV in f32 on the card against the CPU: outputs to an absolute limit,
+# the input gradient to a fraction of max |ref|
+ABNATIV_ATOL, ABNATIV_GRAD_RTOL = 1e-5, 1e-4
 # kernels one call launches: K2 three GEMMs; K4 three data GEMMs, one grouped
 # weight-gradient GEMM and one fixed-order sum
 K2_LAUNCHES, K4_LAUNCHES = 3, 5
@@ -688,12 +718,15 @@ def main():
     train_step_f32(torch, cfg, dev)
     pre = pretrain_phase(torch, dev)
     per_step = profile_train(torch, pre['model'], dev)
-    trained = pre['launches']
+    trained, ab_ckpt = pre['launches'], pre['ckpt']
     del pre
     torch.cuda.empty_cache()
 
     # -- the nano path (HuDiff-Nb) ------------------------------------------------
     nano = nano_phases(torch, dev)
+
+    # -- fine-tuning against frozen AbNatiV scorers (Nb and Ab) -----------------
+    tuned = finetune_phases(torch, dev, ab_ckpt, nano['ckpt'])
 
     # -- phases 11-15: the remaining entry points ------------------------------
     results['K5'] = k5_phase(torch, gen, dev)
@@ -720,7 +753,7 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
-         **nk['K1']},
+         **nk['K1'], **tuned['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -736,7 +769,7 @@ def main():
          'stage_excess': {k: k2[k] for k in STAGE_KEYS},
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
-                  'tower blocks of one forward, bf16', **nk['K2']},
+                  'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -747,7 +780,8 @@ def main():
          'plain_ms': k3['plain_ms'], 'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
          'library_ms': k3['library_ms'],
          'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
-                  '(three kernels); ms_standalone runs K1 for them first', **nk['K3']},
+                  '(three kernels); ms_standalone runs K1 for them first', **nk['K3'],
+         **tuned['K3']},
         {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
                  'backward in their epilogues, one grouped weight-gradient GEMM, one '
                  'fixed-order sum)',
@@ -764,7 +798,7 @@ def main():
          'library_ms_per_step': k4['library_ms'],
          'launch_ms_one_dual_tower_call': k4['launch_ms'],
          'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
-                  'tower blocks of one step, bf16', **nk['K4']},
+                  'tower blocks of one step, bf16', **nk['K4'], **tuned['K4']},
         *later_kernels(results, api)]})
     emit({'phase': 'done', 'total_s': time.perf_counter() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1307,7 +1341,8 @@ def pretrain_phase(torch, dev, config=None, kind='pair'):
     in bf16 with synthetic data and batch_acc 2: the launch counts, finite
     losses, changed parameters, a best-val checkpoint that restores (as the
     kind's model) to the same logits, steps/s after a warm iteration and
-    the peak memory."""
+    the peak memory. The best checkpoint is kept (``ckpt``) for the
+    fine-tune phases."""
     import numpy as np
     from hudiff_tpu_torch.models.denoiser import DenoiserConfig
     from hudiff_tpu_torch.training import checkpoints as CKPT
@@ -1377,6 +1412,9 @@ def pretrain_phase(torch, dev, config=None, kind='pair'):
            'expected_launches': expected, 'launches_per_step': {
                k: v / steps for k, v in launched.items()}}
     emit(rec)
+    kept = os.path.join(os.path.dirname(root), 'chip_smoke_ckpts', f'pretrain{suffix}.pt')
+    os.makedirs(os.path.dirname(kept), exist_ok=True)
+    shutil.copyfile(os.path.join(ckpt_dir, f'step_{latest}.pt'), kept)
     shutil.rmtree(root, ignore_errors=True)
     ok = (rec['opt_steps'] == [acc * (i + 1) for i in range(PRETRAIN_ITERS)]
           and all(np.isfinite(rec['train_loss'])) and len(val) == 1
@@ -1385,7 +1423,7 @@ def pretrain_phase(torch, dev, config=None, kind='pair'):
           and changed == len(before) and max(diffs) == 0.0 and launched == expected)
     if not ok:
         fail(f'full-width {kind} pretraining failed its checks')
-    return {'model': model, 'launches': launched}
+    return {'model': model, 'launches': launched, 'ckpt': kept}
 
 
 def profile_train(torch, model, dev, config=None, kind='pair', expected=None):
@@ -1632,9 +1670,512 @@ def nano_phases(torch, dev):
             'K1': 2 * cfg.cs_layers, 'K2': K2_LAUNCHES * blocks,
             'K3': 3 * 2 * cfg.cs_layers, 'K4': K4_LAUNCHES * blocks,
             'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0})
-    out['pretrain'] = pre['launches']
+    out['pretrain'], out['ckpt'] = pre['launches'], pre['ckpt']
     del pre
     torch.cuda.empty_cache()
+    return out
+
+
+def _finetune_config(kind):
+    """The kind's fine-tune config file, read as the CLI reads it."""
+    from hudiff_tpu_torch.utils.config import load_yaml
+    return load_yaml(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  FINETUNE_CONFIGS[kind]))
+
+
+def _scorer_specs(kind):
+    """(CLI flag, scorer name, straight_through) of each scorer of the kind:
+    Nb VH and VHH without straight-through, Ab VH, VKappa and VLambda with."""
+    if kind == 'heavy':
+        return [('--abnativ-vh', 'VH', False), ('--abnativ-vhh', 'VHH', False)]
+    return [('--abnativ-vh', 'VH', True), ('--abnativ-vlk', 'VKappa', True),
+            ('--abnativ-vll', 'VLambda', True)]
+
+
+def _released_scorer(torch, i, straight_through):
+    """A frozen scorer at the released checkpoints' hparams
+    (``AbNatiVParams()``) with random weights from seed SEED + 20 + i, on
+    the CPU."""
+    from hudiff_tpu_torch.models import abnativ as AB
+    torch.manual_seed(SEED + 20 + i)
+    return AB.frozen(AB.AbNatiVModel(AB.AbNatiVParams(), straight_through))
+
+
+def _onehots(torch, B, seed):
+    """[B, 149, 21] AHo one-hots, a quarter of the columns gaps."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    rs = np.random.RandomState(seed)
+    idx = rs.randint(0, 20, (B, C.AHO_LEN))
+    idx[rs.rand(B, C.AHO_LEN) < 0.25] = C.ABNATIV_GAP_IDX
+    return torch.nn.functional.one_hot(torch.from_numpy(idx), C.ABNATIV_ALPHABET_SIZE).float()
+
+
+def abnativ_phase(torch, dev):
+    """One ``AbNatiVParams()`` scorer (random weights from a seed) in f32 on
+    the card against the same weights on the CPU at B = ABNATIV_B: the
+    reconstruction, the errors and ``loss_pbe`` to ABNATIV_ATOL, the codebook
+    indices equal (beside the CPU lookup's smallest top-2 cosine gap), and
+    the gradient of (nativeness + loss_pbe) with respect to the inputs, with
+    straight-through off and on, to ABNATIV_GRAD_RTOL of max |ref|. Also the
+    card's f32 time of one forward, and of one with the backward to the
+    inputs, at the Nb fine-tune's batch (512) and the Ab one's (32)."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.models import abnativ as AB
+    cpu = _released_scorer(torch, 0, False)
+    card = copy.deepcopy(cpu).to(dev)
+    x = _onehots(torch, ABNATIV_B, SEED)
+    portion = torch.from_numpy(np.random.RandomState(SEED + 1).rand(ABNATIV_B, C.AHO_LEN) < 0.4)
+    keys = ('x_recon', 'recon_error_pres_pposi', 'recon_error_pposi', 'recon_error_pbe',
+            'loss_pbe')
+    rec = {'phase': 'abnativ_f32', 'B': ABNATIV_B, 'hparams': dataclasses.asdict(cpu.hp),
+           'tol': ABNATIV_ATOL, 'grad_tol': ABNATIV_GRAD_RTOL}
+    ok = True
+    for st in (False, True):
+        outs = []
+        for model, d in ((cpu, 'cpu'), (card, dev)):
+            model.vqvae.straight_through = st
+            xi = x.to(d).detach().requires_grad_()
+            out = model(xi)
+            (AB.nativeness_scores(out, portion.to(d), 'VH').sum()
+             + out['loss_pbe'].sum()).backward()
+            outs.append(({k: out[k].detach().cpu() for k in (*keys, 'encoding_indices')},
+                         xi.grad.cpu()))
+        (ref, g_ref), (got, g_got) = outs
+        errs = {k: (got[k] - ref[k]).abs().max().item() for k in keys}
+        same = torch.equal(got['encoding_indices'], ref['encoding_indices'])
+        grad_rel = ((g_got - g_ref).abs().max() / g_ref.abs().max()).item()
+        tag = 'st' if st else 'no_st'
+        rec.update({f'max_abs_err_{tag}': errs, f'indices_equal_{tag}': same,
+                    f'input_grad_rel_err_{tag}': grad_rel})
+        ok = (ok and same and max(errs.values()) <= ABNATIV_ATOL
+              and grad_rel <= ABNATIV_GRAD_RTOL)
+    with torch.no_grad():
+        xp = cpu.vqvae.project_in(cpu.encoder(x))
+        xn = xp / (torch.linalg.vector_norm(xp, dim=-1, keepdim=True) + 1e-12)
+        e = cpu.vqvae._codebook.embed
+        top = torch.einsum('bnd,cd->bnc', xn, e / (torch.linalg.vector_norm(
+            e, dim=-1, keepdim=True) + 1e-12)).topk(2, -1).values
+    rec['min_top2_cosine_gap_cpu'] = (top[..., 0] - top[..., 1]).min().item()
+    card.vqvae.straight_through = False
+    for B in (_finetune_config('heavy').finetune.batch_size,
+              _finetune_config('pair').finetune.batch_size):
+        xb = _onehots(torch, B, SEED + 2).to(dev)
+
+        def fwd_bwd():
+            xi = xb.clone().requires_grad_()
+            card(xi)['recon_error_pposi'].sum().backward()
+
+        with torch.no_grad():
+            rec[f'forward_ms_B{B}'] = time_ms(torch, lambda: card(xb), reps=5, windows=3)
+        rec[f'forward_backward_ms_B{B}'] = time_ms(torch, fwd_bwd, reps=5, windows=3)
+    emit(rec)
+    if not ok:
+        fail('the f32 AbNatiV scorer on the card disagrees with the CPU')
+
+
+def _finetune_batch(torch, kind, B, seed):
+    """(tokens, chain_type or None, aho, fixed Corrupted, Gumbel uniforms) of
+    a synthetic fine-tune batch: about half of the slots the step's
+    corruption may mask are masked; the uniforms come from numpy."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops import masking as M
+    from hudiff_tpu_torch.training import finetune as FT
+    rs = np.random.RandomState(seed)
+    if kind == 'heavy':
+        b = next(FT.synthetic_nano_batches(B, seed))
+        protected = (C.HEAVY_CDR_INDEX != 0)[None] | (b['tokens'] == C.IDX_PAD)
+        protected[:, 150:] = True   # outside the camel window
+    else:
+        b = next(FT.synthetic_pair_batches(B, seed))
+        protected = (np.concatenate([C.HEAVY_CDR_KABAT_NO_VERNIER,
+                                     C.LIGHT_CDR_KABAT_NO_VERNIER]) != 0)[None] | (
+            b['tokens'] == C.IDX_PAD)
+    tokens = torch.from_numpy(b['tokens']).long()
+    mask = torch.from_numpy((rs.rand(*tokens.shape) < 0.5) & ~protected)
+    cor = M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
+    u = torch.from_numpy(rs.rand(*tokens.shape, C.N_AA).astype(np.float32))
+    chain = torch.from_numpy(b['chain_type']).long() if kind == 'pair' else None
+    return tokens, chain, torch.from_numpy(b['aho']), cor, u
+
+
+def _finetune_step(kind, model, scorers):
+    """The kind's fine-tune step over ``model`` and ``scorers`` with the
+    config's loss settings, called as ``step(state, tokens, chain_or_None,
+    aho, seed, corrupted=None, u=None)``."""
+    from hudiff_tpu_torch.models import finetune as FM
+    from hudiff_tpu_torch.training import finetune as FT
+    config = _finetune_config(kind)
+    m = config.model
+    if kind == 'heavy':
+        cfg = FM.NanoFinetuneConfig(**{k: m[k] for k in (
+            'loss_type', 'vhh_nativeness', 'temperature', 'human_threshold', 'human_all_seq',
+            'vhh_all_seq', 'equal_weight')})
+        step, _ = FT.make_nano_finetune_fns(
+            FM.make_nano_finetune_loss(model, scorers[0], cfg, scorers[1]),
+            m['part_reconstruct_vhh'],
+            config.finetune.reconstruct_loss_weight)
+        return lambda state, tokens, chain, aho, seed, **kw: step(state, tokens, aho, seed,
+                                                                  **kw)
+    cfg = FM.AbFinetuneConfig(loss_type=m['loss_type'], human_threshold=m['human_threshold'],
+                              all_seq=m['all_seq'], mutation=m['mutation'])
+    step, _ = FT.make_ab_finetune_fns(FM.make_ab_finetune_loss(model, *scorers, cfg),
+                                      m['mouse_resi_h_ratio'], m['mouse_resi_l_ratio'])
+    return step
+
+
+def finetune_step_f32(torch, dev, kind):
+    """One full-width f32 fine-tune step (B = FINETUNE_STEP_B; dropout off;
+    TF32 off; scorers at ``AbNatiVParams()``; injected corruption and Gumbel
+    uniforms) on the card against the CPU: the loss and every parameter's
+    gradient at the pretrain step's limits, and the Gumbel hard choice at
+    every position, which must be the same on both devices; with the
+    launches the card's step made."""
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.ops import masking as M
+    from hudiff_tpu_torch.ops import scheme_transfer as ST
+    from hudiff_tpu_torch.training import train_step as T
+    model_cls, _, blocks, _ = _kind_parts(kind)
+    cfg = DenoiserConfig.from_dict((NANO_PRETRAIN_CONFIG if kind == 'heavy'
+                                    else PRETRAIN_CONFIG)['model'])
+    B = FINETUNE_STEP_B[kind]
+    torch.manual_seed(SEED)
+    cpu_model = model_cls(cfg).eval()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    cpu_scorers = [_released_scorer(torch, i, st)
+                   for i, (_, _, st) in enumerate(_scorer_specs(kind))]
+    gpu_scorers = [copy.deepcopy(s).to(dev) for s in cpu_scorers]
+    tokens, chain, aho, cor, u = _finetune_batch(torch, kind, B, SEED + 4)
+    hard, drawn = [], ST.gumbel_straight_through
+
+    def recording(*a, **kw):
+        out = drawn(*a, **kw)
+        hard.append(out.detach().argmax(-1).cpu())
+        return out
+
+    def step(model, scorers, d):
+        kept = {}
+
+        class KeepGrads(torch.optim.Optimizer):
+            def step(self, closure=None):
+                kept.update((n, p.grad.detach().cpu().clone())
+                            for n, p in model.named_parameters())
+
+        state = T.TrainState(model, KeepGrads(model.parameters(), {}))
+        reset_counters()
+        m = _finetune_step(kind, model, scorers)(
+            state, tokens.to(d), None if chain is None else chain.to(d), aho.to(d), SEED,
+            corrupted=M.Corrupted(*(t.to(d) for t in cor)), u=u.to(d))
+        return {k: v.item() for k, v in m.items()}, kept, counters()
+
+    ST.gumbel_straight_through = recording   # keeps each step's hard choices
+    try:
+        m_c, g_c, _ = step(cpu_model, cpu_scorers, torch.device('cpu'))
+        m_g, g_g, launched = step(gpu_model, gpu_scorers, dev)
+    finally:
+        ST.gumbel_straight_through = drawn
+    differ = int((hard[0] != hard[1]).sum())
+    rel = {n: ((g_g[n] - g_c[n]).abs().max() / g_c[n].abs().max().clamp_min(1e-30)).item()
+           for n in g_c}
+    order = sorted(rel, key=rel.get, reverse=True)
+    glob = (sum(((g_g[n] - g_c[n]) ** 2).sum().item() for n in g_c)
+            / sum((g_c[n] ** 2).sum().item() for n in g_c)) ** 0.5
+    loss_rel = abs(m_g['loss'] - m_c['loss']) / abs(m_c['loss'])
+    expected = {'K1': 2 * cfg.cs_layers, 'K3': 6 * cfg.cs_layers,
+                'K2': K2_LAUNCHES * blocks(cfg), 'K4': K4_LAUNCHES * blocks(cfg),
+                'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
+    emit({'phase': 'finetune_step_f32_' + ('nano' if kind == 'heavy' else 'ab'), 'B': B,
+          'metrics_cpu': m_c,
+          'metrics_card': m_g, 'loss_rel_err': loss_rel, 'max_grad_rel_err': rel[order[0]],
+          'worst_five': {n: rel[n] for n in order[:5]}, 'global_grad_rel_err': glob,
+          'positions': hard[0].numel(), 'hard_choices_differing': differ,
+          'masked_positions': int(cor.mask.sum()), 'params': len(rel),
+          'tol': TRAIN_STEP_RTOL, 'global_tol': TRAIN_STEP_GLOBAL_RTOL,
+          'loss_tol': TRAIN_STEP_LOSS_RTOL, 'launches': launched,
+          'expected_launches': expected})
+    if not (sorted(g_c) == sorted(g_g) and loss_rel <= TRAIN_STEP_LOSS_RTOL
+            and rel[order[0]] <= TRAIN_STEP_RTOL and glob <= TRAIN_STEP_GLOBAL_RTOL
+            and differ == 0 and launched == expected):
+        fail(f'full-width f32 {kind} fine-tune step on the card disagrees with the CPU')
+
+
+def _humanized_ok(inp, grids, rows):
+    """The invariants of a humanized round: ``rows`` candidates, CDRs and
+    unmasked slots kept, no <msk> left, every token a residue or X."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    if grids is None or len(grids) != rows:
+        return False
+    cdr = (C.HEAVY_CDR_INDEX if grids.shape[1] == C.HEAVY_LEN
+           else np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX])) != 0
+    keep = inp['tokens'] != C.IDX_MSK
+    return bool(not (grids == C.IDX_MSK).any() and not (grids < 0).any()
+                and not (grids >= C.N_TOKENS - 1).any()
+                and (grids[:, cdr] == inp['clean'][cdr]).all()
+                and (grids[:, keep] == inp['tokens'][keep]).all())
+
+
+def finetune_phase(torch, dev, kind, pretrain_ckpt):
+    """The fine-tune CLI (``finetune nano|ab``) at the full width of its
+    config (Nb B = 512 with cross-training, Ab B = 32), bf16, synthetic
+    data, from the kind's pretraining checkpoint and scorer files written
+    here in the reference layout at ``AbNatiVParams()``: finite losses, two
+    validations, the Nb cross step at iteration 5, the launch counts, a
+    best-val checkpoint (``finetuned``, the kind) that restores to the same
+    logits both ways and changed every parameter of the pretrained model;
+    then one humanization round with ``finetune=True`` by the humanizer
+    that loads it. Returns the launches and the files."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    from hudiff_tpu_torch.training import finetune as FT
+    _, _, blocks, _ = _kind_parts(kind)
+    nano = kind == 'heavy'
+    config = _finetune_config(kind)
+    name = 'finetune_nano' if nano else 'finetune_ab'
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, 'build', name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    scorer_args, scorers = [], []
+    for i, (flag, sname, st) in enumerate(_scorer_specs(kind)):
+        path = FT.save_abnativ(os.path.join(root, f'{sname}.ckpt'),
+                               _released_scorer(torch, i, st))
+        scorer_args += [flag, path]
+        scorers.append(path)
+    argv = ['nano' if nano else 'ab', '--config', os.path.join(here, FINETUNE_CONFIGS[kind]),
+            '--pretrain-ckpt', pretrain_ckpt,
+            *scorer_args, '--synthetic', '--max-iter', str(FINETUNE_ITERS), '--valid-step',
+            str(FINETUNE_VALID), '--logdir', os.path.join(root, 'logs')]
+    if nano:
+        argv.append('--cross-training')
+    t0 = time.perf_counter()
+    next((FT.synthetic_nano_batches if nano else FT.synthetic_pair_batches)(
+        config['finetune']['batch_size'], SEED))
+    synthetic_s = time.perf_counter() - t0   # the host's time to draw one batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    log_dir = FT.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counters()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(log_dir, 'metrics.jsonl')) as f:
+        rows = [json.loads(line) for line in f]
+    train = [r for r in rows if 'finetune/loss' in r]
+    val = [r for r in rows if 'val/loss' in r]
+    cross = [r['step'] for r in rows if 'cross/loss' in r]
+    mcfg = DenoiserConfig.from_dict((NANO_PRETRAIN_CONFIG if nano
+                                     else PRETRAIN_CONFIG)['model'])
+    # every iteration and cross step trains; each validation runs the eval
+    # forward on its batches (Nb: the VHH split and the heavy split)
+    steps = FINETUNE_ITERS + len(cross)
+    forwards = (FINETUNE_ITERS // FINETUNE_VALID) * FINETUNE_VAL_BATCHES * (2 if nano else 1)
+    expected = {'K1': (steps + forwards) * 2 * mcfg.cs_layers,
+                'K2': (steps + forwards) * K2_LAUNCHES * blocks(mcfg),
+                'K3': steps * 6 * mcfg.cs_layers, 'K4': steps * K4_LAUNCHES * blocks(mcfg),
+                'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
+    # host time at the end of iteration i is i / steps_per_sec(i); iteration
+    # 2 is warm and runs neither a validation nor a cross step
+    ends = [r['step'] / r['finetune/steps_per_sec'] for r in train]
+    warm_sps = 1.0 / (ends[1] - ends[0]) if len(ends) >= 2 else 'not measured'
+    ckpt_dir = os.path.join(log_dir, 'checkpoints')
+    restored = CKPT.restore(ckpt_dir)
+    path = os.path.join(ckpt_dir, f"step_{restored['step']}.pt")
+    best_step = min(val, key=lambda r: r['val/loss'])['step'] if val else None
+    tokens, chain, _, _, _ = _finetune_batch(torch, kind, 2, SEED + 5)
+    region = torch.from_numpy(np.tile(C.HEAVY_REGION_INDEX if nano else np.concatenate(
+        [C.HEAVY_REGION_INDEX, C.LIGHT_REGION_INDEX]), (2, 1))).long()
+    args = [t.to(dev) for t in (tokens, region, chain) if t is not None]
+    again = CKPT.model_class(restored['kind'])(mcfg, dtype=torch.bfloat16, device=dev)
+    again.load_state_dict(restored['payload']['model'])
+    loaded, lcfg = CKPT.load(path, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        diff = (again.eval()(*args) - loaded(*args)).abs().max().item()
+    before = torch.load(pretrain_ckpt, map_location='cpu', weights_only=True)['model']
+    changed = sum(not torch.equal(before[k], v)
+                  for k, v in restored['payload']['model'].items() if v.is_floating_point())
+    n_float = sum(v.is_floating_point() for v in before.values())
+    del again, loaded
+
+    # one humanization round with the fine-tune mask, from the checkpoint
+    model, finetuned = HZ.load_denoiser(path, kind)
+    if nano:
+        class Humanizer(_KeptRows, HZ.NanoHumanizer):
+            sampled = []
+    else:
+        Humanizer = HZ.PairHumanizer
+    hum = Humanizer(model, batch_size=MAIN_B // 2, seed=SEED, device='cuda',
+                    device_batch=MAIN_B)
+    inputs = ([HZ.nano_input(v, finetune=True) for v in (VHH1, VHH2)] if nano else
+              [HZ.pair_input(H1, L1, finetune=True), HZ.pair_input(H2, L2, finetune=True)])
+    if any(inp is None for inp in inputs):
+        fail(f'a test sequence was rejected as a {kind} fine-tune input')
+    t0 = time.perf_counter()
+    res = hum.humanize_many(inputs, rows_per_input=MAIN_B // 2)
+    torch.cuda.synchronize()
+    hum_s = time.perf_counter() - t0
+    sampled = hum.sampled if nano else [(inp, r and r['grids']) for inp, r in zip(inputs, res)]
+    humanized_ok = len(sampled) == len(inputs) and all(
+        _humanized_ok(inp, g, MAIN_B // 2) for inp, g in sampled)
+    rec = {'phase': name, 'B': config['finetune']['batch_size'],
+           'iterations': len(train), 'steps': steps, 'wall_s': wall,
+           'finetune_loss': [r['finetune/loss'] for r in train],
+           'val_steps': [r['step'] for r in val], 'val_loss': [r['val/loss'] for r in val],
+           'cross_steps': cross, 'saved_step': restored['step'], 'best_val_step': best_step,
+           'checkpoint_config': {k: lcfg.get(k) for k in ('finetuned', 'kind')},
+           'restore_max_abs_logit_diff': diff, 'params_changed': changed,
+           'params': n_float, 'steps_per_sec': train[-1]['finetune/steps_per_sec'],
+           'steps_per_sec_warm': warm_sps, 'ms_per_step_warm': (
+               1e3 / warm_sps if isinstance(warm_sps, float) else 'not measured'),
+           'max_memory_allocated_gb': peak / 1e9, 'synthetic_batch_s': synthetic_s,
+           'launches': launched, 'expected_launches': expected,
+           'tf32': 'off (matmul and cuDNN)', 'humanize': {'finetuned_checkpoint': finetuned, 'rows': MAIN_B,
+                        'forwards': HZ._packed_pad_to(inputs), 'wall_s': hum_s,
+                        'invariants_hold': humanized_ok}}
+    emit(rec)
+    ok = (len(train) == FINETUNE_ITERS and all(np.isfinite(rec['finetune_loss']))
+          and rec['val_steps'] == list(range(FINETUNE_VALID, FINETUNE_ITERS + 1,
+                                             FINETUNE_VALID))
+          and np.isfinite(rec['val_loss']).all() and cross == ([5] if nano else [])
+          and restored['step'] == best_step and restored['kind'] == kind
+          and lcfg.get('finetuned') is True and restored['meta']['config']['finetuned'] is True
+          and diff == 0.0 and changed == n_float and launched == expected
+          and finetuned is True and humanized_ok)
+    if not ok:
+        fail(f'the {kind} fine-tune CLI failed its checks')
+    del model, hum
+    torch.cuda.empty_cache()
+    return {'launches': launched, 'ckpt': path, 'scorers': scorers}
+
+
+def profile_finetune(torch, dev, kind, ckpt, scorer_paths):
+    """One warm bf16 fine-tune step at the config's batch (Nb 512, Ab 32)
+    from the fine-tuned checkpoint and the scorer files, profiled after a
+    warm-up run (``profiled``): wall ms over warm steps, device ms by group,
+    the idle share and the peak memory. AbNatiV's device time is the
+    profiled time of the step's scorer work alone (the same forwards, and
+    the backwards to the inputs, on inputs of the step's shapes); it is
+    taken out of the cuBLAS and other-torch groups and given as its own.
+    The launch counters must equal the K1-K4 kernels the profiler saw:
+    10 / 36 / 30 / 60 (Nb) and 10 / 72 / 30 / 120 (Ab) a step."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.models import abnativ as AB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.training import finetune as FT
+    from hudiff_tpu_torch.training import schedules
+    from hudiff_tpu_torch.training import train_step as T
+    _, _, blocks, _ = _kind_parts(kind)
+    nano = kind == 'heavy'
+    cfg = _finetune_config(kind)
+    B = cfg.finetune.batch_size
+    model, _ = HZ.load_denoiser(ckpt, kind)
+    scorers = [FT.load_abnativ(p, st)
+               for p, (_, _, st) in zip(scorer_paths, _scorer_specs(kind))]
+    step = _finetune_step(kind, model, scorers)
+    state = T.TrainState(model, schedules.make_optimizer(cfg.finetune.optimizer,
+                                                         model.parameters()),
+                         clip_norm=cfg.finetune.get('clip_norm'))
+    b = next((FT.synthetic_nano_batches if nano else FT.synthetic_pair_batches)(B, SEED))
+    tokens = torch.as_tensor(b['tokens'], dtype=torch.long, device=dev)
+    chain = None if nano else torch.as_tensor(b['chain_type'], dtype=torch.long, device=dev)
+    aho = torch.as_tensor(b['aho'], device=dev)
+    model.train()
+    step(state, tokens, chain, aho, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, tokens, chain, aho, SEED)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    # the host's time to issue one step, without waiting for the device
+    t0 = time.perf_counter()
+    step(state, tokens, chain, aho, SEED)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+
+    def window():
+        reset_counters()
+        step(state, tokens, chain, aho, SEED)
+        torch.cuda.synchronize()
+
+    counted, (groups, seen, top), first = profiled(torch, window, 1)
+
+    # the step's scorer work alone: Nb VH and VHH on the infilled grid (with
+    # the backward to it) and VHH on the original; Ab VH on the heavy half,
+    # VKappa and VLambda on the light half, each with the backward
+    x = torch.cat([_onehots(torch, B, SEED + 6 + i) for i in range(1 if nano else 2)],
+                  1).to(dev)
+    portion = torch.from_numpy(np.random.RandomState(SEED).rand(B, C.AHO_LEN) < 0.4).to(dev)
+
+    def scorer_work():
+        reset_counters()
+        xi = x.clone().requires_grad_()
+        if nano:
+            total = (AB.nativeness_scores(scorers[0](xi), portion, 'VH').sum()
+                     + AB.nativeness_scores(scorers[1](xi), portion, 'VHH').sum())
+            AB.nativeness_scores(scorers[1](aho), portion, 'VHH')
+        else:
+            h, l = xi[:, : C.AHO_LEN], xi[:, C.AHO_LEN:]
+            total = sum(AB.nativeness_scores(s(part), portion, t).sum() for s, part, t in (
+                (scorers[0], h, 'VH'), (scorers[1], l, 'VKappa'), (scorers[2], l, 'VLambda')))
+        total.backward()
+        torch.cuda.synchronize()
+
+    scorer_groups = profiled(torch, scorer_work, 1)[1][0]
+    abnativ = sum(scorer_groups.values())
+    by_group = dict(groups, abnativ=abnativ)
+    for g in ('cublas', 'other'):
+        by_group[g] = groups[g] - scorer_groups[g]
+    busy = sum(groups.values())
+    expected = {'K1': 2 * model.cfg.cs_layers, 'K2': K2_LAUNCHES * blocks(model.cfg),
+                'K3': 6 * model.cfg.cs_layers, 'K4': K4_LAUNCHES * blocks(model.cfg),
+                'K5': 0, 'K6': 0, 'K7': 0, 'K8': 0}
+    emit({'phase': 'profile_finetune_' + ('nano' if nano else 'ab'), 'B': B,
+          'wall_ms_per_step': wall_ms, 'host_issue_ms_per_step': host_ms,
+          'steps_per_sec': 1e3 / wall_ms, 'device_busy_ms_per_step': busy,
+          'device_idle_share': (1 - busy / wall_ms) if busy else 'not measured',
+          'max_memory_allocated_gb': peak / 1e9,
+          'kernels_per_step': sum(t['calls'] for t in top),
+          'device_ms_per_step_by_group': by_group,
+          'abnativ_share': abnativ / busy if busy else 'not measured',
+          'abnativ_by_group': scorer_groups, 'top': top[:15], 'counted_launches': counted,
+          'profiled_launches': seen, 'expected_launches': expected, 'profiler': first,
+          'tf32': 'off (matmul and cuDNN)'})
+    if counted != seen or seen != expected:
+        fail(f'fine-tune launch counters {counted} != kernels the profiler saw {seen} '
+             f'or != {expected}')
+    del model, state, scorers
+    torch.cuda.empty_cache()
+    return seen
+
+
+def finetune_phases(torch, dev, ab_ckpt, nano_ckpt):
+    """The fine-tune slice: AbNatiV in f32 card against CPU, the f32
+    fine-tune steps card against CPU (Nb, Ab), the CLI runs (Nb at B = 512,
+    Ab at B = 32) and a profile of one warm step of each. Returns the
+    kernels line's fine-tune keys for K1-K4."""
+    abnativ_phase(torch, dev)
+    finetune_step_f32(torch, dev, 'heavy')
+    finetune_step_f32(torch, dev, 'pair')
+    out = {k: {} for k in ('K1', 'K2', 'K3', 'K4')}
+    for kind, ckpt, tag in (('heavy', nano_ckpt, 'finetune_nano'),
+                            ('pair', ab_ckpt, 'finetune_ab')):
+        run = finetune_phase(torch, dev, kind, ckpt)
+        per_step = profile_finetune(torch, dev, kind, run['ckpt'], run['scorers'])
+        for k in out:
+            out[k].update({f'{tag}_launches': run['launches'][k],
+                           f'{tag}_launches_per_step': per_step[k]})
     return out
 
 

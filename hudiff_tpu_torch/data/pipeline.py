@@ -47,12 +47,17 @@ def prefetch(it: Iterable, size: int = 2) -> Iterator:
 def device_feed(batches: Iterable[Dict[str, np.ndarray]],
                 device) -> Iterator[Dict[str, torch.Tensor]]:
     """Prefetched iterator of device-resident batches (int arrays become
-    int64 tensors: the model's embedding indices)."""
+    int64 tensors, the model's embedding indices; float arrays, such as
+    the fine-tune's AHo one-hots, float32)."""
     device = torch.device(device)
     pin = device.type == 'cuda'
 
+    def tensor(v):
+        v = np.asarray(v)
+        return torch.from_numpy(v.astype(np.float32 if v.dtype.kind == 'f' else np.int64))
+
     def host(batch):
-        out = {k: torch.from_numpy(np.asarray(v, dtype=np.int64)) for k, v in batch.items()}
+        out = {k: tensor(v) for k, v in batch.items()}
         return {k: v.pin_memory() for k, v in out.items()} if pin else out
 
     for batch in prefetch(host(b) for b in batches):

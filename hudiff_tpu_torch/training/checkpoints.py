@@ -165,10 +165,13 @@ def save_training(ckpt_dir: str, step: int, model: torch.nn.Module,
     """Write ``step_<step>.pt`` (model and optimizer state), its
     ``step_<step>.json`` metadata and the ``LATEST`` marker; returns the
     ``.pt`` path. ``config`` is plain data: ``{'model': ..., 'train': ...,
-    'kind': ...}``; the kind saved is the model's."""
+    'kind': ...}`` (a fine-tune's also ``'finetuned': True``, which the
+    ``.pt`` file's config keeps for ``load``); the kind saved is the
+    model's."""
     config = dict(config or {}, kind=model_kind(model))
     path = os.path.abspath(os.path.join(ckpt_dir, f'step_{step}.pt'))
-    torch.save({'config': {'model': dict(config.get('model', {})), 'finetuned': False,
+    torch.save({'config': {'model': dict(config.get('model', {})),
+                           'finetuned': bool(config.get('finetuned', False)),
                            'kind': config['kind']},
                 'model': _host_state(model),
                 'optimizer': optimizer.state_dict()}, path)

@@ -20,9 +20,15 @@ Usage:
   # the nanobody model (--kind heavy, inferred from the config's name):
   python -m hudiff_tpu_torch.training.pretrain --config configs/heavy_train.yml \\
       --synthetic 1024 --max-iter 10
+  # real data (data/oas.py): an OAS root holding processed/oas_pair_tmp (or
+  # new_cgz_data/ to build it from), or a heavy-chain pickle for --kind heavy
+  python -m hudiff_tpu_torch.training.pretrain --config configs/antibody_train.yml \\
+      --data /path/to/oas_pair_root
+  python -m hudiff_tpu_torch.training.pretrain --config configs/heavy_train.yml \\
+      --data /path/to/heavy.pkl
 
 Not ported yet, and refused with a message naming the ROADMAP.md item:
-``--data`` (the OAS loader), ``--tp`` and ``--multihost`` (parallelism).
+``--tp`` and ``--multihost`` (parallelism).
 """
 from __future__ import annotations
 
@@ -36,20 +42,17 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..data import pipeline
+from ..data import oas, pipeline
 from ..models.denoiser import DenoiserConfig, nano_config
+from ..tokenizer import Tokenizer
 from ..utils.config import Namespace, load_yaml
 from ..utils.device import resolve_device
 from . import checkpoints, schedules, train_step as T
 from .logger import (MetricsWriter, count_parameters, get_logger, get_new_log_dir,
                      seed_all, snapshot_source)
 
-WAITS = {
-    'data': "--data: real OAS data waits for the port's OAS loader "
-            "(ROADMAP.md queue 1, 'OAS data loader'); use --synthetic N",
-    'parallel': "--tp/--multihost: parallelism waits for its port "
-                "(ROADMAP.md queue 1, 'parallelism')",
-}
+PARALLEL_WAITS = ("--tp/--multihost: parallelism waits for its port "
+                  "(ROADMAP.md queue 1, 'parallelism')")
 
 
 def synthetic_batches(kind: str, batch_size: int, seed: int = 0
@@ -65,6 +68,29 @@ def synthetic_batches(kind: str, batch_size: int, seed: int = 0
                 [np.zeros(batch_size, np.int32),
                  rs.choice([1, 2], batch_size).astype(np.int32)], axis=1)
         yield batch
+
+
+def data_batches(kind: str, data_path: str, batch_size: int, split: str,
+                 seed: int = 0):
+    """(iterator, n_batches_per_epoch) over a dataset split: an
+    ``OasPairDataset`` root for the pair kind, an ``OasUnpairDataset``
+    heavy pickle for the heavy one (hudiff_tpu/training/pretrain.py:
+    56-70). The val iterator is unshuffled, so pulling n_batches per
+    validation walks the whole split once."""
+    tok = Tokenizer()
+    if kind == 'pair':
+        ds = oas.OasPairDataset(data_path)
+
+        def collate(recs):
+            return oas.pair_batch(recs, tok)
+    else:
+        ds = oas.OasUnpairDataset(data_path, chaintype='heavy')
+
+        def collate(recs):
+            return oas.heavy_batch(recs, tok)
+    it = oas.batch_iterator(ds, ds.splits[split], batch_size, collate, seed=seed,
+                            shuffle=(split == 'train'))
+    return it, oas.n_batches_per_epoch(len(ds.splits[split]), batch_size)
 
 
 def model_config(cfg: Namespace, kind: str) -> DenoiserConfig:
@@ -84,8 +110,8 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
     ``device``); otherwise one is built from ``cfg.model`` after seeding
     torch."""
     model_cls = checkpoints.model_class(kind)
-    if not synthetic:
-        raise NotImplementedError(WAITS['data'])
+    if not synthetic and not data_path:
+        raise ValueError('pretrain.run needs synthetic > 0 or a data_path')
     dev = resolve_device(device)
     seed = seed if seed is not None else cfg.train.get('seed', 2023)
     seed_all(seed)
@@ -110,10 +136,16 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
     valid_step = valid_step if valid_step is not None else cfg.train.valid_step
     batch_acc = cfg.train.get('batch_acc', 1)
 
-    train_feed = pipeline.device_feed(synthetic_batches(kind, batch_size, seed), dev)
-    val_feed = pipeline.device_feed(synthetic_batches(kind, batch_size, seed + 1), dev)
-    # synthetic data has no finite val split; use a small fixed pass
-    n_val_batches = max(1, min(4, synthetic // batch_size))
+    if synthetic:
+        train_it = synthetic_batches(kind, batch_size, seed)
+        val_it = synthetic_batches(kind, batch_size, seed + 1)
+        # synthetic data has no finite val split; use a small fixed pass
+        n_val_batches = max(1, min(4, synthetic // batch_size))
+    else:
+        train_it, _ = data_batches(kind, data_path, batch_size, 'train', seed)
+        val_it, n_val_batches = data_batches(kind, data_path, batch_size, 'val', seed + 1)
+    train_feed = pipeline.device_feed(train_it, dev)
+    val_feed = pipeline.device_feed(val_it, dev)
 
     optimizer = schedules.make_optimizer(cfg.train.optimizer, model.parameters())
     state = T.TrainState(model, optimizer, clip_norm=cfg.train.get('clip_norm'))
@@ -233,12 +265,10 @@ def main(argv=None):
     cfg = load_yaml(args.config)
     kind = args.kind or ('heavy' if 'heavy' in os.path.basename(args.config)
                          or cfg.get('name') == 'nano' else 'pair')
-    if args.data:
-        p.error(WAITS['data'])
     if args.tp != 1 or args.multihost:
-        p.error(WAITS['parallel'])
-    if not args.synthetic:
-        p.error('need --synthetic N (--data waits for the OAS loader)')
+        p.error(PARALLEL_WAITS)
+    if not args.synthetic and not args.data:
+        p.error('need --synthetic N or --data PATH')
     kw = dict(synthetic=args.synthetic, max_iter=args.max_iter, valid_step=args.valid_step,
               resume=args.resume, seed=args.seed, use_bf16=not args.fp32, tag=args.tag,
               device=args.device)
@@ -250,11 +280,11 @@ def main(argv=None):
         trace_dir = os.path.join(args.logdir, 'profile')
         os.makedirs(trace_dir, exist_ok=True)
         with profile(activities=activities) as prof:
-            out = run(cfg, kind, None, args.logdir, **kw)
+            out = run(cfg, kind, args.data, args.logdir, **kw)
         prof.export_chrome_trace(os.path.join(trace_dir, 'trace.json'))
         print(f'profiler trace written to {trace_dir}')
         return out
-    return run(cfg, kind, None, args.logdir, **kw)
+    return run(cfg, kind, args.data, args.logdir, **kw)
 
 
 if __name__ == '__main__':

@@ -470,6 +470,63 @@ def test_test_size_heavy_train_step_matches_cpu(dev):
         assert rel <= 1e-4, f'{n}: {rel}'
 
 
+def test_test_size_nano_finetune_step_matches_cpu(dev, monkeypatch):
+    """One f32 Nb fine-tune step of the test-size NanoAntiTFNet with two
+    smoke-size AbNatiV scorers (dropout off, a fixed mask and fixed Gumbel
+    uniforms, TF32 off) on the card against the CPU: the loss to 1e-5
+    relative, every parameter's gradient to max |err| <= 1e-4 max |ref|,
+    the same Gumbel hard choices, and the launches of chip_smoke.py's
+    finetune_step_f32_nano at this size (K1 2, K3 6, K2 3 x 3, K4 3 x 5)."""
+    from hudiff_tpu_torch.models import finetune as FM
+    from hudiff_tpu_torch.ops import scheme_transfer as ST
+    from hudiff_tpu_torch.training import finetune as FT
+    torch.manual_seed(0)
+    cpu = NanoAntiTFNet(nano_config().test_size()).eval()
+    card = NanoAntiTFNet(nano_config().test_size()).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    batch = next(FT.synthetic_nano_batches(2, 0))
+    tokens, aho = torch.from_numpy(batch['tokens']).long(), torch.from_numpy(batch['aho'])
+    rs = np.random.RandomState(1)
+    protected = (C.HEAVY_CDR_INDEX != 0)[None] | (batch['tokens'] == C.IDX_PAD)
+    protected[:, 150:] = True
+    mask = torch.from_numpy((rs.rand(2, C.HEAVY_LEN) < 0.5) & ~protected)
+    cor = M.Corrupted(torch.where(mask, C.IDX_MSK, tokens), mask, mask.sum(-1))
+    u = torch.from_numpy(rs.rand(2, C.HEAVY_LEN, C.N_AA).astype(np.float32))
+    hard, drawn = [], ST.gumbel_straight_through
+
+    def recording(*a, **kw):
+        out = drawn(*a, **kw)
+        hard.append(out.detach().argmax(-1).cpu())
+        return out
+
+    monkeypatch.setattr(ST, 'gumbel_straight_through', recording)
+    results = []
+    for model, d in ((cpu, 'cpu'), (card, dev)):
+        vh, vhh = (FT.load_abnativ(None, False, seed=s, device=d) for s in (1, 2))
+        step, _ = FT.make_nano_finetune_fns(
+            FM.make_nano_finetune_loss(model, vh, FM.NanoFinetuneConfig(), vhh), False, 1e-3)
+        state = T.TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+        keep = {}
+        for n, prm in model.named_parameters():
+            prm.register_post_accumulate_grad_hook(
+                lambda t, n=n: keep.__setitem__(n, t.grad.detach().cpu().clone()))
+        k = (FA.launches, FA.bwd_launches, FB.launches, FB.bwd_launches)
+        m = step(state, tokens.to(d), aho.to(d), 0,
+                 corrupted=M.Corrupted(*(t.to(d) for t in cor)), u=u.to(d))
+        if d == dev:
+            assert (FA.launches - k[0], FA.bwd_launches - k[1]) == (2, 6)
+            assert (FB.launches - k[2], FB.bwd_launches - k[3]) == (3 * 3, 3 * 5)
+        results.append((m['loss'].item(), keep))
+    (loss_c, g_c), (loss_g, g_g) = results
+    assert torch.equal(hard[0], hard[1])
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    assert sorted(g_c) == sorted(g_g)
+    for n in g_c:
+        rel = ((g_g[n] - g_c[n]).abs().max() / g_c[n].abs().max().clamp_min(1e-30)).item()
+        assert rel <= 1e-4, f'{n}: {rel}'
+
+
 def _qkvd(B, L, dtype, dev, seed, n=4):
     gen = torch.Generator().manual_seed(seed)
     return [torch.randn(B, L, 8 * 64, generator=gen).to(dev, dtype) for _ in range(n)]

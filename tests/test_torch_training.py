@@ -355,7 +355,6 @@ def test_pretrain_cli_resume(tmp_path):
 
 
 @pytest.mark.parametrize('args,match', [
-    (['--data', 'x'], 'OAS data loader'),
     (['--tp', '2'], 'parallelism'),
     (['--multihost'], 'parallelism'),
 ])
