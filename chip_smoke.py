@@ -75,7 +75,19 @@ version on the card. Then:
   ``finetune_ab`` / ``profile_finetune_ab`` the same for HuDiff-Ab
   (configs/antibody_finetune.yml, B = 32, three scorers, a
   ``PairHumanizer`` round). K1-K4 carry ``finetune_nano_*`` and
-  ``finetune_ab_*`` launch keys.
+  ``finetune_ab_*`` launch keys;
+- the humanization service and the sampling variants (the ninth slice),
+  after the fine-tune phases: K1 and K2 against their plain versions at
+  the batches this path gives them (``K1_service``, ``K2_service``: Ab
+  B = 1 and 32; ``K1_nano_service``, ``K2_nano_service``: Nb B = 1 and
+  64), ``germline_tune_pair`` / ``_heavy`` (the pretraining checkpoints
+  trained further on germline grids, so that sampled frameworks realign),
+  ``sampler_k2`` (k = 2 against k = 1 at B = 32, warmed, timed k = 2, 1,
+  2), ``inpaint_ab``, ``sequential_reference`` / ``_nano`` (B = 1) and
+  ``serve`` (``HumanizationService`` behind ``serve(port=0)``: a burst of
+  14 requests, its replies, rounds and launches checked; the burst again
+  and one request alone per model under torch.profiler, each round's
+  device ms and idle share). K1 and K2 carry ``launches_serve``.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -728,6 +740,9 @@ def main():
     # -- fine-tuning against frozen AbNatiV scorers (Nb and Ab) -----------------
     tuned = finetune_phases(torch, dev, ab_ckpt, nano['ckpt'])
 
+    # -- the humanization service and the sampling variants --------------------
+    served = service_phases(torch, dev, ab_ckpt, nano['ckpt'])
+
     # -- phases 11-15: the remaining entry points ------------------------------
     results['K5'] = k5_phase(torch, gen, dev)
     results['K6'] = k6_phase(torch, gen, dev)
@@ -753,7 +768,7 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
-         **nk['K1'], **tuned['K1']},
+         **nk['K1'], **tuned['K1'], 'launches_serve': served['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -769,7 +784,8 @@ def main():
          'stage_excess': {k: k2[k] for k in STAGE_KEYS},
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
-                  'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2']},
+                  'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2'],
+         'launches_serve': served['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -1478,6 +1494,38 @@ def profile_train(torch, model, dev, config=None, kind='pair', expected=None):
     return seen
 
 
+def k1_record(torch, qkv, cos, sin, heads, phase):
+    """K1 on ``qkv`` [B, L, 3 * heads * hd] against its plain version (the
+    run fails past the K1 limits), timed beside the plain version and SDPA
+    on the rotated inputs, with its bound: the record, emitted."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    B, L, width = qkv.shape
+    hd = width // (3 * heads)
+    scale = 1.0 / hd ** 0.5
+    name = str(qkv.dtype).split('.')[-1]
+    o = FA.rope_attention_qkv(qkv, cos, sin, scale, heads)
+    ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
+    torch.cuda.synchronize()
+    errs, ok = check_err(torch, 'K1', o, ref)
+    rec = {'phase': phase, 'B': B, 'L': L, 'dtype': name, **errs}
+    if not ok:
+        emit(rec)
+        fail(f'K1 disagrees with its plain version at L = {L} ({name}, B={B})')
+    del o, ref
+    qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
+    rec.update(
+        ms=time_ms(torch, lambda: FA.rope_attention_qkv(qkv, cos, sin, scale, heads)),
+        plain_ms=time_ms(torch, lambda: FA.rope_attention_qkv_reference(
+            qkv, cos, sin, scale, heads), reps=2, windows=3),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qr, kr, vr, scale=scale)))
+    nbytes = qkv.numel() * qkv.element_size() * 4 // 3 + 2 * cos.numel() * 4
+    rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, 4.0 * B * heads * L * L * hd, name)
+    emit(rec)
+    return rec
+
+
 def attention_nano_phase(torch, gen, dev):
     """K1 and K3 at the nano path's attention shape (L = 152, 8 x 64, qkv
     [B, 152, 1536]), f32 and bf16, against their plain versions: K1 at the
@@ -1496,29 +1544,10 @@ def attention_nano_phase(torch, gen, dev):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split('.')[-1]
             qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
-            o = FA.rope_attention_qkv(qkv, cos, sin, scale, heads)
-            ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
-            torch.cuda.synchronize()
-            errs, ok = check_err(torch, 'K1', o, ref)
-            rec = {'phase': 'K1_nano', 'B': B, 'L': L, 'dtype': name, **errs}
-            if not ok:
-                emit(rec)
-                fail(f'K1 disagrees with its plain version at L = {L} ({name}, B={B})')
-            del o, ref
-            qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
-            rec.update(
-                ms=time_ms(torch, lambda: FA.rope_attention_qkv(qkv, cos, sin, scale, heads)),
-                plain_ms=time_ms(torch, lambda: FA.rope_attention_qkv_reference(
-                    qkv, cos, sin, scale, heads), reps=2, windows=3),
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qr, kr, vr, scale=scale)))
-            nbytes = qkv.numel() * qkv.element_size() * 4 // 3 + 2 * cos.numel() * 4
-            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, 4.0 * B * heads * L * L * hd,
-                                                        name)
-            emit(rec)
-            out[('K1', B, name)] = rec
+            out[('K1', B, name)] = k1_record(torch, qkv, cos, sin, heads, 'K1_nano')
             if B != NANO_TRAIN_B:
                 continue
+            qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
             do = torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
             _, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, True)
             res = dict(out=o32, lse=lse)
@@ -2177,6 +2206,558 @@ def finetune_phases(torch, dev, ab_ckpt, nano_ckpt):
             out[k].update({f'{tag}_launches': run['launches'][k],
                            f'{tag}_launches_per_step': per_step[k]})
     return out
+
+
+# -- the humanization service and the sampling variants (the ninth slice) ----
+
+# the germline warm-up: the pretraining checkpoints (random weights after a
+# few steps on random tokens) are trained this many steps further, at this
+# batch and rate, on grids of the embedded human germline library, so that
+# sampled frameworks look human and realign; a stand-in for OAS pretraining
+GERMLINE_STEPS, GERMLINE_B, GERMLINE_LR = 300, 128, 1e-3
+SAMPLER_ROWS = 16       # rows per antibody in the k = 2 and inpaint rounds
+SAMPLER_BATCH = 32      # their device batch: two antibodies in one round
+SERVE_BATCH, SERVE_DEVICE_BATCH, SERVE_WINDOW_MS = 16, 64, 50.0
+KERNELS_PER_FORWARD = {'pair': {'K1': 10, 'K2': 72}, 'heavy': {'K1': 10, 'K2': 36}}
+CDR_KEYS = ('cdr1', 'cdr2', 'cdr3')
+
+
+def service_shapes_phase(torch, dev):
+    """K1 and K2 against their plain versions at the batches this slice's
+    path gives them and no earlier phase checks, f32 and bf16 at the K1/K2
+    limits, timed as the earlier phases time them: B = 1 (the sequential
+    reference) and SAMPLER_BATCH (``sampler_k2``, ``inpaint_ab``) at the Ab
+    shapes (K1 at L = 291; K2 at both towers, L = 152 and 139, which holds
+    the Nb model's 256/128 tower), B = 1 and SERVE_DEVICE_BATCH (the
+    service's rounds) at the Nb shapes (K1 at L = 152; K2 at nano_conv
+    512/256 GELU). Inputs and block weights from a seed of their own."""
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    gen = torch.Generator(device='cpu').manual_seed(SEED + 13)
+    torch.manual_seed(SEED + 13)   # the blocks' initial weights
+    heads, hd = 8, 64
+    for L, batches, phase in ((C.PAIR_LEN, (1, SAMPLER_BATCH), 'K1_service'),
+                              (C.HEAVY_LEN, (1, SERVE_DEVICE_BATCH), 'K1_nano_service')):
+        cos, sin = rope_tables(hd, L, device=dev)
+        for B in batches:
+            for dtype in (torch.float32, torch.bfloat16):
+                qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
+                k1_record(torch, qkv, cos, sin, heads, phase)
+                del qkv
+    ab, nb = DenoiserConfig(), DenoiserConfig.from_dict(NANO_PRETRAIN_CONFIG['model'])
+    k2_phase(torch, gen, dev, [(ab.d_model, ab.activation, ab.n_encoder_layers),
+                               (ab.sum_d_model, 'relu', ab.dual_layers)],
+             (1, SAMPLER_BATCH), (C.HEAVY_LEN, C.LIGHT_LEN), ab.aa_kernel_size, ab.r,
+             'K2_service')
+    k2_phase(torch, gen, dev, [(nb.sum_d_model, 'gelu', nb.dual_layers)],
+             (1, SERVE_DEVICE_BATCH), (C.HEAVY_LEN,), nb.aa_kernel_size, nb.r,
+             'K2_nano_service')
+    torch.cuda.empty_cache()
+
+
+def _germline_library():
+    """The germline library as token grids by group (H, K, L): each V gene
+    gridded in full-chain context (as grafting grids it) and the J genes'
+    FR4 tokens."""
+    import numpy as np
+    from hudiff_tpu_torch.numbering import germline as G
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    out = {}
+    for group, js in (('H', G.GERMLINE_J_HEAVY), ('K', G.GERMLINE_J_KAPPA),
+                      ('L', G.GERMLINE_J_LAMBDA)):
+        grids = np.stack([HZ._TOK.seq2idx(''.join(g))
+                          for g in G._gridded_library(group).values()])
+        out[group] = (grids, np.stack([HZ._TOK.seq2idx(j) for j in js.values()]))
+    return out
+
+
+def _germline_batch(lib, kind, B, rs):
+    """B clean grids of germline chains, each with a J drawn apart from its
+    V; for the pair kind a heavy chain beside a kappa or lambda one, and
+    the chain types."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+
+    def chains(group, n):
+        grids, js = lib[group]
+        out = grids[rs.randint(len(grids), size=n)].copy()
+        out[:, -js.shape[1]:] = js[rs.randint(len(js), size=n)]
+        return out
+
+    heavy = chains('H', B)
+    if kind == 'heavy':
+        return heavy, None
+    light = np.empty((B, C.LIGHT_LEN), heavy.dtype)
+    groups = rs.choice(['K', 'L'], B)
+    for g in 'KL':
+        light[groups == g] = chains(g, int((groups == g).sum()))
+    chain = np.stack([np.zeros(B, np.int64), [C.CHAIN_TYPES[g] for g in groups]], axis=1)
+    return np.concatenate([heavy, light], axis=1), chain
+
+
+def germline_tune(torch, dev, kind, ckpt, lib):
+    """The kind's pretraining checkpoint, trained GERMLINE_STEPS steps at
+    GERMLINE_B on germline grids (the kind's pretrain step, Adam at
+    GERMLINE_LR, bf16, clip 10) and saved beside it; returns its path."""
+    import numpy as np
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    from hudiff_tpu_torch.training import train_step as T
+    model, config = CKPT.load(ckpt, dtype=torch.bfloat16, device=dev)
+    state = T.TrainState(model.train(), torch.optim.Adam(model.parameters(), lr=GERMLINE_LR),
+                         clip_norm=10)
+    pair = kind == 'pair'
+    step = T.make_pair_train_step(model) if pair else T.make_heavy_train_step(model)
+    rs = np.random.RandomState(SEED + 11)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GERMLINE_STEPS):
+        tokens, chain = _germline_batch(lib, kind, GERMLINE_B, rs)
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+        m = (step(state, tokens, torch.as_tensor(chain, device=dev), SEED) if pair
+             else step(state, tokens, SEED))
+        if i % 50 == 0 or i == GERMLINE_STEPS - 1:
+            losses.append(m['loss'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    path = os.path.join(os.path.dirname(ckpt), f'germline_{kind}.pt')
+    CKPT.save(path, model.eval(), DenoiserConfig.from_dict(config['model']))
+    emit({'phase': f'germline_tune_{kind}', 'from': os.path.basename(ckpt),
+          'steps': GERMLINE_STEPS, 'B': GERMLINE_B, 'lr': GERMLINE_LR, 'wall_s': wall,
+          'ms_per_step': wall / GERMLINE_STEPS * 1e3, 'loss_every_50_steps': losses})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f'the germline warm-up of the {kind} model did not lower its loss: {losses}')
+    del model, state
+    torch.cuda.empty_cache()
+    return path
+
+
+def _region_cdrs(h_seq, l_seq=None, light_group='K'):
+    """The CDR strings of a chain (or pair) by ``regions.region_sequences``,
+    realigned from its sequence; None where a chain does not align."""
+    from hudiff_tpu_torch.numbering import regions as R
+    parts = [R.region_sequences(h_seq, True, 'H' if l_seq else 'VHH')]
+    if l_seq is not None:
+        parts.append(R.region_sequences(l_seq, False, light_group))
+    if any(p is None for p in parts):
+        return None
+    return [p[k] for p in parts for k in CDR_KEYS]
+
+
+def _round(torch, hum, inputs, rows):
+    """``humanize_many`` over ``inputs`` at ``rows`` a input: (results, wall
+    s, K1/K2 launches), the counters set to 0 just before."""
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = hum.humanize_many(inputs, rows_per_input=rows)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, {'K1': FA.launches, 'K2': FB.launches}
+
+
+def sampler_k2_phase(torch, dev, ab_ckpt):
+    """Phase 5's Ab round (two test antibodies, SAMPLER_ROWS rows each, one
+    round of SAMPLER_BATCH) with k = 1 and k = 2 positions per forward on
+    one bf16 model: one untimed k = 1 round first (the first at this batch),
+    then timed rounds in the order k = 2, 1, 2. Each timed round is held to
+    its launch counts and the rows' invariants, and reads the CDRs of each
+    row as ``regions`` realigns them (a reading of the warm-up)."""
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    model, _ = HZ.load_denoiser(ab_ckpt, 'pair', device='cuda')
+    pairs = ((H1, L1), (H2, L2))
+    inputs = [HZ.pair_input(*p) for p in pairs]
+    pad_to = HZ._packed_pad_to(inputs)
+    rec = {'phase': 'sampler_k2', 'rows': 2 * SAMPLER_ROWS, 'B': SAMPLER_BATCH,
+           'pad_to': pad_to, 'order': 'untimed k1, then k2, k1, k2'}
+
+    def humanizer(k):
+        return HZ.PairHumanizer(model, batch_size=SAMPLER_ROWS, seed=SEED, device='cuda',
+                                device_batch=SAMPLER_BATCH, positions_per_step=k)
+
+    _round(torch, humanizer(1), inputs, SAMPLER_ROWS)
+    for i, k in enumerate((2, 1, 2)):
+        res, wall, launched = _round(torch, humanizer(k), inputs, SAMPLER_ROWS)
+        forwards = -(-pad_to // k)
+        expected = {n: v * forwards for n, v in KERNELS_PER_FORWARD['pair'].items()}
+        kept = [sum(_region_cdrs(h, l, inp['l_group']) == _region_cdrs(*p, inp['l_group'])
+                    for h, l in zip(r['h_seqs'], r['l_seqs']))
+                for p, inp, r in zip(pairs, inputs, res)]
+        rec.setdefault(f'k{k}', []).append(
+            {'forwards': forwards, 'wall_s': wall, 'rows_per_s': 2 * SAMPLER_ROWS / wall,
+             'ms_per_forward': wall / forwards * 1e3, 'launches': launched,
+             'expected_launches': expected,
+             'rows_whose_realigned_cdrs_are_the_parents': kept})
+        if launched != expected or not all(
+                _humanized_ok(inp, r['grids'], SAMPLER_ROWS) for inp, r in zip(inputs, res)):
+            emit(rec)
+            fail(f'the k = {k} Ab round (timed round {i + 1}) failed its launch or row checks')
+    rec['speedup_k2'] = (rec['k1'][0]['wall_s']
+                         / statistics.mean(r['wall_s'] for r in rec['k2']))
+    emit(rec)
+    return model
+
+
+def inpaint_ab_phase(torch, model):
+    """``pair_inpaint_input`` on the two test antibodies, then one
+    ``humanize_many`` round: CDRs and every slot frozen by germline identity
+    kept, ``positions`` the framework slots that are not frozen."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.numbering import germline as G
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    t0 = time.perf_counter()
+    inputs = [HZ.pair_inpaint_input(H1, L1), HZ.pair_inpaint_input(H2, L2)]
+    prep_s = time.perf_counter() - t0
+    fr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) == 0
+    for inp in inputs:
+        grids = [np.asarray(list(inp['h_grid'])), np.asarray(list(inp['l_grid']))]
+        identity = np.concatenate([
+            (g == G.graft_cdrs(g, group)['grid']) & (g != '-')
+            for g, group in zip(grids, ('H', inp['l_group']))])
+        if not (np.array_equal(inp['positions'], np.nonzero(fr & ~identity)[0])
+                and (inp['tokens'][inp['positions']] == C.IDX_MSK).all()):
+            fail('pair_inpaint_input: positions are not the framework slots off the germline')
+    hum = HZ.PairHumanizer(model, batch_size=SAMPLER_ROWS, seed=SEED, device='cuda',
+                           device_batch=SAMPLER_BATCH)
+    pad_to = HZ._packed_pad_to(inputs)
+    res, wall, launched = _round(torch, hum, inputs, SAMPLER_ROWS)
+    expected = {n: v * pad_to for n, v in KERNELS_PER_FORWARD['pair'].items()}
+    rec = {'phase': 'inpaint_ab', 'rows': 2 * SAMPLER_ROWS, 'B': SAMPLER_BATCH,
+           'positions': [len(inp['positions']) for inp in inputs],
+           'frozen_framework_slots': [int(fr.sum()) - len(inp['positions']) for inp in inputs],
+           'pad_to': pad_to, 'forwards': pad_to, 'pair_inpaint_input_s': prep_s,
+           'wall_s': wall, 'rows_per_s': 2 * SAMPLER_ROWS / wall,
+           'ms_per_forward': wall / pad_to * 1e3, 'launches': launched,
+           'expected_launches': expected}
+    emit(rec)
+    if launched != expected or not all(
+            _humanized_ok(inp, r['grids'], SAMPLER_ROWS) for inp, r in zip(inputs, res)):
+        fail('the inpaint round failed its launch, CDR or frozen-slot checks')
+
+
+def sequential_reference_phase(torch, dev, kind, ckpt, inp):
+    """``sequential_reference_sampler`` at B = 1 over every FR position of
+    ``inp``: one forward per position, the tokens read back after each."""
+    import numpy as np
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.sampling import sampler as S
+    model, _ = HZ.load_denoiser(ckpt, kind, device='cuda')
+    run = S.sequential_reference_sampler(model)
+    keys = ('region', 'chain') if kind == 'pair' else ('region',)
+    put = lambda a: torch.as_tensor(np.asarray(a)[None], dtype=torch.long, device=dev)  # noqa: E731
+    order = put(S.build_order(inp['positions'], 1, rng=SEED)[0])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    run(put(inp['tokens']), order[:, :2], gen, *(put(inp[k]) for k in keys))   # warm
+    n = len(inp['positions'])
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(put(inp['tokens']), order, gen, *(put(inp[k]) for k in keys))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {'K1': FA.launches, 'K2': FB.launches}
+    expected = {k: v * n for k, v in KERNELS_PER_FORWARD[kind].items()}
+    suffix = '' if kind == 'pair' else '_nano'
+    emit({'phase': 'sequential_reference' + suffix, 'B': 1, 'L': len(inp['tokens']),
+          'forwards': n, 'wall_s': wall, 'ms_per_forward': wall / n * 1e3,
+          'rows_per_s': 1 / wall, 'launches': launched, 'expected_launches': expected})
+    if launched != expected or not _humanized_ok(inp, out.cpu().numpy(), 1):
+        fail(f'the sequential reference ({kind}) failed its launch or row checks')
+
+
+def _timed(fn, log):
+    """``fn`` recording (name, seconds) of each outermost call per thread:
+    ``pair_inpaint_input`` calls ``pair_input`` within it."""
+    import threading
+    depth = threading.local()
+
+    def wrapper(*a, **kw):
+        outer = not getattr(depth, 'n', 0)
+        depth.n = getattr(depth, 'n', 0) + 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            depth.n -= 1
+            if outer:
+                log.append((fn.__name__, time.perf_counter() - t0))
+    return wrapper
+
+
+SERVE_REQUESTS = (
+    [('/humanize/ab', {'h_seq': h, 'l_seq': l, 'sample_number': 1})
+     for h, l in ((H1, L1), (H2, L2)) * 3]
+    + [('/humanize/ab', {'h_seq': h, 'l_seq': l, 'method': 'inpaint'})
+       for h, l in ((H1, L1), (H2, L2))]
+    + [('/humanize/nano', {'vhh_seq': v, 'sample_number': 2}) for v in (VHH1, VHH2) * 2]
+    + [('/graft', {'h_seq': h, 'l_seq': l, 'back_mutation': b})
+       for (h, l), b in (((H1, L1), False), ((H2, L2), True))])
+# one request alone per model, a full round each (``rows`` = the device
+# batch): the rounds of a service with no other request in flight
+QUIET_REQUESTS = (
+    ('/humanize/ab', {'h_seq': H1, 'l_seq': L1, 'rows': SERVE_DEVICE_BATCH}),
+    ('/humanize/nano', {'vhh_seq': VHH1, 'rows': SERVE_DEVICE_BATCH}))
+ROUND_MARK_CYCLES = 1000   # torch.cuda._sleep around each profiled round
+
+
+def _serve_burst(torch, SV, svc, prep, requests=SERVE_REQUESTS):
+    """``requests`` against ``svc`` behind ``serve(port=0)`` in a thread,
+    released together from a barrier, then /health and /metrics: (K1/K2
+    launches, wall s, replies as (status, body, client s), /health,
+    /metrics). The counters and the host-prep log ``prep`` are set to 0
+    just before the release; the server is shut down after."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    srv = SV.serve(svc, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f'http://127.0.0.1:{srv.server_address[1]}'
+    replies = [None] * len(requests)
+    ready = threading.Barrier(len(requests) + 1)
+
+    def call(i):
+        path, body = requests[i]
+        req = urllib.request.Request(url + path, json.dumps(body).encode(),
+                                     {'Content-Type': 'application/json'})
+        ready.wait(60)
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                replies[i] = (r.status, json.loads(r.read()), time.perf_counter() - t)
+        except urllib.error.HTTPError as e:
+            replies[i] = (e.code, json.loads(e.read()), time.perf_counter() - t)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    reset_counters()
+    prep.clear()
+    ready.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(900)
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    launched = {'K1': FA.launches, 'K2': FB.launches}
+    with urllib.request.urlopen(url + '/health', timeout=60) as r:
+        health = json.loads(r.read())
+    with urllib.request.urlopen(url + '/metrics', timeout=60) as r:
+        metrics = json.loads(r.read())
+    srv.shutdown()
+    srv.server_close()
+    return launched, burst_s, replies, health, metrics
+
+
+def _serve_errors(replies, requests=SERVE_REQUESTS):
+    """What is wrong with the replies to ``requests``: a status other than 200, a
+    candidate count other than sample_number, CDRs (realigned by
+    ``regions``) other than the parent's, a graft other than
+    ``cdr_pair_grafting``'s."""
+    from hudiff_tpu_torch.numbering import germline as G
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    errors = []
+    for (path, body), reply in zip(requests, replies):
+        if reply is None or reply[0] != 200:
+            errors.append(f'{path}: {reply and reply[:2]}')
+            continue
+        out = reply[1]
+        if path == '/graft':
+            if (out['h_seq'], out['l_seq']) != G.cdr_pair_grafting(
+                    body['h_seq'], body['l_seq'], back_mutation=body['back_mutation']):
+                errors.append(f'{path}: differs from cdr_pair_grafting')
+            continue
+        want = body.get('sample_number', 1)
+        if len(out['candidates']) != want:
+            errors.append(f'{path}: {len(out["candidates"])} candidates, not {want}')
+        for c in out['candidates']:
+            if path == '/humanize/ab':
+                group = HZ.pair_input(body['h_seq'], body['l_seq'])['l_group']
+                got = _region_cdrs(c['h_seq'], c['l_seq'], group)
+                parent = _region_cdrs(body['h_seq'], body['l_seq'], group)
+            else:
+                got, parent = _region_cdrs(c['vhh_seq']), _region_cdrs(body['vhh_seq'])
+            if got != parent:
+                errors.append(f'{path} {body.get("method", "FR")}: CDRs {got} != {parent}')
+    return errors
+
+
+def _marked_rounds(torch, events):
+    """From the device events of a profiled window whose rounds are each
+    framed by two ``torch.cuda._sleep`` kernels: per round, in order, the
+    device span between the marks (ms) and the time the device was busy
+    in it (ms, the union of its kernels and copies)."""
+    on_device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not getattr(e, 'is_user_annotation', False)),
+                       key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(on_device) if 'spin_kernel' in e.name]
+    out = []
+    for a, b in zip(marks[0::2], marks[1::2]):
+        t0, t1 = on_device[a].time_range.end, on_device[b].time_range.start
+        busy, end = 0, t0
+        for e in on_device[a + 1:b]:
+            start, stop = max(e.time_range.start, end), min(e.time_range.end, t1)
+            if stop > start:
+                busy += stop - start
+                end = stop
+        out.append(((t1 - t0) / 1e3, busy / 1e3))
+    return out
+
+
+def serve_phase(torch, ab_ckpt, nano_ckpt):
+    """``HumanizationService`` on both models (warm-up included), then the
+    burst (``_serve_burst``). Fails unless every reply passes
+    ``_serve_errors``, the Ab rounds stay within ceil(rows / device batch)
+    + 1, /health names both models and the card, and the K1/K2 counters
+    equal the kernels of the forwards the burst's rounds ran: each round
+    runs ceil(pad_to / k) forwards at the pad_to it was given. Prints the
+    endpoints' p50/p95, rows and rounds per model, the burst's wall and
+    rows/s, the warm-up's time, each round's ms per forward (warm-up and
+    burst) and the host time of the input functions as the handler threads
+    spend it. Then the same burst again and one QUIET_REQUESTS request per
+    model alone, under torch.profiler (device activity only), each round
+    framed by two marker kernels: each round's device ms, ms per forward
+    and idle share (1 - busy / the span between its marks); the replies
+    are held to the same checks. Returns the first burst's K1/K2
+    launches."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from hudiff_tpu_torch import serving as SV
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    prep = []
+    originals = {n: getattr(HZ, n) for n in ('pair_input', 'pair_inpaint_input', 'nano_input')}
+    for n, fn in originals.items():
+        setattr(HZ, n, _timed(fn, prep))
+    # every round as run, by (stage, model): (rows, batch, pad_to, seconds),
+    # each ending in the grids' copy to the host; in the profiled stages
+    # also in run order, each framed by marker kernels (under the device
+    # lock, as the rounds are)
+    stage, log, marked = ['warmup'], {}, []
+    for cls, name in ((HZ.PairHumanizer, 'ab'), (HZ.NanoHumanizer, 'nano')):
+        def recording(self, rows, pad_to, batch=None, _f=cls.sample_rows, _name=name):
+            mark = stage[0] in ('profiled_burst', 'quiet')
+            if mark:
+                torch.cuda._sleep(ROUND_MARK_CYCLES)
+            t = time.perf_counter()
+            out = _f(self, rows, pad_to, batch=batch)
+            r = (len(rows), batch, pad_to, time.perf_counter() - t)
+            if mark:
+                torch.cuda._sleep(ROUND_MARK_CYCLES)
+                marked.append((stage[0], _name, r))
+            log.setdefault((stage[0], _name), []).append(r)
+            return out
+        cls.sample_rows = recording
+    try:
+        t0 = time.perf_counter()
+        svc = SV.HumanizationService(ab_ckpt, nano_ckpt, device='cuda', batch_size=SERVE_BATCH,
+                                     device_batch=SERVE_DEVICE_BATCH,
+                                     window_ms=SERVE_WINDOW_MS, warmup=True)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        stage[0] = 'burst'
+        launched, burst_s, replies, health, metrics = _serve_burst(torch, SV, svc, prep)
+        burst_prep = list(prep)
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the profiler can drop the records of the first kernels it sees
+            for _ in range(20):
+                torch.ones(8, device=svc.device).add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            stage[0] = 'profiled_burst'
+            _, profiled_s, profiled_replies, _, _ = _serve_burst(torch, SV, svc, prep)
+            stage[0] = 'quiet'
+            quiet_replies = [_serve_burst(torch, SV, svc, prep, (req,))[2][0]
+                             for req in QUIET_REQUESTS]
+            torch.cuda.synchronize()
+        spans = _marked_rounds(torch, prof.events())
+    finally:
+        del HZ.PairHumanizer.sample_rows, HZ.NanoHumanizer.sample_rows
+        for n, fn in originals.items():
+            setattr(HZ, n, fn)
+    errors = (_serve_errors(replies) + _serve_errors(profiled_replies)
+              + _serve_errors(quiet_replies, QUIET_REQUESTS))
+    k = svc.ab.positions_per_step
+    rounds = {m: log.get(('burst', m), []) for m in ('ab', 'nano')}
+    forwards = {m: sum(-(-r[2] // k) for r in rs) for m, rs in rounds.items()}
+    expected = {n: sum(KERNELS_PER_FORWARD[kind][n] * forwards[m]
+                       for m, kind in (('ab', 'pair'), ('nano', 'heavy')))
+                for n in ('K1', 'K2')}
+    rows = {m: sum(r[0] for r in rs) for m, rs in rounds.items()}
+    ab_bound = -(-rows['ab'] // SERVE_DEVICE_BATCH) + 1
+    client_s = {}
+    for (path, body), reply in zip(SERVE_REQUESTS, replies):
+        if reply is not None:
+            kind = path + (' inpaint' if body.get('method') == 'inpaint' else '')
+            client_s.setdefault(kind, []).append(reply[2])
+    # the profiled rounds: device ms, ms per forward, idle share; the
+    # unprofiled rounds' idle share from their host wall and the median
+    # device ms per forward of the profiled rounds of their model
+    device = ('not measured: the profiler saw {} marked rounds of {}'.format(
+        len(spans), len(marked)) if len(spans) != len(marked) else [
+        {'stage': st, 'model': m, 'rows': r[0], 'batch': r[1], 'pad_to': r[2],
+         'host_ms': r[3] * 1e3, 'span_ms': span, 'device_ms': busy,
+         'device_ms_per_forward': busy / -(-r[2] // k), 'idle_share': 1 - busy / span}
+        for (st, m, r), (span, busy) in zip(marked, spans)])
+    estimated = 'not measured'
+    if not isinstance(device, str):
+        per_forward = {m: statistics.median(d['device_ms_per_forward'] for d in device
+                                            if d['model'] == m) for m in ('ab', 'nano')}
+        estimated = {f'{st}_{m}': [1 - per_forward[m] * -(-r[2] // k) / (r[3] * 1e3)
+                                   for r in rs]
+                     for (st, m), rs in log.items() if st in ('warmup', 'burst')}
+    emit({'phase': 'serve', 'batch_size': SERVE_BATCH, 'device_batch': SERVE_DEVICE_BATCH,
+          'window_ms': SERVE_WINDOW_MS, 'requests': len(SERVE_REQUESTS),
+          'service_start_with_warmup_s': warmup_s, 'burst_s': burst_s,
+          'rows': rows, 'rows_per_s': sum(rows.values()) / burst_s,
+          'rounds': {m: len(rs) for m, rs in rounds.items()}, 'ab_round_bound': ab_bound,
+          'rounds_as_run': {f'{st}_{m}': rs for (st, m), rs in log.items()},
+          'round_ms_per_forward': {f'{st}_{m}': [r[3] / -(-r[2] // k) * 1e3 for r in rs]
+                                   for (st, m), rs in log.items()},
+          'forwards': forwards, 'launches': launched, 'expected_launches': expected,
+          'p50_p95_sec': {ep: [v.get('p50_sec'), v.get('p95_sec')]
+                          for ep, v in metrics['endpoints'].items()},
+          'client_sec': {kind: sorted(v) for kind, v in client_s.items()},
+          'host_prep_s': {n: [s for f, s in burst_prep if f == n] for n in originals},
+          'profiled_burst_s': profiled_s, 'profiled_rounds': device,
+          'idle_share_from_profiled_device_ms': estimated,
+          'metrics': metrics, 'health': health, 'errors': errors[:10]})
+    if errors:
+        fail(f'serve: {len(errors)} replies failed their checks: {errors[:3]}')
+    if len(rounds['ab']) > ab_bound:
+        fail(f'serve: {len(rounds["ab"])} Ab rounds for {rows["ab"]} rows (bound {ab_bound})')
+    if launched != expected:
+        fail(f'serve: launches {launched} != the forwards the rounds ran {expected}')
+    if (health['models'] != ['ab', 'nano'] or health['device'] != 'cuda'
+            or health['device_name'] != torch.cuda.get_device_name(0)):
+        fail(f'serve: /health reads {health}')
+    return launched
+
+
+def service_phases(torch, dev, ab_ckpt, nano_ckpt):
+    """The ninth slice: K1 and K2 at its batches (``service_shapes_phase``),
+    the germline warm-up of both checkpoints, then
+    ``sampler_k2``, ``inpaint_ab``, ``sequential_reference`` (Ab and Nb)
+    and ``serve``. Returns the burst's K1/K2 launches."""
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    service_shapes_phase(torch, dev)
+    lib = _germline_library()
+    ab = germline_tune(torch, dev, 'pair', ab_ckpt, lib)
+    nano = germline_tune(torch, dev, 'heavy', nano_ckpt, lib)
+    model = sampler_k2_phase(torch, dev, ab)
+    inpaint_ab_phase(torch, model)
+    del model
+    sequential_reference_phase(torch, dev, 'pair', ab, HZ.pair_input(H1, L1))
+    sequential_reference_phase(torch, dev, 'heavy', nano, HZ.nano_input(VHH1))
+    torch.cuda.empty_cache()
+    return serve_phase(torch, ab, nano)
 
 
 def nano_entries(nano):

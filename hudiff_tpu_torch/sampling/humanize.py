@@ -2,8 +2,9 @@
 (HuDiff-Nb).
 
 Counterpart of hudiff_tpu/sampling/humanize.py (the ``ab`` and ``nano``
-paths: host prep ``pair_input`` / ``nano_input``, packed batching,
-``PairHumanizer`` / ``NanoHumanizer`` and the CLI). The host helpers are
+paths: host prep ``pair_input`` / ``pair_inpaint_input`` / ``nano_input``,
+packed batching, ``PairHumanizer`` / ``NanoHumanizer`` with k > 1 sampling,
+the CLI and its model-free ``graft`` baseline). The host helpers are
 copied, the device work is the port's sampler and denoiser. Entry points
 run on ``cuda`` unless the caller passes ``device='cpu'``; without a card
 they raise rather than fall back.
@@ -11,9 +12,12 @@ they raise rather than fall back.
 Usage:
   python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt \
       --data-fpath humanization_pair_data_filter.csv --batch-size 64
-  python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt --hseq ... --lseq ...
+  python -m hudiff_tpu_torch.sampling.humanize ab --ckpt CKPT.pt --hseq ... --lseq ... \
+      [--sample-method inpaint] [--positions-per-step 2]
   python -m hudiff_tpu_torch.sampling.humanize nano --ckpt NB.pt --vhh-seq ... \
       [--sample-method inpaint]
+  python -m hudiff_tpu_torch.sampling.humanize graft --hseq ... --lseq ... \
+      [--back-mutation] [--output OUT.csv]
 """
 from __future__ import annotations
 
@@ -86,6 +90,71 @@ def pair_input(h_seq: str, l_seq: str, finetune: bool = False
             'positions': positions, 'pad_to': int(np.count_nonzero(cdr == 0)),
             'aho_h': h['aho'], 'aho_l': l['aho'],
             'h_grid': h['grid'], 'l_grid': l['grid'], 'l_group': l_group}
+
+
+# Copied from hudiff_tpu/sampling/humanize.py:102-163.
+def pair_inpaint_input(h_seq: str, l_seq: str
+                       ) -> Optional[Dict[str, np.ndarray]]:
+    """Germline-graft inpainting init (reference batch_inpaint_input_element,
+    sample.py:286-310): graft the parental CDRs onto the nearest human
+    germline (numbering/germline.py), freeze the framework slots where the
+    parental residue already equals the germline, and resample every other
+    framework slot. Falls back to the chain-type consensus as the template
+    when the germline graft is unavailable for a chain.
+
+    Reuses the grids pair_input already aligned: no second alignment pass.
+    """
+    from ..numbering import consensus as CONS
+    from ..numbering import germline as G
+    base = pair_input(h_seq, l_seq, finetune=False)
+    if base is None:
+        return None
+    h_grid = np.asarray(list(base['h_grid']))
+    l_grid = np.asarray(list(base['l_grid']))
+    l_group = base['l_group']
+
+    def consensus_identity_slots(grid: np.ndarray, aho: str,
+                                 profile: str) -> np.ndarray:
+        """Fallback template: grid slots where the parental residue equals
+        the chain-type consensus at the same AHo column (both AHo-aligned,
+        so columns correspond; the k-th residue of the AHo alignment
+        occupies the k-th occupied grid slot)."""
+        par_aho = np.asarray(list(aho))
+        cons_arr = np.asarray(list(CONS.CONSENSUS[profile][0]))
+        identity_aho = par_aho == cons_arr
+        occ_slots = np.nonzero(grid != '-')[0]
+        res_cols = np.nonzero(par_aho != '-')[0]
+        n = min(len(occ_slots), len(res_cols))
+        ident_grid = np.zeros(len(grid), bool)
+        ident_grid[occ_slots[:n]] = identity_aho[res_cols[:n]]
+        return ident_grid
+
+    def identity_slots(grid: np.ndarray, aho: str, group: str,
+                       profile: str) -> np.ndarray:
+        """Frozen slots: parental residue equals its germline graft
+        (reference graft_chain identity_pos_list, sample.py:217-226)."""
+        try:
+            g = G.graft_cdrs(grid, group)['grid']
+        except ValueError:
+            return consensus_identity_slots(grid, aho, profile)
+        return (grid == g) & (grid != '-')
+
+    identity = np.concatenate([
+        identity_slots(h_grid, base['aho_h'], 'H', 'H'),
+        identity_slots(l_grid, base['aho_l'], l_group, l_group)])
+
+    cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX])
+    # resample every framework slot not frozen by template identity,
+    # including unoccupied insertion slots, exactly like the reference mask
+    # (h_l_mask = CDR_INDEX==0 & init==pad, sample.py:293-300)
+    mask = (cdr == 0) & ~identity
+    positions = np.nonzero(mask)[0].astype(np.int32)
+    src = base['clean'].copy()
+    src[mask] = C.IDX_MSK
+    out = dict(base)
+    out.update({'tokens': src, 'positions': positions,
+                'pad_to': int(np.count_nonzero(cdr == 0))})
+    return out
 
 
 # Copied from hudiff_tpu/sampling/humanize.py:166-218.
@@ -247,20 +316,23 @@ class _Humanizer:
     The model is moved to ``device``; a bf16 model gets its parameters cast
     to bf16 once, in place (sampler.cast_params_once). Orders are drawn
     from a numpy generator and tokens from a ``torch.Generator`` on the
-    device, both seeded with ``seed``. ``COND`` names the row keys the
-    model is conditioned on."""
+    device, both seeded with ``seed``. A round runs ceil(pad_to /
+    ``positions_per_step``) forwards. ``COND`` names the row keys the model
+    is conditioned on."""
     COND: Tuple[str, ...] = ()
 
     def __init__(self, model, batch_size: int = 16, shuffle: bool = True,
                  seed: int = 2023, device='cuda',
-                 device_batch: Optional[int] = None):
+                 device_batch: Optional[int] = None, positions_per_step: int = 1):
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.device_batch = device_batch or batch_size
         self.shuffle = shuffle
+        self.positions_per_step = positions_per_step
         self.order_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.run = S.make_model_sampler(model.to(self.device))
+        self.run = S.make_model_sampler(model.to(self.device),
+                                        positions_per_step=positions_per_step)
 
     def _sample(self, rows: List[Dict], pad_to: int) -> np.ndarray:
         put = lambda key: torch.as_tensor(  # noqa: E731
@@ -304,9 +376,10 @@ class PairHumanizer(_Humanizer):
     """Humanizes paired antibodies with one ``AntiTFNet`` on ``device``."""
     COND = ('region', 'chain')
 
-    def __call__(self, h_seq: str, l_seq: str, finetune: bool = False
-                 ) -> Optional[Dict[str, object]]:
-        inp = pair_input(h_seq, l_seq, finetune=finetune)
+    def __call__(self, h_seq: str, l_seq: str, finetune: bool = False,
+                 inpaint: bool = False) -> Optional[Dict[str, object]]:
+        inp = (pair_inpaint_input(h_seq, l_seq) if inpaint
+               else pair_input(h_seq, l_seq, finetune=finetune))
         if inp is None:
             return None
         out = self._sample([inp] * self.batch_size, _bucket_order_width(
@@ -379,7 +452,7 @@ class NanoHumanizer(_Humanizer):
 
 
 # ---------------------------------------------------------------------------
-# CLI (the ab subcommand of hudiff_tpu/sampling/humanize.py:584-760)
+# CLI (hudiff_tpu/sampling/humanize.py:584-980)
 # ---------------------------------------------------------------------------
 
 def collect_unique(sample_fn, target: int, max_retry: int):
@@ -423,7 +496,9 @@ def run_ab(args) -> str:
     hum = PairHumanizer(model, batch_size=args.batch_size,
                         shuffle=(args.sample_order == 'shuffle'),
                         seed=args.seed, device=args.device,
-                        device_batch=max(args.pack_size, args.batch_size))
+                        device_batch=max(args.pack_size, args.batch_size),
+                        positions_per_step=args.positions_per_step)
+    inpaint = args.sample_method == 'inpaint'
 
     if args.fasta:
         from ..eval.biophi import pair_from_fasta
@@ -437,14 +512,14 @@ def run_ab(args) -> str:
         raise SystemExit('ab needs --hseq/--lseq, --fasta or --data-fpath')
 
     if len(pairs) > 1:
-        _packed_pair_loop(hum, pairs, finetune, args, logger, save_fpath)
+        _packed_pair_loop(hum, pairs, finetune, inpaint, args, logger, save_fpath)
     else:
         for name, h_seq, l_seq in pairs:
             with open(save_fpath, 'a', encoding='UTF-8') as f:
                 f.write(f'mouse,{name},{h_seq},{l_seq}\n')
 
             def round_fn():
-                res = hum(h_seq, l_seq, finetune=finetune)
+                res = hum(h_seq, l_seq, finetune=finetune, inpaint=inpaint)
                 if res is None:
                     return None
                 return ([res['best']] if args.similarity_search
@@ -481,13 +556,14 @@ def _ab_epilogue(save_fpath: str, args, logger) -> None:
                                 os.path.join(fa_dir, f'human_{i}.fasta'))
 
 
-def _packed_pair_loop(hum: PairHumanizer, pairs, finetune: bool, args,
+def _packed_pair_loop(hum: PairHumanizer, pairs, finetune: bool, inpaint: bool, args,
                       logger, save_fpath: str) -> None:
     """Dataset-scale humanization: candidate rows of every unfinished
     antibody share rounds (PairHumanizer.humanize_many); per-antibody
     semantics are those of the single-antibody loop."""
     n = len(pairs)
-    inputs = [pair_input(h_seq, l_seq, finetune=finetune) for _, h_seq, l_seq in pairs]
+    inputs = [pair_inpaint_input(h_seq, l_seq) if inpaint
+              else pair_input(h_seq, l_seq, finetune=finetune) for _, h_seq, l_seq in pairs]
     target = 1 if args.similarity_search else args.sample_number
     unique: List[list] = [[] for _ in range(n)]
     seen: List[set] = [set() for _ in range(n)]
@@ -543,7 +619,8 @@ def run_nano(args) -> str:
     hum = NanoHumanizer(model, batch_size=args.batch_size,
                         shuffle=(args.sample_order == 'shuffle'), seed=args.seed,
                         device=args.device,
-                        device_batch=max(args.pack_size, args.batch_size))
+                        device_batch=max(args.pack_size, args.batch_size),
+                        positions_per_step=args.positions_per_step)
     inpaint = args.sample_method == 'inpaint'
     if args.fasta:
         # the first heavy-type record, so that a complex FASTA whose first
@@ -645,6 +722,14 @@ def main(argv=None):
         q.add_argument('--fp32', action='store_true')
         q.add_argument('--pack-size', type=int, default=256,
                        help='device batch for dataset-mode packed sampling')
+        q.add_argument('--positions-per-step', type=int, default=1,
+                       help='resample k positions per forward (k > 1: the OA-ARDM '
+                            'acceleration, ~k x fewer forwards; 1: the reference)')
+        q.add_argument('--sample-method', default='FR', choices=['FR', 'inpaint'],
+                       help='FR: resample every framework slot; inpaint: ab grafts '
+                            'the CDRs onto the nearest germline and resamples the '
+                            'framework slots that differ from it, nano uses the '
+                            'inpainting mask (INPAINT_HEAVY_CDR_INDEX)')
         q.add_argument('--device', default='cuda',
                        help="torch device; 'cpu' runs the plain versions of the kernels")
         if name == 'ab':
@@ -660,12 +745,53 @@ def main(argv=None):
             q.add_argument('--fasta', default=None,
                            help="humanize this FASTA's first heavy-type record")
             q.add_argument('--vhh-seq', default=None)
-            q.add_argument('--sample-method', default='FR', choices=['FR', 'inpaint'],
-                           help='FR: resample every framework slot; inpaint: '
-                                'the inpainting mask (INPAINT_HEAVY_CDR_INDEX)')
+    # the model-free CDR-graft baseline (reference cdr_pair_grafting,
+    # sample.py:370-376): germline FRs + parental CDRs
+    g = sub.add_parser('graft')
+    g.add_argument('--hseq', default=None)
+    g.add_argument('--lseq', default=None)
+    g.add_argument('--data-fpath', default=None,
+                   help='CSV of mouse pairs: graft the whole dataset')
+    g.add_argument('--back-mutation', action='store_true',
+                   help='back-mutate Kabat vernier-zone residues to parental')
+    g.add_argument('--output', default=None, help='CSV path (default stdout)')
     args = p.parse_args(argv)
+    if args.cmd == 'graft':
+        return run_graft(args)
     seed_all(args.seed)
     return run_ab(args) if args.cmd == 'ab' else run_nano(args)
+
+
+def run_graft(args) -> Optional[str]:
+    """CDR-graft ``--hseq/--lseq`` or every pair of ``--data-fpath`` (a row
+    that does not graft keeps its parental line and is skipped with a
+    warning); writes the CSV to ``--output`` (and prints its path) or to
+    stdout."""
+    from ..numbering import germline as G
+    rows = []
+    if args.data_fpath:
+        logger = get_logger('graft')
+        for name, h_seq, l_seq in load_mouse_pairs(args.data_fpath):
+            rows.append(('mouse', name, h_seq, l_seq))
+            try:
+                h, l = G.cdr_pair_grafting(h_seq, l_seq, back_mutation=args.back_mutation)
+            except Exception as e:  # noqa: BLE001 - skip unalignable rows
+                logger.warning('skipping graft for %s: %s', name, e)
+                continue
+            rows.append(('humanization', f'{name}human_sample', h, l))
+    elif args.hseq and args.lseq:
+        h, l = G.cdr_pair_grafting(args.hseq, args.lseq, back_mutation=args.back_mutation)
+        rows.append(('cdr_graft', 'graft_sample', h, l))
+    else:
+        raise SystemExit('graft needs --hseq/--lseq or --data-fpath')
+    text = 'Specific,name,hseq,lseq\n' + ''.join(f'{a},{b},{c},{d}\n' for a, b, c, d in rows)
+    if args.output:
+        with open(args.output, 'w') as f:
+            f.write(text)
+        print(args.output)
+        return args.output
+    print(text, end='')
+    return None
 
 
 if __name__ == '__main__':

@@ -1,16 +1,21 @@
-"""Reverse OA-ARDM sampling, one position per forward.
+"""Reverse OA-ARDM sampling.
 
 Counterpart of hudiff_tpu/sampling/sampler.py (``make_scan_sampler`` with
-``positions_per_step = 1``, ``make_jit_sampler``'s bf16 cast-once, and
-``build_order_rows``). The JAX package runs the loop as one ``lax.scan``;
-here it is a Python loop of device work with no host synchronisation:
+any ``positions_per_step``, ``make_jit_sampler``'s bf16 cast-once,
+``build_order``, ``build_order_rows`` and ``sequential_reference_sampler``).
+The JAX package runs the loop as one ``lax.scan``; here it is a Python loop
+of device work with no host synchronisation:
 
 - each step runs one full forward, gathers every row's logits at its own
-  position, draws a categorical over ``logits[..., :22]`` in f32 from an
+  k positions, draws a categorical over ``logits[..., :22]`` in f32 from an
   explicit ``torch.Generator`` on the model's device (Gumbel-max), and
-  writes the token back;
+  writes the tokens back;
 - an order slot of -1 is a no-op, so rows with fewer masked positions share
   one ``[B, K]`` order matrix.
+
+``sequential_reference_sampler`` keeps the reference's cost structure
+instead: one forward per position, the tokens read back to the host after
+each draw.
 """
 from __future__ import annotations
 
@@ -33,24 +38,34 @@ def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tenso
     return torch.argmax(logits.float() + gumbel, dim=-1)
 
 
-def make_scan_sampler(apply_fn: Callable[..., torch.Tensor]):
+def make_scan_sampler(apply_fn: Callable[..., torch.Tensor], positions_per_step: int = 1):
     """``sampler(tokens, order, generator, *cond) -> tokens`` around
     ``apply_fn(tokens, *cond) -> [B, L, V]`` logits; ``order`` is [B, K]
-    int positions (-1 = no-op). ``tokens`` is not modified."""
+    int positions (-1 = no-op). ``tokens`` is not modified.
+
+    ``positions_per_step`` k > 1 pads the order with -1 to a multiple of k
+    and runs ceil(K / k) forwards, each drawing its k positions
+    independently given the current grid (the OA-ARDM acceleration; 1 is
+    the reference's one position per forward)."""
+    k = max(1, positions_per_step)
 
     @torch.inference_mode()
     def sampler(tokens: torch.Tensor, order: torch.Tensor,
                 generator: torch.Generator, *cond) -> torch.Tensor:
-        tokens = tokens.clone()
-        rows = torch.arange(tokens.shape[0], device=tokens.device)
-        for pos in order.t():                           # pos: [B]
+        B, L = tokens.shape
+        rows = torch.arange(B, device=tokens.device)[:, None]
+        n_steps = -(-order.shape[1] // k)
+        order = torch.nn.functional.pad(order, (0, n_steps * k - order.shape[1]), value=-1)
+        # column L takes the writes of -1 slots (JAX drops them), so a padded
+        # slot that gathers position 0 never clobbers a real write there
+        buf = torch.cat([tokens, tokens.new_zeros(B, 1)], dim=1)
+        grid = buf[:, :L]
+        for pos in order.reshape(B, n_steps, k).unbind(1):     # pos: [B, k]
             valid = pos >= 0
-            safe = torch.where(valid, pos, torch.zeros_like(pos))
-            logits = apply_fn(tokens, *cond)             # [B, L, V]
-            sampled = categorical(logits[rows, safe, :SAMPLE_TOP], generator)
-            cur = tokens[rows, safe]
-            tokens[rows, safe] = torch.where(valid, sampled.to(tokens.dtype), cur)
-        return tokens
+            logits = apply_fn(grid, *cond)                  # [B, L, V]
+            sel = logits[rows, torch.where(valid, pos, 0), :SAMPLE_TOP]
+            buf[rows, torch.where(valid, pos, L)] = categorical(sel, generator).to(buf.dtype)
+        return grid.clone()
 
     return sampler
 
@@ -67,13 +82,47 @@ def cast_params_once(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-def make_model_sampler(model: torch.nn.Module):
+def make_model_sampler(model: torch.nn.Module, positions_per_step: int = 1):
     """``run(tokens, order, generator, *cond) -> tokens`` for a denoiser
     conditioned on ``cond``: ``(region, chain)`` for the paired one,
     ``(region,)`` for the nanobody one (the counterpart of
     ``make_jit_sampler`` with and without ``has_chain_type``). Puts the
     model in eval mode and applies ``cast_params_once`` to it."""
-    return make_scan_sampler(cast_params_once(model.eval()))
+    return make_scan_sampler(cast_params_once(model.eval()),
+                             positions_per_step=positions_per_step)
+
+
+def sequential_reference_sampler(model: torch.nn.Module):
+    """Reference-style sampler: one forward per position of ``order[0]``,
+    applied to every row, with the tokens read back to the host after each
+    draw (the reference's cost structure, the denominator of speedups).
+    -1 slots are skipped. Same ``run(tokens, order, generator, *cond)``
+    convention as ``make_model_sampler``; returns the tokens on the device
+    they came from."""
+    model = cast_params_once(model.eval())
+
+    @torch.inference_mode()
+    def run(tokens: torch.Tensor, order: torch.Tensor, generator: torch.Generator,
+            *cond) -> torch.Tensor:
+        host = tokens.cpu().clone()
+        for pos in order[0].tolist():
+            if pos < 0:
+                continue
+            logits = model(host.to(tokens.device), *cond)
+            host[:, pos] = categorical(logits[:, pos, :SAMPLE_TOP], generator).cpu()
+        return host.to(tokens.device)
+
+    return run
+
+
+def build_order(mask_positions: Sequence[int], batch: int,
+                rng: Union[np.random.Generator, int, None] = None, shuffle: bool = True,
+                pad_to: Optional[int] = None) -> np.ndarray:
+    """[B, K] orders that resample the same positions in every row (each
+    row shuffled on its own); ``build_order_rows`` with one position set."""
+    pos = np.asarray(mask_positions, dtype=np.int32)
+    return build_order_rows([pos] * batch, rng=rng, shuffle=shuffle,
+                            pad_to=len(pos) if pad_to is None else pad_to)
 
 
 def build_order_rows(position_sets: Sequence[Sequence[int]],

@@ -20,6 +20,7 @@ path's shapes to the same limits.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hudiff_tpu_torch import constants as C
 from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig, NanoAntiTFNet, nano_config
@@ -356,6 +357,41 @@ def test_humanize_on_card_keeps_cdrs_and_runs_the_kernels(dev):
     cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0
     assert (res['grids'] != C.IDX_MSK).all()
     assert (res['grids'][:, cdr] == inp['clean'][cdr]).all()
+
+
+def test_k2_sampler_on_card_matches_cpu_when_logits_are_peaked(dev):
+    """Two positions per forward (ceil(K / 2) forwards of the test-size f32
+    model through K1 and K2) on the card against the same sampler on the
+    CPU: the model's logits plus 1e4 at a token that depends on the whole
+    current grid, so both draw the same tokens whatever their random
+    numbers. Rows with other mask counts, an all -1 row, K odd."""
+    from hudiff_tpu_torch.sampling import sampler as S
+    torch.manual_seed(0)
+    model = AntiTFNet(DenoiserConfig().test_size()).eval()
+    rs = np.random.RandomState(2)
+    B = 4
+    tokens = torch.from_numpy(rs.randint(0, 22, (B, C.PAIR_LEN))).long()
+    region = torch.from_numpy(np.tile(np.concatenate(
+        [C.HEAVY_REGION_INDEX, C.LIGHT_REGION_INDEX]), (B, 1))).long()
+    chain = torch.tensor([[0, 1], [0, 2]] * (B // 2))
+    order = torch.from_numpy(S.build_order_rows(
+        [rs.choice(C.PAIR_LEN, n, replace=False) for n in (15, 9, 0, 4)],
+        rng=3, pad_to=15)).long()
+
+    def peaked(t, region, chain):
+        tgt = (t.sum(dim=1, keepdim=True) + torch.arange(t.shape[1], device=t.device)) % 22
+        return model(t, region, chain) + 1e4 * F.one_hot(tgt, C.N_TOKENS).float()
+
+    sample = S.make_scan_sampler(peaked, positions_per_step=2)
+    ref = sample(tokens, order, torch.Generator().manual_seed(0), region, chain)
+    model.to(dev)
+    k1, k2 = FA.launches, FB.launches
+    out = sample(tokens.to(dev), order.to(dev), torch.Generator(device=dev).manual_seed(1),
+                 region.to(dev), chain.to(dev)).cpu()
+    assert FA.launches - k1 == 2 * 8               # 8 forwards, two attentions each
+    assert FB.launches - k2 == 2 * (1 + 2) * 3 * 8
+    assert torch.equal(out, ref)
+    assert torch.equal(out[2], tokens[2]) and not torch.equal(out, tokens)
 
 
 def test_test_size_train_step_matches_cpu(dev):
