@@ -87,7 +87,22 @@ version on the card. Then:
   ``serve`` (``HumanizationService`` behind ``serve(port=0)``: a burst of
   14 requests, its replies, rounds and launches checked; the burst again
   and one request alone per model under torch.profiler, each round's
-  device ms and idle share). K1 and K2 carry ``launches_serve``.
+  device ms and idle share). K1 and K2 carry ``launches_serve``;
+- the evaluation path (the tenth slice), after ``serve``, on the
+  germline-tuned models: ``released_payloads`` (each model written in the
+  three released reference layouts, configs pickled as EasyDicts, and
+  loaded back through ``load_denoiser``: logits against the model it came
+  from; four AbNatiV scorers at the released hparams as lightning
+  ``.ckpt`` files), ``nativeness`` (``api.nativeness`` over 256 heavy
+  chains with the VH and VHH scorers, card against CPU), ``eval_ab`` (the
+  ``ab`` CLI from the released Ab payload over 16 antibodies, then
+  ``eval.harness ab`` with three scorers: every sample realigns with its
+  parent's CDRs, the counters equal the forwards' kernels), ``eval_nano``
+  (the same for the ``nano`` CLI from the released Nb fine-tune payload
+  and ``eval.harness nano``) and ``native_aligner`` (the port's C++
+  aligner against its Python DP on every chain those phases aligned, and
+  the record store's native reader against mmap). K1 and K2 carry
+  ``launches_eval_ab`` and ``launches_eval_nano``.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -741,7 +756,10 @@ def main():
     tuned = finetune_phases(torch, dev, ab_ckpt, nano['ckpt'])
 
     # -- the humanization service and the sampling variants --------------------
-    served = service_phases(torch, dev, ab_ckpt, nano['ckpt'])
+    served, ab_tuned, nano_tuned = service_phases(torch, dev, ab_ckpt, nano['ckpt'])
+
+    # -- the evaluation path and the released payloads -------------------------
+    evaluated = eval_phases(torch, dev, ab_tuned, nano_tuned)
 
     # -- phases 11-15: the remaining entry points ------------------------------
     results['K5'] = k5_phase(torch, gen, dev)
@@ -768,7 +786,7 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
-         **nk['K1'], **tuned['K1'], 'launches_serve': served['K1']},
+         **nk['K1'], **tuned['K1'], 'launches_serve': served['K1'], **evaluated['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -785,7 +803,7 @@ def main():
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
                   'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2'],
-         'launches_serve': served['K2']},
+         'launches_serve': served['K2'], **evaluated['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -2713,14 +2731,17 @@ def serve_phase(torch, ab_ckpt, nano_ckpt):
         estimated = {f'{st}_{m}': [1 - per_forward[m] * -(-r[2] // k) / (r[3] * 1e3)
                                    for r in rs]
                      for (st, m), rs in log.items() if st in ('warmup', 'burst')}
+    per_forward_ms = {f'{st}_{m}': [r[3] / -(-r[2] // k) * 1e3 for r in rs]
+                      for (st, m), rs in log.items()}
     emit({'phase': 'serve', 'batch_size': SERVE_BATCH, 'device_batch': SERVE_DEVICE_BATCH,
           'window_ms': SERVE_WINDOW_MS, 'requests': len(SERVE_REQUESTS),
           'service_start_with_warmup_s': warmup_s, 'burst_s': burst_s,
           'rows': rows, 'rows_per_s': sum(rows.values()) / burst_s,
           'rounds': {m: len(rs) for m, rs in rounds.items()}, 'ab_round_bound': ab_bound,
           'rounds_as_run': {f'{st}_{m}': rs for (st, m), rs in log.items()},
-          'round_ms_per_forward': {f'{st}_{m}': [r[3] / -(-r[2] // k) * 1e3 for r in rs]
-                                   for (st, m), rs in log.items()},
+          'round_ms_per_forward': per_forward_ms,
+          'first_burst_ab_round_vs_warmup': (per_forward_ms['burst_ab'][0]
+                                             / statistics.mean(per_forward_ms['warmup_ab']) - 1),
           'forwards': forwards, 'launches': launched, 'expected_launches': expected,
           'p50_p95_sec': {ep: [v.get('p50_sec'), v.get('p95_sec')]
                           for ep, v in metrics['endpoints'].items()},
@@ -2745,7 +2766,8 @@ def service_phases(torch, dev, ab_ckpt, nano_ckpt):
     """The ninth slice: K1 and K2 at its batches (``service_shapes_phase``),
     the germline warm-up of both checkpoints, then
     ``sampler_k2``, ``inpaint_ab``, ``sequential_reference`` (Ab and Nb)
-    and ``serve``. Returns the burst's K1/K2 launches."""
+    and ``serve``. Returns the burst's K1/K2 launches and the paths of the
+    germline-tuned Ab and Nb checkpoints."""
     from hudiff_tpu_torch.sampling import humanize as HZ
     service_shapes_phase(torch, dev)
     lib = _germline_library()
@@ -2757,7 +2779,634 @@ def service_phases(torch, dev, ab_ckpt, nano_ckpt):
     sequential_reference_phase(torch, dev, 'pair', ab, HZ.pair_input(H1, L1))
     sequential_reference_phase(torch, dev, 'heavy', nano, HZ.nano_input(VHH1))
     torch.cuda.empty_cache()
-    return serve_phase(torch, ab, nano)
+    return serve_phase(torch, ab, nano), ab, nano
+
+
+# -- the evaluation path and the released payloads (the tenth slice) --------
+
+EVAL_ROWS = 16          # candidate rows per antibody in the eval CLIs (--batch-size)
+EVAL_PACK = 64          # their device batch (--pack-size): a batch K1/K2 are held at above
+NATIVENESS_N, NATIVENESS_B = 256, 64
+NATIVENESS_TOL = 1e-4   # f32 scores, card against the CPU
+# a released payload loaded through load_denoiser against the port model it
+# was written from: the conversion only permutes and reshapes, so f32
+# logits within RELEASED_F32_TOL; bf16 at the K1 limits
+RELEASED_F32_TOL = 1e-6
+RELEASED_LAYOUTS = {'ab_pretrain': ('pair', False), 'ab_finetune': ('pair', True),
+                    'nb_finetune': ('heavy', True)}
+SCORER_TYPES = ('VH', 'VKappa', 'VLambda', 'VHH')
+ALIGN_SCORE_RTOL = 1e-4   # native (f32) against the Python DP (f64)
+STORE_RECORDS, STORE_BATCH = 4096, 128
+
+# The port's parameter names -> the reference's, for one ByteNet block:
+# (port leaf, reference module, how the weight is laid out). Scaffolding that
+# writes the released layouts from a port model (the inverse of
+# hudiff_tpu_torch/training/checkpoints.py::convert_torch_denoiser); the
+# package itself only reads them.
+_REF_BLOCK = (('ln1', 'sequence1.0', None), ('fc1', 'sequence1.2.conv', 'pff'),
+              ('ln2', 'sequence1.3', None), ('conv', 'conv', 'conv'),
+              ('ln3', 'sequence2.0', None), ('fc2', 'sequence2.2.conv', 'pff'))
+
+
+def reference_state_dict(state_dict, nhead):
+    """The reference torch state_dict (hudiffab.pt / hudiffnb.pt names:
+    interleaved RoPE pairs, separate query/key/value projections,
+    PositionFeedForward convolutions [out, in, 1], Conv1d [out, in, K]) of a
+    port ``AntiTFNet`` / ``NanoAntiTFNet`` state_dict, as f32 CPU tensors."""
+    import numpy as np
+    import torch
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    out = {}
+
+    def copy(dst, src, layout=None):
+        for p in ('weight', 'bias'):
+            v = sd.get(f'{src}.{p}')
+            if v is None:
+                continue
+            if p == 'weight' and layout == 'pff':
+                v = v[:, :, None]
+            elif p == 'weight' and layout == 'conv':
+                v = v.transpose(0, 2, 1)   # port [out, K, in]
+            out[f'{dst}.{p}'] = v
+
+    def tower(dst, src):
+        i = 0
+        while f'{src}.blocks.{i}.ln1.weight' in sd:
+            for leaf, module, layout in _REF_BLOCK:
+                copy(f'{dst}.{i}.{module}', f'{src}.blocks.{i}.{leaf}', layout)
+            i += 1
+
+    def qkv(dst, src):
+        # port [3A, in], head-major ([q_h | k_h | v_h] per head), q/k in
+        # rotate-half order (i, D/2 + i) -> interleaved pairs (2i, 2i + 1)
+        w, b = sd[f'{src}.weight'], sd[f'{src}.bias']
+        A = w.shape[0] // 3
+        hd = A // nhead
+        per_head = np.concatenate([np.arange(0, hd, 2), np.arange(1, hd, 2)])
+        inv = np.argsort(np.concatenate([h * hd + per_head for h in range(nhead)]))
+        w, b = w.reshape(nhead, 3, hd, -1), b.reshape(nhead, 3, hd)
+        for j, part in enumerate(('query', 'key', 'value')):
+            wj, bj = w[:, j].reshape(A, -1), b[:, j].reshape(A)
+            if part != 'value':
+                wj, bj = wj[inv], bj[inv]
+            out[f'{dst}.{part}.weight'], out[f'{dst}.{part}.bias'] = wj, bj
+
+    out['aa_encoder.embedder.weight'] = sd['aa_embed.weight']
+    if 'side_encoder.embed.weight' in sd:
+        for side in ('h', 'l'):
+            tower(f'aa_encoder.{side}_layers', f'aa_encoder.{side}_tower')
+            tower(f'dual_conv_block.{side}_layers', f'dual_conv.{side}_tower')
+        for src, dst in (('embed', 'side_embeddinng'), ('fc1', 'side_mlp.0'),
+                         ('ln', 'side_mlp.1'), ('fc2', 'side_mlp.3')):
+            copy(f'side_encoder.{dst}', f'side_encoder.{src}')
+    else:
+        tower('aa_encoder.layers', 'aa_encoder')
+        tower('nano_conv_block.layers', 'nano_conv')
+    for src, dst, layout in (('embed', 'region_embedding', None), ('ln1', 'region_layer1.0', None),
+                             ('fc', 'region_layer1.2.conv', 'pff'),
+                             ('ln2', 'region_layer1.3', None)):
+        copy(f'region_encoder.{dst}', f'region_encoder.{src}', layout)
+    copy('pos_encoder.pos_lin.ln1', 'pos_encoder.mlp.fc1')
+    copy('pos_encoder.pos_lin.ln2', 'pos_encoder.mlp.fc2')
+    i = 0
+    while f'self_att.blocks.{i}.norm1.weight' in sd:
+        dst, src = f'self_at.layers.{i}', f'self_att.blocks.{i}'
+        for att, ref in (('attn', 'attn_hl'), ('attn_c', 'attn_hl_c')):
+            qkv(f'{dst}.{ref}', f'{src}.{att}.qkv')
+            copy(f'{dst}.{ref}.out_put', f'{src}.{att}.out')
+        for leaf, ref in (('norm1', 'norm_hl1'), ('norm2', 'norm_hl2'), ('ff1', 'ff_hl.0'),
+                          ('ff2', 'ff_hl.2')):
+            copy(f'{dst}.{ref}', f'{src}.{leaf}')
+        i += 1
+    copy('last_norm', 'last_norm')
+    copy('decoder', 'decoder')
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def _easydict(d):
+    """``d`` as nested ``easydict.EasyDict`` objects, the class the released
+    files pickle (the port's unpickle shim provides it when the package is
+    absent)."""
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    CKPT._ensure_unpickle_shims()
+    import easydict
+    out = easydict.EasyDict()
+    for k, v in d.items():
+        out[k] = _easydict(v) if isinstance(v, dict) else v
+    return out
+
+
+def released_payload(layout, ref_sd, model_cfg):
+    """A payload in one released layout (tests/test_release_payloads.py pins
+    them): ``ab_pretrain`` (hudiffab.pt: an EasyDict config with a .model
+    section, antibody_train.py:439-445), ``ab_finetune`` (the bare
+    denoiser under 'model', its config under 'pretrain_config',
+    antibody_finetune.py:348-355) or ``nb_finetune`` (hudiffnb.pt: the
+    framework's state_dict with 'infilling_pretrain.' and
+    'eval_abnativ_model.' prefixes, the model kwargs under
+    'infilling_params', nanofinetune.py:531-539). ``ref_sd`` is a
+    ``reference_state_dict``, ``model_cfg`` the model's config fields."""
+    import torch
+    opt = {'state': {0: {'step': torch.tensor(1), 'exp_avg': torch.zeros(3)}},
+           'param_groups': [{'lr': 1e-4}]}
+    if layout == 'ab_pretrain':
+        return {'config': _easydict({'model': dict(model_cfg),
+                                     'train': {'seed': SEED, 'batch_size': 64},
+                                     'dataset': {'name': 'oas_pair'}}),
+                'model': ref_sd, 'optimizer': opt, 'scheduler': {'factor': 0.6},
+                'iteration': 100000}
+    if layout == 'ab_finetune':
+        return {'fineconfig': _easydict({'finetune': {'lr': 1e-5}}),
+                'pretrain_config': _easydict({'model': dict(model_cfg)}),
+                'model': ref_sd, 'optimizer': opt, 'scheduler': {}, 'iteration': 5000}
+    sd = {f'infilling_pretrain.{k}': v for k, v in ref_sd.items()}
+    # the frozen scorer's weights ride along under their own prefix
+    sd['eval_abnativ_model.encoder.fc.weight'] = torch.zeros(4, 4)
+    sd['eval_abnativ_model.encoder.fc.bias'] = torch.zeros(4)
+    return {'config': _easydict({'model': {'loss_type': 'smooth_loss'}}), 'model': sd,
+            'abnativ_params': {'d_embedding': 128, 'kernel': 4},
+            'infilling_params': _easydict(dict(model_cfg)), 'optimizer': opt,
+            'scheduler': {}, 'iteration': 28000}
+
+
+def released_scorer_payload(model):
+    """An AbNatiV scorer in the released lightning ``.ckpt`` layout: the
+    hparams pickled as an EasyDict under ``hyper_parameters['hparams']``
+    (abnativ_scoring.py:284-287)."""
+    return {'hyper_parameters': {'hparams': _easydict(dataclasses.asdict(model.hp))},
+            'state_dict': {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            'epoch': 3, 'global_step': 1234}
+
+
+def _logit_inputs(torch, kind, B, dev):
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    rs = np.random.RandomState(SEED + 30)
+    L = C.PAIR_LEN if kind == 'pair' else C.HEAVY_LEN
+    put = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)  # noqa: E731
+    tokens = put(rs.randint(0, C.N_TOKENS, (B, L)))
+    if kind == 'pair':
+        region = put(np.tile(np.concatenate([C.HEAVY_REGION_INDEX, C.LIGHT_REGION_INDEX]),
+                             (B, 1)))
+        return tokens, region, put([[0, 1 + i % 2] for i in range(B)])
+    return tokens, put(np.tile(C.HEAVY_REGION_INDEX, (B, 1)))
+
+
+def released_payloads_phase(torch, dev, ab_ckpt, nano_ckpt, root):
+    """The germline-tuned models written in the three released layouts and
+    loaded back through ``load_denoiser``: f32 logits on the card against
+    the model each came from (RELEASED_F32_TOL), bf16 at the K1 limits,
+    ``finetuned`` as the layout says; then four AbNatiV scorers at the
+    released hparams (random weights) written as lightning ``.ckpt`` files
+    that ``load_abnativ`` reads back to the same weights.
+    Returns every path by layout and scorer type."""
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    os.makedirs(root, exist_ok=True)
+    paths, rec, ok = {}, {'phase': 'released_payloads', 'B': 4}, True
+    for layout, (kind, finetuned) in RELEASED_LAYOUTS.items():
+        src_path = ab_ckpt if kind == 'pair' else nano_ckpt
+        src, config = CKPT.load(src_path, device=dev)
+        cfg = DenoiserConfig.from_dict(config['model'])
+        path = paths[layout] = os.path.join(root, f'{layout}.pt')
+        torch.save(released_payload(layout, reference_state_dict(src.state_dict(), cfg.nhead),
+                                    dataclasses.asdict(cfg)), path)
+        del src
+        inputs = _logit_inputs(torch, kind, rec['B'], dev)
+        r = {'bytes': os.path.getsize(path)}
+        for bf16 in (False, True):
+            dtype = torch.bfloat16 if bf16 else torch.float32
+            t0 = time.perf_counter()
+            model, found = HZ.load_denoiser(path, kind, device=dev, use_bf16=bf16)
+            load_s = time.perf_counter() - t0
+            ref_model, _ = CKPT.load(src_path, dtype=dtype, device=dev)
+            with torch.inference_mode():
+                got, ref = model(*inputs).float(), ref_model(*inputs).float()
+            err = (got - ref).abs()
+            tag = 'bf16' if bf16 else 'f32'
+            r.update({f'load_s_{tag}': load_s, f'max_abs_err_{tag}': err.max().item(),
+                      'finetuned': found, 'max_abs_logit': ref.abs().max().item()})
+            within = (err <= BF16_RTOL * ref.abs() + TOL_BF16['K1']).all().item() if bf16 \
+                else err.max().item() <= RELEASED_F32_TOL
+            ok = ok and within and found == finetuned and torch.isfinite(got).all().item()
+            del model, ref_model
+        rec[layout] = r
+    from hudiff_tpu_torch.training import finetune as FT
+    for i, name in enumerate(SCORER_TYPES):
+        path = paths[name] = os.path.join(root, f'{name}_model.ckpt')
+        scorer = _released_scorer(torch, 30 + i, False)
+        torch.save(released_scorer_payload(scorer), path)
+        loaded = FT.load_abnativ(path, straight_through=False, device='cpu')
+        ok = ok and loaded.hp == scorer.hp and all(
+            torch.equal(loaded.state_dict()[k], v) for k, v in scorer.state_dict().items())
+    rec['tol_f32'] = RELEASED_F32_TOL
+    emit(rec)
+    if not ok:
+        fail('a released payload did not load back to the model it was written from')
+    torch.cuda.empty_cache()
+    return paths
+
+
+class _EvalClock:
+    """Inside ``with``: the host seconds of every alignment (each outermost
+    ``align_to_aho`` / ``align_to_aho_batch`` call), of every scorer batch
+    (``harness._score_batch``, ended by a synchronize) and each batch's
+    device ms (CUDA events), and the set of (sequence, profile) the
+    aligner saw, added to ``aligned``."""
+
+    def __init__(self, torch, aligned):
+        self.torch, self.aligned = torch, aligned
+        self.align_s = self.score_s = 0.0
+        self.batch_ms = []
+
+    def __enter__(self):
+        from hudiff_tpu_torch.eval import harness as EH
+        from hudiff_tpu_torch.numbering import align as AL
+        torch, depth = self.torch, [0]
+        self._orig = (AL.align_to_aho, AL.align_to_aho_batch, EH._score_batch)
+        one, batch, score = self._orig
+
+        def timed(fn, record):
+            def wrapper(seqs, chain_type='H'):
+                record(seqs, chain_type)
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(seqs, chain_type=chain_type)
+                finally:
+                    depth[0] -= 1
+                    if not depth[0]:
+                        self.align_s += time.perf_counter() - t0
+            return wrapper
+
+        def scored(model, x, model_type):
+            if x.device.type != 'cuda':
+                return score(model, x, model_type)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = score(model, x, model_type)
+            end.record()
+            end.synchronize()
+            self.score_s += time.perf_counter() - t0
+            self.batch_ms.append(start.elapsed_time(end))
+            return out
+
+        AL.align_to_aho = timed(one, lambda s, c: self.aligned.add((s, c)))
+        AL.align_to_aho_batch = timed(batch, lambda ss, c: self.aligned.update(
+            (s, c) for s in ss if isinstance(s, str)))
+        EH._score_batch = scored
+        return self
+
+    def __exit__(self, *exc):
+        from hudiff_tpu_torch.eval import harness as EH
+        from hudiff_tpu_torch.numbering import align as AL
+        AL.align_to_aho, AL.align_to_aho_batch, EH._score_batch = self._orig
+
+    def record(self):
+        return {'align_s': self.align_s, 'score_s': self.score_s,
+                'scorer_batches': len(self.batch_ms),
+                'device_ms_per_batch': statistics.median(self.batch_ms) if self.batch_ms
+                else 'not measured'}
+
+
+def _mutant(seq, rs, n=5):
+    """``seq`` with ``n`` residues at random positions replaced."""
+    from hudiff_tpu_torch import constants as C
+    s = list(seq)
+    for i in rs.choice(len(s), n, replace=False):
+        s[i] = C.AA_1[rs.randint(len(C.AA_1))]
+    return ''.join(s)
+
+
+def nativeness_phase(torch, dev, paths, aligned):
+    """``api.nativeness`` over NATIVENESS_N heavy chains (germline V + J
+    combinations of the embedded library, every other one a five-residue
+    mutant) at batch NATIVENESS_B with the VH and VHH scorers, on the card
+    after one untimed call: seqs/s, the seconds in alignment and in the
+    scorer, device ms a batch; then the same calls on the CPU: the f32
+    scores to NATIVENESS_TOL, NaN (unaligned) at the same places."""
+    import numpy as np
+    from hudiff_tpu_torch import api
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    rs = np.random.RandomState(SEED + 31)
+    grids, _ = _germline_batch(_germline_library(), 'heavy', NATIVENESS_N, rs)
+    seqs = [HZ._TOK.idx2seq(g) for g in grids]
+    seqs = [_mutant(s, rs) if i % 2 else s for i, s in enumerate(seqs)]
+    rec, ok = {'phase': 'nativeness', 'n': len(seqs), 'batch_size': NATIVENESS_B}, True
+    for mtype in ('VH', 'VHH'):
+        api.nativeness(seqs[:NATIVENESS_B], mtype, paths[mtype], batch_size=NATIVENESS_B,
+                       device=dev)
+        with _EvalClock(torch, aligned) as clock:
+            t0 = time.perf_counter()
+            card = api.nativeness(seqs, mtype, paths[mtype], batch_size=NATIVENESS_B,
+                                  device=dev)
+            wall = time.perf_counter() - t0
+        cpu = api.nativeness(seqs, mtype, paths[mtype], batch_size=NATIVENESS_B, device='cpu')
+        c, p = np.asarray(card), np.asarray(cpu)
+        same_nan = bool((np.isnan(c) == np.isnan(p)).all())
+        live = ~np.isnan(p)
+        err = float(np.abs(c[live] - p[live]).max()) if live.any() else float('nan')
+        rec[mtype] = {'wall_s': wall, 'seqs_per_s': len(seqs) / wall, **clock.record(),
+                      'unaligned': int((~live).sum()), 'max_abs_err_vs_cpu': err,
+                      'score_range': [float(p[live].min()), float(p[live].max())]}
+        ok = ok and same_nan and live.sum() > len(seqs) // 2 and err <= NATIVENESS_TOL
+    rec['tol'] = NATIVENESS_TOL
+    emit(rec)
+    if not ok:
+        fail('nativeness: the card scores disagree with the CPU, or most chains did not align')
+
+
+def _eval_pairs():
+    """Sixteen mouse-like pairs: the two test antibodies, their chains
+    swapped, and seeded framework mutants of those four."""
+    import numpy as np
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    rs = np.random.RandomState(SEED + 32)
+    base = [(H1, L1), (H2, L2), (H1, L2), (H2, L1)]
+    pairs = list(base)
+    while len(pairs) < 16:
+        h, l = base[len(pairs) % 4]
+        m = (_mutant(h, rs, 3), _mutant(l, rs, 3))
+        inp = HZ.pair_input(*m)
+        if inp is not None and _region_cdrs(*m, inp['l_group']) == _region_cdrs(h, l, inp['l_group']):
+            pairs.append(m)
+    return [(f'm{i}', h, l) for i, (h, l) in enumerate(pairs)]
+
+
+def _counting_rounds(cls, forwards):
+    """Wrap ``cls.sample_rows`` adding each round's forwards (ceil(pad_to /
+    k)) to ``forwards[0]``; returns the undo."""
+    orig = cls.sample_rows
+
+    def recording(self, rows, pad_to, batch=None):
+        forwards[0] += -(-pad_to // self.positions_per_step)
+        return orig(self, rows, pad_to, batch=batch)
+
+    cls.sample_rows = recording
+    return lambda: setattr(cls, 'sample_rows', orig)
+
+
+def _run_cli(fn, argv):
+    """``fn(argv)`` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    return out, buf.getvalue()
+
+
+def _sample_rows(path):
+    import csv
+    with open(path, newline='') as f:
+        return list(csv.DictReader(f))
+
+
+def eval_ab_phase(torch, dev, paths, root, aligned):
+    """The ``ab`` CLI from the released Ab pretraining payload (bf16, 16
+    rows an antibody, device batch EVAL_PACK) over ``_eval_pairs``, then
+    ``eval.harness ab`` on its CSV against the pairs' CSV (an
+    ``order_name`` column; each pair's experimental partner its
+    ``cdr_pair_grafting`` graft) with the released-layout VH, VKappa and
+    VLambda scorers. Fails unless every antibody got a sample, every sample
+    aligns and its realigned CDRs are its parent's, the K1/K2 counters equal
+    the forwards the CLI's rounds ran, and the report's AbNatiV means are
+    finite. Returns the CLI's K1/K2 launches."""
+    import json as _json
+    import numpy as np
+    from hudiff_tpu_torch.eval import harness as EH
+    from hudiff_tpu_torch.numbering import germline as G
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    pairs = _eval_pairs()
+    pair_csv = os.path.join(root, 'eval_pairs.csv')
+    with open(pair_csv, 'w') as f:
+        f.write('type,name,order_name,h_seq,l_seq\n')
+        for i, (name, h, l) in enumerate(pairs):
+            f.write(f'mouse,{name},{i}_mouse,{h},{l}\n')
+        for i, (name, h, l) in enumerate(pairs):
+            f.write('humanized,{}h,{}_humanized,{},{}\n'.format(name, i, *G.cdr_pair_grafting(h, l)))
+    forwards = [0]
+    undo = _counting_rounds(HZ.PairHumanizer, forwards)
+    try:
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_csv, _ = _run_cli(HZ.main, [
+            'ab', '--ckpt', paths['ab_pretrain'], '--data-fpath', pair_csv,
+            '--batch-size', str(EVAL_ROWS), '--pack-size', str(EVAL_PACK),
+            '--logdir', os.path.join(root, 'logs'), '--device', dev.type])
+        torch.cuda.synchronize()
+        humanize_s = time.perf_counter() - t0
+        launched = {'K1': FA.launches, 'K2': FB.launches}
+    finally:
+        undo()
+    expected = {k: v * forwards[0] for k, v in KERNELS_PER_FORWARD['pair'].items()}
+    with _EvalClock(torch, aligned) as clock:
+        t0 = time.perf_counter()
+        report, text = _run_cli(EH.main, [
+            'ab', '--sample-csv', sample_csv, '--pair-csv', pair_csv,
+            '--abnativ-vh', paths['VH'], '--abnativ-vlk', paths['VKappa'],
+            '--abnativ-vll', paths['VLambda'], '--out', os.path.join(root, 'eval_ab.json'),
+            '--device', dev.type])
+        eval_s = time.perf_counter() - t0
+    parents = {name: (h, l) for name, h, l in pairs}
+    samples = [r for r in _sample_rows(sample_csv) if r['Specific'] == 'humanization']
+    bad = []
+    for r in samples:
+        h, l = parents[EH._parental_key(r['name'])]
+        group = HZ.pair_input(h, l)['l_group']
+        if _region_cdrs(r['hseq'], r['lseq'], group) != _region_cdrs(h, l, group):
+            bad.append(r['name'])
+    emit({'phase': 'eval_ab', 'antibodies': len(pairs), 'samples': len(samples),
+          'rows_per_antibody': EVAL_ROWS, 'device_batch': EVAL_PACK, 'forwards': forwards[0],
+          'humanize_s': humanize_s, 'eval_s': eval_s, **clock.record(),
+          'launches': launched, 'expected_launches': expected,
+          'report_keys': sorted(report), 'report': report,
+          'samples_whose_cdrs_differ': bad})
+    if not (len(samples) == len(pairs) and report['n_matched'] == len(pairs)
+            and report['n_skipped_unaligned'] == 0 and not bad and launched == expected
+            and _json.loads(text) == report
+            and all(np.isfinite(report[k]) for k in (
+                'abnativ_vh_mean', 'abnativ_vh_improvement', 'abnativ_vl_mean',
+                'abnativ_vl_improvement'))):
+        fail('eval_ab: a sample is missing, unaligned or changed its CDRs, the launches '
+             'differ from the forwards, or an AbNatiV mean is not finite')
+    return launched
+
+
+def eval_nano_phase(torch, dev, paths, root, aligned):
+    """The ``nano`` CLI from the released Nb fine-tune payload (bf16, 16
+    rows a nanobody, device batch EVAL_PACK) over the two test VHHs and six
+    seeded framework mutants, then ``eval.harness nano`` with the
+    released-layout VH and VHH scorers; the checks of ``eval_ab_phase``.
+    Returns the CLI's K1/K2 launches."""
+    import json as _json
+    import numpy as np
+    from hudiff_tpu_torch.eval import harness as EH
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    rs = np.random.RandomState(SEED + 33)
+    vhhs = [VHH1, VHH2]
+    while len(vhhs) < 8:
+        m = _mutant(vhhs[len(vhhs) % 2], rs, 3)
+        if HZ.nano_input(m) is not None and _region_cdrs(m) == _region_cdrs(vhhs[len(vhhs) % 2]):
+            vhhs.append(m)
+    vhh_csv = os.path.join(root, 'eval_vhhs.csv')
+    with open(vhh_csv, 'w') as f:
+        f.write('vhh_seq\n' + ''.join(v + '\n' for v in vhhs))
+    forwards = [0]
+    undo = _counting_rounds(HZ.NanoHumanizer, forwards)
+    try:
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_csv, _ = _run_cli(HZ.main, [
+            'nano', '--ckpt', paths['nb_finetune'], '--data-fpath', vhh_csv,
+            '--batch-size', str(EVAL_ROWS), '--pack-size', str(EVAL_PACK),
+            '--logdir', os.path.join(root, 'logs'), '--device', dev.type])
+        torch.cuda.synchronize()
+        humanize_s = time.perf_counter() - t0
+        launched = {'K1': FA.launches, 'K2': FB.launches}
+    finally:
+        undo()
+    expected = {k: v * forwards[0] for k, v in KERNELS_PER_FORWARD['heavy'].items()}
+    with _EvalClock(torch, aligned) as clock:
+        t0 = time.perf_counter()
+        report, text = _run_cli(EH.main, [
+            'nano', '--sample-csv', sample_csv, '--abnativ-vh', paths['VH'],
+            '--abnativ-vhh', paths['VHH'], '--out', os.path.join(root, 'eval_nano.json'),
+            '--device', dev.type])
+        eval_s = time.perf_counter() - t0
+    samples = [r for r in _sample_rows(sample_csv) if r['Specific'] == 'humanization']
+    bad = [r['name'] for r in samples
+           if _region_cdrs(r['vhh_seq']) != _region_cdrs(vhhs[int(EH._parental_key(r['name']))])]
+    emit({'phase': 'eval_nano', 'nanobodies': len(vhhs), 'samples': len(samples),
+          'rows_per_nanobody': EVAL_ROWS, 'device_batch': EVAL_PACK, 'forwards': forwards[0],
+          'humanize_s': humanize_s, 'eval_s': eval_s, **clock.record(),
+          'launches': launched, 'expected_launches': expected,
+          'report_keys': sorted(report), 'report': report,
+          'samples_whose_cdrs_differ': bad})
+    if not (len(samples) == len(vhhs) and report['n_matched'] == len(vhhs) and not bad
+            and launched == expected and _json.loads(text) == report
+            and all(np.isfinite(report[k]) for k in (
+                'abnativ_vh_mean', 'abnativ_vhh_mean', 'consensus_fr_identity'))):
+        fail('eval_nano: a sample is missing, unaligned or changed its CDRs, the launches '
+             'differ from the forwards, or an AbNatiV mean is not finite')
+    return launched
+
+
+def alignment_path_score(aligned, chain_type):
+    """The f64 score of one AHo alignment (its residues' column scores less
+    the skip cost of each empty column): equal to the Python DP's optimum
+    when the alignment is optimal too, so a tie two DPs broke apart scores
+    the same."""
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.numbering import align as AL
+    score_mat, skip_cost = AL._profile(chain_type)
+    total = 0.0
+    for j, a in enumerate(aligned):
+        if a == '-':
+            total -= skip_cost[j]
+        elif a != 'X':
+            total += score_mat[j, C.AA_1.index(a)]
+    return float(total)
+
+
+def native_aligner_phase(torch, aligned, root):
+    """On the card's host: the native aligner against the Python DP on every
+    (chain, profile) the eval phases aligned (aligned strings equal, or a
+    tie the two broke apart: the native path scores the Python optimum in
+    f64; scores within ALIGN_SCORE_RTOL), ms a call both ways, and ``align_to_aho_batch``
+    over the nativeness phase's 256 chains; then ``RecordStore`` native
+    against mmap on a store of STORE_RECORDS records: equal records, and
+    the ms of STORE_BATCH random ``get_obj`` both ways."""
+    import numpy as np
+    from hudiff_tpu_torch.data import store as RS
+    from hudiff_tpu_torch.numbering import align as AL
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    items = sorted(aligned)
+    native_s = python_s = 0.0
+    differ, ties, worst, failed_one_way = [], [], 0.0, 0
+    for seq, ct in items:
+        t0 = time.perf_counter()
+        a = AL.align_to_aho(seq, ct)
+        t1 = time.perf_counter()
+        b = AL.align_to_aho_python(seq, ct)
+        python_s += time.perf_counter() - t1
+        native_s += t1 - t0
+        if (a is None) != (b is None):
+            failed_one_way += 1
+        elif a is not None:
+            rel = abs(a[1] - b[1]) / max(abs(b[1]), 1.0)
+            worst = max(worst, rel)
+            if a[0] != b[0]:
+                tie = abs(alignment_path_score(a[0], ct) - b[1]) / max(abs(b[1]), 1.0)
+                (ties if tie <= ALIGN_SCORE_RTOL else differ).append((seq[:12], ct, a[1], b[1]))
+    rs = np.random.RandomState(SEED + 31)
+    grids, _ = _germline_batch(_germline_library(), 'heavy', NATIVENESS_N, rs)
+    chains = [HZ._TOK.idx2seq(g) for g in grids]
+    t0 = time.perf_counter()
+    batch = AL.align_to_aho_batch(chains, 'H')
+    batch_s = time.perf_counter() - t0
+    one = [AL.align_to_aho(s, 'H') for s in chains]
+    path = os.path.join(root, 'store')
+    recs = [{'i': i, 'h': rs.randint(0, 23, 152).astype(np.int8),
+             'l': rs.randint(0, 23, 139).astype(np.int8), 'name': f'r{i}'}
+            for i in range(STORE_RECORDS)]
+    with RS.RecordStoreWriter(path) as w:
+        for r in recs:
+            w.put_obj(r)
+    readers = {'native': RS.RecordStore(path), 'mmap': RS.RecordStore(path, native=False)}
+    equal = all(readers['native'].get(i) == readers['mmap'].get(i) for i in range(STORE_RECORDS))
+    ids = rs.randint(0, STORE_RECORDS, (20, STORE_BATCH))
+    batch_ms = {}
+    for name, rd in readers.items():
+        times = []
+        for row in ids:
+            t0 = time.perf_counter()
+            got = [rd.get_obj(int(i)) for i in row]
+            times.append((time.perf_counter() - t0) * 1e3)
+        batch_ms[name] = statistics.median(times)
+        equal = equal and all(g['i'] == int(i) for g, i in zip(got, row))
+        rd.close()
+    n = len(items)
+    emit({'phase': 'native_aligner', 'calls': n,
+          'native_ms_per_call': native_s / n * 1e3, 'python_ms_per_call': python_s / n * 1e3,
+          'batch_chains': len(chains), 'batch_ms': batch_s * 1e3,
+          'batch_ms_per_chain': batch_s / len(chains) * 1e3,
+          'batch_equals_single_calls': batch == one,
+          'aligned_strings_differ': len(differ), 'differ_examples': differ[:5],
+          'ties_broken_apart': len(ties), 'tie_examples': ties[:5],
+          'failed_one_way': failed_one_way, 'max_score_rel_err': worst,
+          'score_rtol': ALIGN_SCORE_RTOL,
+          'record_store': {'records': STORE_RECORDS, 'equal': equal,
+                           'batch': STORE_BATCH, 'ms_per_batch': batch_ms}})
+    if differ or failed_one_way or worst > ALIGN_SCORE_RTOL or batch != one or not equal:
+        fail('native_aligner: the native aligner or record store disagrees with its plain '
+             'version')
+
+
+def eval_phases(torch, dev, ab_ckpt, nano_ckpt):
+    """The tenth slice: ``released_payloads``, ``nativeness``, ``eval_ab``,
+    ``eval_nano`` and ``native_aligner`` on the germline-tuned models.
+    Returns the kernels line's K1/K2 launch keys of the two eval phases."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'eval')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    paths = released_payloads_phase(torch, dev, ab_ckpt, nano_ckpt, root)
+    aligned = set()
+    nativeness_phase(torch, dev, paths, aligned)
+    ab = eval_ab_phase(torch, dev, paths, root, aligned)
+    nano = eval_nano_phase(torch, dev, paths, root, aligned)
+    native_aligner_phase(torch, aligned, root)
+    torch.cuda.empty_cache()
+    return {k: {'launches_eval_ab': ab[k], 'launches_eval_nano': nano[k]} for k in ('K1', 'K2')}
 
 
 def nano_entries(nano):

@@ -1,18 +1,20 @@
-# Copied from hudiff_tpu/data/store.py without the native reader.
+# Copied from hudiff_tpu/data/store.py; the native reader is the port's own build.
 """RecordStore: memory-mapped append-only record storage.
 
 Replaces the reference's LMDB training-data store
 (dataset/oas_pair_dataset_new.py:185-259) with a two-file format,
 ``<name>.bin`` (the payload) and ``<name>.idx`` (``HDRS0001``, the record
 count, then an (offset, length) pair per record), the JAX package's. Reads
-go through Python's ``mmap``; the JAX package's native reader
-(csrc/recordstore.cc) is not carried over.
+go through the port's C++ reader (hudiff_tpu_torch/csrc/recordstore.cc,
+built on first use; its calls release the interpreter lock), or through
+Python's ``mmap`` with ``native=False``; both read the same records.
 
 Records are arbitrary bytes; ``put_obj``/``get_obj`` add pickle on top:
 open only stores this program wrote.
 """
 from __future__ import annotations
 
+import ctypes
 import mmap
 import os
 import pickle
@@ -56,10 +58,21 @@ class RecordStoreWriter:
 
 
 class RecordStore:
-    """Read-only view over a RecordStoreWriter output, through mmap."""
+    """Read-only view over a RecordStoreWriter output, through the native
+    reader, or through mmap when ``native`` is False."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, native: bool = True):
         self.path = path
+        self._native = None
+        if native:
+            from ..native import load
+            lib = load()
+            handle = lib.hd_rs_open(path.encode())
+            if not handle:
+                raise ValueError(f'not a RecordStore (index or payload unreadable): {path}')
+            self._native = (lib, ctypes.c_void_p(handle))
+            self._n = int(lib.hd_rs_len(self._native[1]))
+            return
         with open(path + '.idx', 'rb') as f:
             if f.read(8) != _MAGIC:
                 raise ValueError(f'not a RecordStore index: {path}.idx')
@@ -76,6 +89,15 @@ class RecordStore:
         return self._n
 
     def get(self, idx: int) -> bytes:
+        if self._native is not None:
+            lib, handle = self._native
+            ln = int(lib.hd_rs_record_len(handle, idx))
+            if ln < 0:
+                raise IndexError(idx)
+            buf = ctypes.create_string_buffer(ln)
+            if lib.hd_rs_get(handle, idx, buf) != 0:
+                raise IndexError(idx)
+            return buf.raw
         off, ln = self._entries[idx]
         return self._mm[off:off + ln]
 
@@ -90,6 +112,11 @@ class RecordStore:
             yield self.get_obj(i)
 
     def close(self) -> None:
+        if self._native is not None:
+            lib, handle = self._native
+            lib.hd_rs_close(handle)
+            self._native = None
+            return
         if self._mm is not None:
             self._mm.close()
             self._mm = None

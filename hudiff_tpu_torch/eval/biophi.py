@@ -1,4 +1,4 @@
-# Copied from hudiff_tpu/eval/biophi.py (the FASTA helpers only; csv in place of pandas).
+# Copied from hudiff_tpu/eval/biophi.py (csv in place of pandas for the sample CSV).
 """BioPhi/OASis export: sample CSV -> paired FASTA.
 
 Rebuilds evaluation/Biophi_eval.py:28-43 (and the fasta writer used at
@@ -26,6 +26,37 @@ def sample_csv_to_fasta(sample_csv: str, out_path: str,
              for i, r in enumerate(human)]
     write_pair_fasta(pairs, out_path)
     return out_path
+
+
+# ---------------------------------------------------------------------------
+# OASis identity (reference patent_eval.py:258-277: biophi subprocess + xlsx)
+# ---------------------------------------------------------------------------
+
+def run_oasis(fasta_path: str, oasis_db: str, output_xlsx: str,
+              exec_path: str = 'biophi'):
+    """Run BioPhi OASis over a paired FASTA -> xlsx report path, or None
+    when the biophi executable is unavailable (external tool; optional)."""
+    import os
+    import shutil
+    import subprocess
+    if os.path.exists(output_xlsx):
+        return output_xlsx
+    if shutil.which(exec_path) is None and not os.path.exists(exec_path):
+        return None
+    proc = subprocess.Popen(
+        [exec_path, 'oasis', fasta_path, '--oasis-db', oasis_db,
+         '--output', output_xlsx],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    proc.communicate()
+    return output_xlsx if os.path.exists(output_xlsx) else None
+
+
+def oasis_curve_mean(xlsx_path: str, percentile: str = '50%') -> float:
+    """Mean OASis identity at a prevalence percentile from the report's
+    'OASis Curves' sheet (patent_eval.py:271-277 uses the 50% column)."""
+    import pandas as pd
+    curves = pd.read_excel(xlsx_path, sheet_name='OASis Curves', index_col=0)
+    return float(curves[percentile].mean())
 
 
 def read_fasta(path: str):

@@ -1,4 +1,4 @@
-# Copied from hudiff_tpu/numbering/align.py without the native aligner path.
+# Copied from hudiff_tpu/numbering/align.py; the native aligner is the port's own build.
 """Needleman-Wunsch alignment of a query sequence onto the 149-column AHo
 grid, anchored by chain-type consensus sequences.
 
@@ -10,8 +10,11 @@ CDR columns (designed to be empty) and expensive at conserved anchors;
 insertions relative to the 149-column grid are not representable and abort
 the alignment (the reference likewise drops such sequences).
 
-Only the pure-Python DP is kept here; the JAX package's optional native
-aligner (csrc/aligner.cc) is not carried over.
+``align_to_aho`` and ``align_to_aho_batch`` run the DP in the port's C++
+library (hudiff_tpu_torch/csrc/aligner.cc through numbering/_native.py,
+built on first use; a failed build raises). ``align_to_aho_python`` is the
+same DP in Python, the plain version the tests hold it against: it scores
+in f64 where the library scores in f32.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from .. import constants as C
+from . import _native
 from . import consensus as CONS
 
 # BLOSUM62 over the 20 sorted 1-letter residues (standard public matrix).
@@ -106,17 +110,21 @@ def align_to_aho(seq: str, chain_type: str = 'H') -> Optional[Tuple[str, float]]
     Returns (aligned 149-char string with '-' gaps, score) or None when the
     sequence cannot be embedded (too long / non-standard residues).
     """
-    try:
-        q_idx = [C.AA_1.index(a) for a in seq]
-    except ValueError:
-        q_idx = []
-        for a in seq:
-            if a == 'X':
-                q_idx.append(-1)
-            elif a in C.AA_1:
-                q_idx.append(C.AA_1.index(a))
-            else:
-                return None
+    q_idx = _query_indices(seq)
+    if q_idx is None or len(q_idx) > C.AHO_LEN:
+        return None
+    score_mat, skip_cost = _profile(chain_type)
+    cols, total = _native.align(q_idx, score_mat, skip_cost)
+    if cols is None:
+        return None
+    return ''.join(seq[k] if k >= 0 else '-' for k in cols), total
+
+
+def align_to_aho_python(seq: str, chain_type: str = 'H') -> Optional[Tuple[str, float]]:
+    """``align_to_aho`` in Python, in f64 (the plain version)."""
+    q_idx = _query_indices(seq)
+    if q_idx is None:
+        return None
     n = len(q_idx)
     if n > C.AHO_LEN:
         return None
@@ -207,7 +215,8 @@ def _query_indices(seq: str) -> Optional[list]:
 
 
 def align_to_aho_batch(seqs, chain_type: str = 'H'):
-    """Batched ``align_to_aho`` over one chain profile.
+    """Batched ``align_to_aho`` over one chain profile: one native
+    ``hd_align_batch`` call for N sequences.
 
     Returns a list of (aligned 149-char string, score) / None entries.
     """
@@ -222,8 +231,11 @@ def align_to_aho_batch(seqs, chain_type: str = 'H'):
     out: list = [None] * len(prepared)
     if not live:
         return out
-    for i, _ in live:
-        out[i] = align_to_aho(seqs[i], chain_type)
+    score_mat, skip_cost = _profile(chain_type)
+    results = _native.align_batch([q for _, q in live], score_mat, skip_cost)
+    for (i, _), (cols, total) in zip(live, results):
+        if cols is not None:
+            out[i] = ''.join(seqs[i][k] if k >= 0 else '-' for k in cols), total
     return out
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..models.denoiser import DenoiserConfig
 from ..numbering import align as AL
 from ..numbering import imgt as IMGT
 from ..tokenizer import Tokenizer
@@ -228,16 +229,39 @@ def select_most_similar(parental: np.ndarray, candidates: np.ndarray) -> int:
 # ---------------------------------------------------------------------------
 
 def load_denoiser(ckpt_path: str, kind: str, device='cuda', use_bf16: bool = True):
-    """(model, finetuned) from a port checkpoint (training/checkpoints.save).
-    The checkpoint's ``kind`` decides the model and must be ``kind``
-    ('pair' or 'heavy')."""
+    """(model, finetuned) from a port checkpoint (training/checkpoints.save)
+    or a released reference ``.pt``/``.pth``/``.ckpt`` payload, converted on
+    load (hudiff_tpu/sampling/humanize.py:240-277); the file's content says
+    which. A port checkpoint's ``kind`` decides the model and must be
+    ``kind`` ('pair' or 'heavy'). Released payloads: pretraining ones carry
+    ``['config']['model']`` and ``['model']``; Ab fine-tune ones
+    ``['pretrain_config']`` and ``['model']`` (reference sample.py:446-454);
+    Nb fine-tune ones ``['infilling_params']`` and the whole framework's
+    state_dict, whose ``infilling_pretrain.`` entries are the denoiser
+    (reference nanosample.py:185-193). ``finetuned`` is True for the two
+    fine-tune layouts."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
-    model, config = CKPT.load(ckpt_path, dtype=dtype, device=dev)
-    found = config.get('kind', 'pair')
-    if kind != found:
-        raise ValueError(f'{ckpt_path} holds a {found!r} model, not a {kind!r} one')
-    return model, bool(config.get('finetuned', False))
+    payload = CKPT.load_payload(ckpt_path)
+    if CKPT.is_port_payload(payload):
+        model, config = CKPT.from_payload(payload, dtype=dtype, device=dev)
+        found = config.get('kind', 'pair')
+        if kind != found:
+            raise ValueError(f'{ckpt_path} holds a {found!r} model, not a {kind!r} one')
+        return model, bool(config.get('finetuned', False))
+    cfg_dict = payload.get('pretrain_config',
+                           payload.get('infilling_params', payload.get('config')))
+    cfg = DenoiserConfig.from_dict(dict(cfg_dict['model'] if 'model' in cfg_dict
+                                        else cfg_dict))
+    state_dict = payload['model']
+    if any(k.startswith('infilling_pretrain.') for k in state_dict):
+        state_dict = {k.partition('infilling_pretrain.')[2]: v for k, v in state_dict.items()
+                      if k.startswith('infilling_pretrain.')}
+        finetuned = True
+    else:
+        finetuned = 'pretrain_config' in payload
+    tree = CKPT.convert_torch_denoiser(state_dict, pair=kind == 'pair', nhead=cfg.nhead)
+    return CKPT.from_flax_params(tree, cfg, dtype=dtype, device=dev), finetuned
 
 
 # ---------------------------------------------------------------------------
@@ -705,7 +729,8 @@ def main(argv=None):
     sub = p.add_subparsers(dest='cmd', required=True)
     for name in ('ab', 'nano'):
         q = sub.add_parser(name)
-        q.add_argument('--ckpt', required=True, help='port checkpoint (.pt)')
+        q.add_argument('--ckpt', required=True,
+                       help='port checkpoint (.pt) or released reference .pt')
         q.add_argument('--ckpt-version', choices=['pretrain', 'finetune'], default=None)
         q.add_argument('--data-fpath', default=None)
         q.add_argument('--batch-size', type=int, default=16)

@@ -26,12 +26,23 @@ names the newest step. ``restore`` returns the kind beside the payload;
 
 ``from_flax_params`` and ``load`` run on ``cuda`` unless the caller passes
 ``device='cpu'``; without a card they raise.
+
+Released reference checkpoints (hudiffab.pt / hudiffnb.pt, the reference's
+torch ``state_dict`` names, interleaved RoPE pairs and separate q/k/v
+projections) are converted on load, as the JAX package converts them
+(hudiff_tpu/training/checkpoints.py:93-331): ``convert_torch_denoiser``
+gives the same Flax-shaped numpy tree the JAX converter gives, which
+``from_flax_params`` then loads. Their configs are pickled
+``easydict.EasyDict`` objects, so ``load_torch_checkpoint`` reads them with
+``torch.load(weights_only=False)``: it can run code a file carries, and is
+used only where ``load_payload`` finds a file that is not plain data.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import pickle
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -149,8 +160,14 @@ def load(path: str, dtype: torch.dtype = torch.float32,
     """(model in eval mode on ``device``, the checkpoint's config dict), from
     a ``save`` or a ``save_training`` file; the config's ``kind`` (default
     ``'pair'``) names the model."""
+    return from_payload(torch.load(path, map_location='cpu', weights_only=True), dtype,
+                        device)
+
+
+def from_payload(payload: Mapping[str, Any], dtype: torch.dtype = torch.float32,
+                 device='cuda') -> Tuple[torch.nn.Module, dict]:
+    """``load`` of a payload already read."""
     device = resolve_device(device)
-    payload = torch.load(path, map_location='cpu', weights_only=True)
     cfg = DenoiserConfig.from_dict(payload['config']['model'])
     model = model_class(payload['config'].get('kind', 'pair'))(cfg, dtype=dtype,
                                                                 device='cpu')
@@ -215,3 +232,222 @@ def restore(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
             meta = json.load(f)
     return {'payload': payload, 'meta': meta, 'step': step,
             'kind': payload['config'].get('kind', 'pair')}
+
+
+# ---------------------------------------------------------------------------
+# Released reference checkpoints (copied from
+# hudiff_tpu/training/checkpoints.py:93-331, numpy only)
+# ---------------------------------------------------------------------------
+
+def _strip_module_prefix(state_dict: dict) -> dict:
+    """Drop DataParallel 'module.' prefixes (reference antibody_train.py:23-30)."""
+    return {(k[7:] if k.startswith('module.') else k): v
+            for k, v in state_dict.items()}
+
+
+class TorchParamConverter:
+    """Reference torch state_dict -> Flax param tree (numpy) helpers."""
+
+    def __init__(self, state_dict: dict, nhead: int = 8):
+        self.sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, 'detach') else v)
+                   for k, v in _strip_module_prefix(state_dict).items()}
+        self.nhead = nhead
+        self.out: dict = {}
+
+    def put(self, path: str, value: np.ndarray):
+        node = self.out
+        parts = path.split('/')
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def dense(self, dst: str, src: str):
+        self.put(dst + '/kernel', self.sd[src + '.weight'].T)
+        if src + '.bias' in self.sd:
+            self.put(dst + '/bias', self.sd[src + '.bias'])
+
+    def _rope_permute(self, cols: int) -> np.ndarray:
+        """Column permutation mapping the reference's interleaved RoPE pairs
+        (2i, 2i+1) onto the rotate-half layout (i, D/2+i), per head. Scores
+        are invariant to a consistent (q, k) pair permutation, so this
+        preserves the model exactly."""
+        d = cols // self.nhead
+        per_head = np.concatenate([np.arange(0, d, 2), np.arange(1, d, 2)])
+        return np.concatenate([h * d + per_head for h in range(self.nhead)])
+
+    def qkv_dense(self, dst: str, src: str):
+        """Merge the reference's query/key/value projections into one qkv
+        Dense, head-major (per head [q_h | k_h | v_h]), q/k columns permuted
+        into rotate-half order."""
+        sd = self.sd
+        ws, bs = [], []
+        for part, permute in (('query', True), ('key', True), ('value', False)):
+            w = sd[f'{src}.{part}.weight'].T         # [in, out]
+            b = sd.get(f'{src}.{part}.bias')
+            if permute:
+                perm = self._rope_permute(w.shape[1])
+                w = w[:, perm]
+                b = None if b is None else b[perm]
+            ws.append(w)
+            bs.append(b if b is not None else np.zeros(w.shape[1], w.dtype))
+        d_in, A = ws[0].shape
+        hd = A // self.nhead
+        # [in, A] x3 -> [in, H, 3, hd] -> [in, 3A] head-major
+        wm = np.stack([w.reshape(d_in, self.nhead, hd) for w in ws], axis=2)
+        bm = np.stack([b.reshape(self.nhead, hd) for b in bs], axis=1)
+        self.put(dst + '/kernel', wm.reshape(d_in, 3 * A))
+        self.put(dst + '/bias', bm.reshape(3 * A))
+
+    def layernorm(self, dst: str, src: str):
+        self.put(dst + '/scale', self.sd[src + '.weight'])
+        self.put(dst + '/bias', self.sd[src + '.bias'])
+
+    def conv1d(self, dst: str, src: str):
+        # torch [out, in, k] -> flax [k, in, out]
+        self.put(dst + '/kernel', self.sd[src + '.weight'].transpose(2, 1, 0))
+        self.put(dst + '/bias', self.sd[src + '.bias'])
+
+    def pff_conv(self, dst: str, src: str):
+        # sequence_models PositionFeedForward = Conv1d(k=1): [out, in, 1]
+        sd = self.sd
+        w = sd[src + '.conv.weight'] if src + '.conv.weight' in sd else sd[src + '.weight']
+        if w.ndim == 3:
+            w = w[:, :, 0]
+        self.put(dst + '/kernel', w.T)
+        bias_key = src + '.conv.bias' if src + '.conv.bias' in sd else src + '.bias'
+        if bias_key in sd:
+            self.put(dst + '/bias', sd[bias_key])
+
+    def bytenet_block(self, dst: str, src: str):
+        # reference sequence1 = [LN, act, PFF, LN, act]; conv;
+        # sequence2 = [LN, act, PFF]
+        self.layernorm(dst + '/LayerNorm_0', src + '.sequence1.0')
+        self.pff_conv(dst + '/Dense_0', src + '.sequence1.2')
+        self.layernorm(dst + '/LayerNorm_1', src + '.sequence1.3')
+        self.conv1d(dst + '/DilatedConv1d_0/Conv_0', src + '.conv')
+        self.layernorm(dst + '/LayerNorm_2', src + '.sequence2.0')
+        self.pff_conv(dst + '/Dense_1', src + '.sequence2.2')
+
+    def att_layer(self, dst: str, src: str):
+        self.qkv_dense(dst + '/qkv', src)
+        self.dense(dst + '/out', src + '.out_put')
+
+    def self_att(self, dst: str, src: str, n_layers: int):
+        for i in range(n_layers):
+            blk_src = f'{src}.layers.{i}'
+            blk_dst = f'{dst}/block_{i}'
+            self.att_layer(blk_dst + '/attn', blk_src + '.attn_hl')
+            self.att_layer(blk_dst + '/attn_c', blk_src + '.attn_hl_c')
+            self.layernorm(blk_dst + '/norm1', blk_src + '.norm_hl1')
+            self.layernorm(blk_dst + '/norm2', blk_src + '.norm_hl2')
+            self.dense(blk_dst + '/Dense_0', blk_src + '.ff_hl.0')
+            self.dense(blk_dst + '/Dense_1', blk_src + '.ff_hl.2')
+
+    def tower(self, dst: str, src_fmt: str, n_layers: int):
+        for i in range(n_layers):
+            self.bytenet_block(f'{dst}/ByteNetBlock_{i}', src_fmt.format(i))
+
+    def count_layers(self, prefix: str) -> int:
+        n = 0
+        while any(k.startswith(f'{prefix}.{n}.') for k in self.sd):
+            n += 1
+        return n
+
+
+def convert_torch_denoiser(state_dict: dict, pair: bool = True, nhead: int = 8) -> dict:
+    """A reference AntiTFNet (``pair``) or NanoAntiTFNet torch state_dict as
+    the JAX package's Flax param tree, ``{'params': ...}`` of numpy arrays;
+    ``nhead`` permutes the query/key columns into the rotate-half layout."""
+    c = TorchParamConverter(state_dict, nhead=nhead)
+    sd = c.sd
+    put, dense, layernorm = c.put, c.dense, c.layernorm
+    pff_conv, self_att, tower, count_layers = c.pff_conv, c.self_att, c.tower, c.count_layers
+
+    put('aa_embed/embedding', sd['aa_encoder.embedder.weight'])
+    if pair:
+        n_enc = count_layers('aa_encoder.h_layers')
+        tower('aa_encoder/h_tower', 'aa_encoder.h_layers.{}', n_enc)
+        tower('aa_encoder/l_tower', 'aa_encoder.l_layers.{}', n_enc)
+        put('side_encoder/Embed_0/embedding', sd['side_encoder.side_embeddinng.weight'])
+        dense('side_encoder/Dense_0', 'side_encoder.side_mlp.0')
+        layernorm('side_encoder/LayerNorm_0', 'side_encoder.side_mlp.1')
+        dense('side_encoder/Dense_1', 'side_encoder.side_mlp.3')
+        n_dual = count_layers('dual_conv_block.h_layers')
+        tower('dual_conv/h_tower', 'dual_conv_block.h_layers.{}', n_dual)
+        tower('dual_conv/l_tower', 'dual_conv_block.l_layers.{}', n_dual)
+    else:
+        n_enc = count_layers('aa_encoder.layers')
+        tower('aa_encoder', 'aa_encoder.layers.{}', n_enc)
+        n_dual = count_layers('nano_conv_block.layers')
+        tower('nano_conv', 'nano_conv_block.layers.{}', n_dual)
+
+    put('region_encoder/Embed_0/embedding', sd['region_encoder.region_embedding.weight'])
+    layernorm('region_encoder/LayerNorm_0', 'region_encoder.region_layer1.0')
+    pff_conv('region_encoder/Dense_0', 'region_encoder.region_layer1.2')
+    layernorm('region_encoder/LayerNorm_1', 'region_encoder.region_layer1.3')
+
+    dense('pos_encoder/GatedMLP_0/Dense_0', 'pos_encoder.pos_lin.ln1')
+    dense('pos_encoder/GatedMLP_0/Dense_1', 'pos_encoder.pos_lin.ln2')
+
+    self_att('self_att', 'self_at', count_layers('self_at.layers'))
+    layernorm('last_norm', 'last_norm')
+    dense('decoder', 'decoder')
+    return {'params': c.out}
+
+
+def _ensure_unpickle_shims() -> None:
+    """Released reference checkpoints carry pickled ``easydict.EasyDict``
+    configs (reference antibody_train.py:4, :342), so unpickling needs that
+    class importable. When the easydict package is absent, register a
+    pickle-compatible shim: a dict subclass with attribute access under the
+    same module path and class name."""
+    import sys
+    import types
+    try:
+        import easydict  # noqa: F401 - the real package wins when present
+        return
+    except ImportError:
+        pass
+    if 'easydict' in sys.modules:
+        return
+
+    class EasyDict(dict):
+        """Pickle-compatible stand-in for easydict.EasyDict."""
+
+        def __getattr__(self, key):
+            try:
+                return self[key]
+            except KeyError as e:
+                raise AttributeError(key) from e
+
+        def __setattr__(self, key, value):
+            self[key] = value
+
+    EasyDict.__module__ = 'easydict'
+    EasyDict.__qualname__ = 'EasyDict'  # pickle resolves module + qualname
+    mod = types.ModuleType('easydict')
+    mod.EasyDict = EasyDict
+    sys.modules['easydict'] = mod
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A released reference checkpoint (pickled EasyDict configs included),
+    on the CPU. ``weights_only=False``: read only files you trust."""
+    _ensure_unpickle_shims()
+    return torch.load(path, map_location='cpu', weights_only=False)
+
+
+def load_payload(path: str) -> dict:
+    """A ``.pt``/``.ckpt`` payload on the CPU: read as plain data
+    (``weights_only=True``, the port's own files and plain released ones),
+    else, when it holds pickled objects, by ``load_torch_checkpoint``."""
+    try:
+        return torch.load(path, map_location='cpu', weights_only=True)
+    except pickle.UnpicklingError:
+        return load_torch_checkpoint(path)
+
+
+def is_port_payload(payload: Mapping[str, Any]) -> bool:
+    """True for a file ``save``/``save_training`` wrote (its state_dict has
+    the port's names), False for a released reference payload."""
+    return 'aa_embed.weight' in payload.get('model', {})

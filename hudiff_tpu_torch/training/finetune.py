@@ -71,13 +71,15 @@ SMOKE_ABNATIV = AB.AbNatiVParams(d_embedding=32, kernel=4, stride=2, num_heads=2
 def load_abnativ(path: Optional[str], straight_through: bool, seed: int = 0,
                  device='cuda') -> AB.AbNatiVModel:
     """A frozen f32 scorer on ``device``: from a reference-layout checkpoint
-    (``{'state_dict', 'hyper_parameters': {'hparams': ...}}``) when ``path``
-    is given, else random-initialized from ``seed`` at the smoke hparams. A
-    path that does not exist raises (the JAX loader falls back to a random
-    scorer)."""
+    (``{'state_dict', 'hyper_parameters': {'hparams': ...}}``: the released
+    lightning ``.ckpt`` files, whose hparams may be pickled objects, read
+    through ``CKPT.load_payload``, or a file ``save_abnativ`` wrote) when
+    ``path`` is given, else random-initialized from ``seed`` at the smoke
+    hparams. A path that does not exist raises (the JAX loader falls back
+    to a random scorer)."""
     dev = resolve_device(device)
     if path:
-        ckpt = torch.load(path, map_location='cpu', weights_only=True)
+        ckpt = CKPT.load_payload(path)
         model = AB.AbNatiVModel(AB.checkpoint_hparams(ckpt), straight_through)
         model.load_state_dict(AB.reference_state_dict(ckpt['state_dict'], model))
     else:
