@@ -102,7 +102,23 @@ version on the card. Then:
   and ``eval.harness nano``) and ``native_aligner`` (the port's C++
   aligner against its Python DP on every chain those phases aligned, and
   the record store's native reader against mmap). K1 and K2 carry
-  ``launches_eval_ab`` and ``launches_eval_nano``.
+  ``launches_eval_ab`` and ``launches_eval_nano``;
+- parallelism, the flop counter and the breakdown tools (the eleventh
+  slice), after the eval phases: ``K1_tp`` and ``K3_tp`` (K1 and K3 on a
+  tensor-parallel rank's 4 and 2 heads, L = 291, B = 128, f32 and bf16,
+  against their plain versions), ``parallel_tp`` and ``parallel_dp`` (one
+  full-width f32 Ab step on two ranks of this card over gloo, launched by
+  ``tools/parallel_check.py``, against the world-1 step and against its
+  witness, world 1 in the parallel step's order of summation; at tp 2 also
+  a profiled bf16 step per rank, counters against the profiler),
+  ``pretrain_tp`` (``pretrain.run`` at tp 2 on two ranks over gloo, its
+  checkpoint loaded at tp 1), ``pretrain_multihost`` (the pretrain CLI
+  under ``torch.distributed.run`` on NCCL), ``shard_sampling`` (a sharded Ab round against one process's)
+  and ``breakdown`` (``tools/train_breakdown.py``, with ``--nano``, and
+  ``tools/perf_breakdown.py`` at full width). The multi-rank phases run two
+  ranks on one card: they hold correctness, not scaling. K1-K4 carry
+  ``launches_parallel_tp_per_rank`` and ``launches_parallel_dp_per_rank``,
+  K1 and K3 ``tp_H4_*`` and ``tp_H2_*``.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -761,6 +777,9 @@ def main():
     # -- the evaluation path and the released payloads -------------------------
     evaluated = eval_phases(torch, dev, ab_tuned, nano_tuned)
 
+    # -- parallelism, the flop counter and the breakdown tools -------------------
+    parallel = parallel_phases(torch, gen, dev, ab_ckpt)
+
     # -- phases 11-15: the remaining entry points ------------------------------
     results['K5'] = k5_phase(torch, gen, dev)
     results['K6'] = k6_phase(torch, gen, dev)
@@ -786,7 +805,8 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
-         **nk['K1'], **tuned['K1'], 'launches_serve': served['K1'], **evaluated['K1']},
+         **nk['K1'], **tuned['K1'], 'launches_serve': served['K1'], **evaluated['K1'],
+         **parallel['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -803,7 +823,7 @@ def main():
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
                   'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2'],
-         'launches_serve': served['K2'], **evaluated['K2']},
+         'launches_serve': served['K2'], **evaluated['K2'], **parallel['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -815,7 +835,7 @@ def main():
          'library_ms': k3['library_ms'],
          'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
                   '(three kernels); ms_standalone runs K1 for them first', **nk['K3'],
-         **tuned['K3']},
+         **tuned['K3'], **parallel['K3']},
         {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
                  'backward in their epilogues, one grouped weight-gradient GEMM, one '
                  'fixed-order sum)',
@@ -832,7 +852,8 @@ def main():
          'library_ms_per_step': k4['library_ms'],
          'launch_ms_one_dual_tower_call': k4['launch_ms'],
          'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
-                  'tower blocks of one step, bf16', **nk['K4'], **tuned['K4']},
+                  'tower blocks of one step, bf16', **nk['K4'], **tuned['K4'],
+         **parallel['K4']},
         *later_kernels(results, api)]})
     emit({'phase': 'done', 'total_s': time.perf_counter() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1054,7 +1075,6 @@ def k3_phase(torch, gen, dev):
     bf16, and at SHORT_LENGTHS (B = 128, bf16); times beside the plain
     version and the backward alone of scaled_dot_product_attention on
     pre-rotated q/k/v with the same dO."""
-    import torch.nn.functional as F
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops.rope import rope_tables
@@ -1067,45 +1087,8 @@ def k3_phase(torch, gen, dev):
             name = str(dtype).split('.')[-1]
             qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
             do = torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
-            o_bf, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, True)
-            res = dict(out=o32, lse=lse)
-            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
-            again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
-            alone = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
-            ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
-            twin = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads,
-                                                            o32, lse)
-            rounded = FA.rope_attention_qkv_backward(
-                qkv, cos, sin, do, scale, heads, out=o_bf.float(),
-                lse=lse) if dtype == torch.bfloat16 else None
-            torch.cuda.synchronize()
-            errs, ok = backward_checks(torch, 'K3', got, again, alone, ref, twin)
-            rec = {'phase': 'K3', 'B': B, 'L': L, 'dtype': name, **errs,
-                   **delta_reading(torch, 'K3', rounded, ref)}
-            if not ok:
-                emit(rec)
-                fail(f'K3 disagrees with its plain versions or repeats apart ({name}, B={B})')
-            del got, again, alone, ref, twin, rounded, o_bf
-            qr, kr, vr = (t.requires_grad_() for t in _rotated_bhld(
-                torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads))
-            o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
-            dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
-            rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
-                o, (qr, kr, vr), dO, retain_graph=True))
-            del o, qr, kr, vr, dO
-            # given the residuals, as autograd calls it (and as SDPA's backward
-            # alone is timed); the standalone call runs K1 for them first
-            rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
-                qkv, cos, sin, do, scale, heads, **res))
-            rec['ms_standalone'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
-                qkv, cos, sin, do, scale, heads))
-            rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
-                qkv, cos, sin, do, scale, heads), reps=2, windows=3)
-            # read qkv and dO once, write dqkv once; five 2 L^2 D products
-            nbytes = (2 * qkv.numel() + do.numel()) * qkv.element_size() + 2 * cos.numel() * 4
-            flops = 5 * 2.0 * B * heads * L * L * hd
-            rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
-            emit(rec)
+            rec = k3_record(torch, qkv, do, cos, sin, heads, 'K3', plain_reps=2,
+                            delta=True, standalone=True)
             out[(B, name)] = rec
             del qkv, do
             torch.cuda.empty_cache()
@@ -1526,7 +1509,7 @@ def k1_record(torch, qkv, cos, sin, heads, phase):
     ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
     torch.cuda.synchronize()
     errs, ok = check_err(torch, 'K1', o, ref)
-    rec = {'phase': phase, 'B': B, 'L': L, 'dtype': name, **errs}
+    rec = {'phase': phase, 'B': B, 'L': L, 'H': heads, 'dtype': name, **errs}
     if not ok:
         emit(rec)
         fail(f'K1 disagrees with its plain version at L = {L} ({name}, B={B})')
@@ -1544,19 +1527,73 @@ def k1_record(torch, qkv, cos, sin, heads, phase):
     return rec
 
 
+def k3_record(torch, qkv, do, cos, sin, heads, phase, plain_reps=1, delta=False,
+              standalone=False):
+    """K3 on ``qkv`` given K1's residuals, as autograd calls it, against both
+    plain versions (the run fails past the K3 limits, or if a repeat or the
+    standalone call gives other bits), timed beside the plain version and
+    SDPA's backward on the rotated inputs, with its bound: the record,
+    emitted. ``delta`` adds, in bf16, how far delta from the bf16 output
+    would move the gradients (``delta_reading``); ``standalone`` the time
+    of the call that runs K1 for its residuals first."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    B, L, width = qkv.shape
+    hd = width // (3 * heads)
+    scale = 1.0 / hd ** 0.5
+    name = str(qkv.dtype).split('.')[-1]
+    o_bf, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, True)
+    res = dict(out=o32, lse=lse)
+    got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
+    again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
+    alone = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
+    ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
+    twin = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads, o32, lse)
+    rounded = FA.rope_attention_qkv_backward(
+        qkv, cos, sin, do, scale, heads, out=o_bf.float(),
+        lse=lse) if delta and qkv.dtype == torch.bfloat16 else None
+    torch.cuda.synchronize()
+    errs, ok = backward_checks(torch, 'K3', got, again, alone, ref, twin)
+    rec = {'phase': phase, 'B': B, 'L': L, 'H': heads, 'dtype': name, **errs,
+           **delta_reading(torch, 'K3', rounded, ref)}
+    if not ok:
+        emit(rec)
+        fail(f'K3 disagrees with its plain versions or repeats apart at L = {L}, '
+             f'H = {heads} ({name}, B={B})')
+    del got, again, alone, ref, twin, rounded, o_bf
+    qr, kr, vr = (t.requires_grad_() for t in _rotated_bhld(
+        torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads))
+    o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+    dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+    rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qr, kr, vr), dO, retain_graph=True))
+    del o, dO, qr, kr, vr
+    # given the residuals, as autograd calls it (and as SDPA's backward
+    # alone is timed); the standalone call runs K1 for them first
+    rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
+        qkv, cos, sin, do, scale, heads, **res))
+    if standalone:
+        rec['ms_standalone'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
+            qkv, cos, sin, do, scale, heads))
+    rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
+        qkv, cos, sin, do, scale, heads), reps=plain_reps, windows=3)
+    # read qkv and dO once, write dqkv once; five 2 L^2 D products
+    nbytes = (2 * qkv.numel() + do.numel()) * qkv.element_size() + 2 * cos.numel() * 4
+    rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, 5 * 2.0 * B * heads * L * L * hd, name)
+    emit(rec)
+    return rec
+
+
 def attention_nano_phase(torch, gen, dev):
     """K1 and K3 at the nano path's attention shape (L = 152, 8 x 64, qkv
     [B, 152, 1536]), f32 and bf16, against their plain versions: K1 at the
     sampler's batch and the training batch; K3 at the training batch, given
     K1's residuals as autograd calls it, against both plain versions. Timed
     as the Ab phases time them."""
-    import torch.nn.functional as F
     from hudiff_tpu_torch import constants as C
-    from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops.rope import rope_tables
     heads, hd, L = 8, 64, C.HEAVY_LEN
     cos, sin = rope_tables(hd, L, device=dev)
-    scale = 1.0 / hd ** 0.5
     out = {}
     for B in (MAIN_B, NANO_TRAIN_B):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1565,40 +1602,9 @@ def attention_nano_phase(torch, gen, dev):
             out[('K1', B, name)] = k1_record(torch, qkv, cos, sin, heads, 'K1_nano')
             if B != NANO_TRAIN_B:
                 continue
-            qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
             do = torch.randn(B, L, heads * hd, generator=gen).to(dev, dtype)
-            _, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, True)
-            res = dict(out=o32, lse=lse)
-            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
-            again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads, **res)
-            alone = FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads)
-            ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads)
-            twin = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, scale, heads,
-                                                            o32, lse)
-            torch.cuda.synchronize()
-            errs, ok = backward_checks(torch, 'K3', got, again, alone, ref, twin)
-            rec = {'phase': 'K3_nano', 'B': B, 'L': L, 'dtype': name, **errs}
-            if not ok:
-                emit(rec)
-                fail(f'K3 disagrees with its plain versions or repeats apart at L = {L} '
-                     f'({name}, B={B})')
-            del got, again, alone, ref, twin
-            qr, kr, vr = (t.requires_grad_() for t in (qr, kr, vr))
-            o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
-            dO = do.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
-            rec['library_ms'] = time_ms(torch, lambda: torch.autograd.grad(
-                o, (qr, kr, vr), dO, retain_graph=True))
-            del o, dO
-            rec['ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward(
-                qkv, cos, sin, do, scale, heads, **res))
-            rec['plain_ms'] = time_ms(torch, lambda: FA.rope_attention_qkv_backward_reference(
-                qkv, cos, sin, do, scale, heads), reps=1, windows=3)
-            nbytes = (2 * qkv.numel() + do.numel()) * qkv.element_size() + 2 * cos.numel() * 4
-            rec['bound_ms'], rec['bound_by'] = bound_ms(
-                nbytes, 5 * 2.0 * B * heads * L * L * hd, name)
-            emit(rec)
-            out[('K3', B, name)] = rec
-            del qkv, do, qr, kr, vr, o32, lse
+            out[('K3', B, name)] = k3_record(torch, qkv, do, cos, sin, heads, 'K3_nano')
+            del qkv, do
             torch.cuda.empty_cache()
     return out
 
@@ -3407,6 +3413,380 @@ def eval_phases(torch, dev, ab_ckpt, nano_ckpt):
     native_aligner_phase(torch, aligned, root)
     torch.cuda.empty_cache()
     return {k: {'launches_eval_ab': ab[k], 'launches_eval_nano': nano[k]} for k in ('K1', 'K2')}
+
+
+# -- the eleventh slice: parallelism, the flop counter and the breakdown tools --
+TP_HEADS = (4, 2)        # K1/K3 on a rank's heads at --tp 2 and --tp 4 (8 heads)
+PARALLEL_RTOL = 1e-5     # a parallel f32 step against one process, relative
+PARALLEL_TIMEOUT = 420   # seconds for the two ranks of a launch
+SHARD_ROWS = 8           # rows per antibody of the sharded round (two antibodies)
+TP_PER_STEP = {'K1': 10, 'K2': 72, 'K3': 30, 'K4': 120}   # an Ab step, per rank
+
+
+def tp_attention_phase(torch, gen, dev):
+    """K1 and K3 at a tensor-parallel rank's head counts (``TP_HEADS``) at
+    full width (L = 291, B = 128), f32 and bf16, against their plain
+    versions under the existing limits; K3 given K1's residuals."""
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    hd, L = 64, C.PAIR_LEN
+    cos, sin = rope_tables(hd, L, device=dev)
+    out = {}
+    for heads in TP_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split('.')[-1]
+            qkv = torch.randn(TRAIN_B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
+            do = torch.randn(TRAIN_B, L, heads * hd, generator=gen).to(dev, dtype)
+            out[('K1', heads, name)] = k1_record(torch, qkv, cos, sin, heads, 'K1_tp')
+            out[('K3', heads, name)] = k3_record(torch, qkv, do, cos, sin, heads, 'K3_tp')
+            del qkv, do
+            torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_dir(name):
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_parallel',
+                        name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def _launch(argv, name, keep=False):
+    """``tools/parallel_check.py`` on two ranks over gloo, both on this card;
+    the ranks' results and the launch's wall seconds. A rank that fails or
+    outlives PARALLEL_TIMEOUT fails the run. The ranks' directory is
+    removed unless ``keep``."""
+    from hudiff_tpu_torch.tools import parallel_check as PC
+    out = _parallel_dir(name)
+    t0 = time.perf_counter()
+    try:
+        PC.launch([*argv, '--device', 'cuda', '--out', out], 2, out, PARALLEL_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f'{name}: {str(e)[-3000:]}')
+    ranks = [torch_load(os.path.join(out, f'rank{r}.pt')) for r in range(2)]
+    if not keep:
+        shutil.rmtree(out, ignore_errors=True)
+    return ranks, time.perf_counter() - t0
+
+
+def torch_load(path):
+    import torch
+    return torch.load(path, map_location='cpu', weights_only=False)
+
+
+def world1_steps(torch, dev):
+    """The one-process f32 steps the parallel phases are held against: world
+    1's, and the witness of each parallel step (``in_parallel_order``:
+    world 1 with the sums that tp = 2 and dp = 2 split, split as the ranks
+    split them): {order: result}."""
+    from hudiff_tpu_torch.tools import parallel_check as PC
+    kw = dict(test_size=False, dtype=torch.float32, batch=TRAIN_B, seed=SEED, clip_norm=10.0,
+              device=dev)
+    out = {}
+    for order in ((1, 1), (1, 2), (2, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[order] = PC.step_result('pair', order=order, **kw)
+        out[order]['step_s'] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_step_phase(torch, dev, tp, steps):
+    """One full-width f32 Ab pretrain step (B = 128, TF32 off, dropout 0,
+    clip 10, Adam) on two ranks of this card over gloo, at tp = 2 (``tp``)
+    or dp = 2. Against the world-1 step on the same batch: the loss and the
+    global gradient norm within PARALLEL_RTOL relative; the gathered
+    gradients and the updated parameters recorded. Against its witness
+    (world 1 in the parallel step's order, ``world1_steps``): the loss, the
+    norm, the gradients (||err|| / ||ref|| and every tensor's max |err| /
+    max |ref|) and the updated parameters (||err|| / ||ref||) within
+    PARALLEL_RTOL. The witness's own gap to world 1 is the gap summation
+    order alone makes; each rank's launches of the step. At tp = 2 also a
+    profiled bf16 step per rank, whose counters must equal the kernels the
+    profiler saw (K1 10, K3 30 a rank)."""
+    from hudiff_tpu_torch.tools import parallel_check as PC
+    phase = 'parallel_tp' if tp == 2 else 'parallel_dp'
+    argv = ['step', '--tp', str(tp), '--fp32', '--batch', str(TRAIN_B), '--seed', str(SEED),
+            '--clip-norm', '10'] + (['--profile'] if tp == 2 else [])
+    ranks, wall = _launch(argv, phase)
+    ref, witness = steps[(1, 1)], steps[(2 // tp, tp)]
+    cmp, wit = PC.compare_steps(ranks[0], ref), PC.compare_steps(ranks[0], witness)
+    keys = ('loss_rel_err', 'grad_norm_rel_err', 'grads_global_rel_err', 'grads_max_rel_err',
+            'grads_worst', 'params_global_rel_err', 'params_max_rel_err', 'params_worst')
+    rec = {'phase': phase, 'B': TRAIN_B, 'world': 2, 'tp': tp, 'dp': 2 // tp, 'dtype': 'float32',
+           'backend': 'gloo, two ranks on one card', 'loss_world1': ref['loss'],
+           'loss': ranks[0]['loss'], 'grad_norm_world1': ref['grad_norm'],
+           'grad_norm': ranks[0]['grad_norm'], 'rtol': PARALLEL_RTOL,
+           'vs_world1': {k: cmp.get(k) for k in ('same_keys', *keys)},
+           'vs_witness': {k: wit.get(k) for k in ('same_keys', *keys)},
+           'witness_vs_world1': {k: v for k, v in PC.compare_steps(witness, ref).items()
+                                 if k in keys},
+           'launches_per_rank': [r['launches'] for r in ranks],
+           'launches_world1': ref['launches'], 'world1_step_s': ref['step_s'],
+           'witness_step_s': witness['step_s'], 'launch_wall_s': wall}
+    ok = (cmp['same_keys'] and wit['same_keys'] and cmp['loss_rel_err'] <= PARALLEL_RTOL
+          and cmp['grad_norm_rel_err'] <= PARALLEL_RTOL
+          and all(wit[k] <= PARALLEL_RTOL for k in (
+              'loss_rel_err', 'grad_norm_rel_err', 'grads_global_rel_err', 'grads_max_rel_err',
+              'params_global_rel_err'))
+          and all(r['launches'] == TP_PER_STEP for r in ranks))
+    if tp == 2:
+        same = {k: bool(torch.equal(v, ranks[1]['activations'][k]))
+                for k, v in ranks[0]['activations'].items()}
+        prof = [r['profile'] for r in ranks]
+        rec.update(replicated_activations_equal=same, profile_bf16=prof)
+        ok = ok and all(same.values()) and all(
+            p['counted'] == p['profiled'] == TP_PER_STEP for p in prof)
+    emit(rec)
+    if not ok:
+        fail(f'{phase}: the parallel step disagrees with one process or with its witness, or '
+             'its launches with the profiler')
+    del ranks
+    return rec
+
+
+def _restored_logits_finite(torch, ckpt_dir):
+    """The newest checkpoint of ``ckpt_dir`` loaded as a tp = 1 bf16 model
+    on the card: (its step, whether its logits on two rows are finite)."""
+    import numpy as np
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    from hudiff_tpu_torch.training import train_step as T
+    step = CKPT.latest_step(ckpt_dir)
+    model, _ = CKPT.load(os.path.join(ckpt_dir, f'step_{step}.pt'), dtype=torch.bfloat16)
+    B = 2
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(0, 20, (B, 291))).cuda()
+    region = torch.from_numpy(T.pair_region_batch(B)).cuda()
+    with torch.inference_mode():
+        logits = model(tokens, region, torch.tensor([[0, 1], [0, 2]], device='cuda'))
+    return step, bool(torch.isfinite(logits).all().item())
+
+
+def pretrain_tp_phase(torch):
+    """``pretrain.run`` at tp = 2 on two ranks of this card over gloo
+    (``parallel_check pretrain``), at the full width of
+    configs/antibody_train.yml (bf16, B = 128, synthetic data, batch_acc
+    2): 2 iterations, a validation at the 2nd whose loss has the same bits
+    on both ranks, and one best-val checkpoint, gathered to the tp = 1
+    layout, that loads as a tp = 1 model to finite logits."""
+    import numpy as np
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.training import checkpoints as CKPT
+    root = _parallel_dir('pretrain_tp_config')
+    cfg_path = os.path.join(root, 'antibody_train.json')   # YAML reads JSON
+    with open(cfg_path, 'w') as f:
+        json.dump(PRETRAIN_CONFIG, f)
+    run_args = {'synthetic': 2 * TRAIN_B, 'max_iter': 2, 'valid_step': 2, 'seed': SEED}
+    ranks, wall = _launch(['pretrain', '--tp', '2', '--config', cfg_path, '--run-args',
+                           json.dumps(run_args)], 'pretrain_tp', keep=True)
+    run = ranks[0]['log_dir']
+
+    def metrics(d):
+        with open(os.path.join(d, 'metrics.jsonl')) as f:
+            return [json.loads(line) for line in f]
+
+    rows, rows1 = metrics(run), metrics(os.path.join(run, 'rank_1'))
+    ckpt_dir = os.path.join(run, 'checkpoints')
+    saved = [n for n in os.listdir(ckpt_dir) if n.endswith('.pt')]
+    step, finite = _restored_logits_finite(torch, ckpt_dir)
+    qkv = CKPT.restore(ckpt_dir)['payload']['model']['self_att.blocks.0.attn.qkv.weight']
+    cfg = DenoiserConfig.from_dict(PRETRAIN_CONFIG['model'])
+    rec = {'phase': 'pretrain_tp', 'tp': 2, 'world': 2, 'backend': 'gloo, two ranks on one card',
+           'launch_wall_s': wall, 'same_run_dir': ranks[1]['log_dir'] == run,
+           'train_loss': [r['train/loss'] for r in rows if 'train/loss' in r],
+           'val_loss': [r['val/loss'] for r in rows if 'val/loss' in r],
+           'val_loss_rank1': [r['val/loss'] for r in rows1 if 'val/loss' in r],
+           'checkpoints': sorted(saved), 'saved_step': step,
+           'saved_qkv_shape': list(qkv.shape), 'restored_logits_finite': finite}
+    emit(rec)
+    shutil.rmtree(os.path.dirname(os.path.dirname(run)), ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    if not (rec['same_run_dir'] and len(rec['train_loss']) == 2 and len(rec['val_loss']) == 1
+            and rec['val_loss'] == rec['val_loss_rank1'] and saved == ['step_2.pt']
+            and step == 2 and rec['saved_qkv_shape'] == [3 * cfg.att_model, cfg.sum_d_model]
+            and np.isfinite(rec['train_loss'] + rec['val_loss']).all() and finite):
+        fail('pretrain_tp: pretrain.run at tp = 2 failed its checks')
+
+
+def pretrain_multihost_phase(torch):
+    """The pretrain CLI under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 ... --multihost`` (NCCL) at the full width of
+    configs/antibody_train.yml (bf16, B = 128, synthetic data, batch_acc
+    2): 2 iterations, a validation at the 2nd and a best-val save that
+    loads back to finite logits."""
+    import numpy as np
+    root = _parallel_dir('pretrain_multihost')
+    cfg_path = os.path.join(root, 'antibody_train.json')   # YAML reads JSON
+    with open(cfg_path, 'w') as f:
+        json.dump(PRETRAIN_CONFIG, f)
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc_per_node',
+           '1', '-m', 'hudiff_tpu_torch.training.pretrain', '--config', cfg_path,
+           '--synthetic', str(2 * TRAIN_B), '--max-iter', '2', '--valid-step', '2',
+           '--logdir', root, '--seed', str(SEED), '--multihost']
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                              timeout=PARALLEL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f'pretrain_multihost: still running after {PARALLEL_TIMEOUT} s')
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f'pretrain_multihost exited {proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}')
+    run = next(os.path.join(root, d) for d in os.listdir(root) if d.startswith('pair_pretrain'))
+    with open(os.path.join(run, 'metrics.jsonl')) as f:
+        rows = [json.loads(line) for line in f]
+    step, finite = _restored_logits_finite(torch, os.path.join(run, 'checkpoints'))
+    rec = {'phase': 'pretrain_multihost', 'launcher': 'torch.distributed.run --standalone '
+           '--nproc_per_node 1', 'backend': 'nccl', 'wall_s': wall,
+           'train_loss': [r['train/loss'] for r in rows if 'train/loss' in r],
+           'val_loss': [r['val/loss'] for r in rows if 'val/loss' in r],
+           'saved_step': step, 'restored_logits_finite': finite}
+    emit(rec)
+    shutil.rmtree(root, ignore_errors=True)
+    if not (len(rec['train_loss']) == 2 and len(rec['val_loss']) == 1 and rec['saved_step'] == 2
+            and np.isfinite(rec['train_loss'] + rec['val_loss']).all()
+            and rec['restored_logits_finite']):
+        fail('pretrain_multihost: the CLI under torch.distributed.run failed its checks')
+
+
+def _tie_reading(torch, ab_ckpt, pairs, seed, row, slot):
+    """At the one-process round's step that wrote ``slot`` of ``row``: the
+    two largest Gumbel-perturbed scores of that row and their relative gap
+    (a replay of the round up to that step, from the same seeds)."""
+    import numpy as np
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.sampling import sampler as S
+    model, _ = HZ.load_denoiser(ab_ckpt, kind='pair', device='cuda', use_bf16=False)
+    inputs = [HZ.pair_input(h, l) for h, l in pairs]
+    rows = [inp for inp in inputs for _ in range(SHARD_ROWS)]
+    pad_to = HZ._packed_pad_to(inputs)
+    order = S.build_order_rows([r['positions'] for r in rows], rng=np.random.default_rng(seed),
+                               pad_to=pad_to)
+    step = int(np.nonzero(order[row] == slot)[0][0])
+    put = lambda key: torch.as_tensor(np.stack([r[key] for r in rows]),  # noqa: E731
+                                      dtype=torch.long, device='cuda')
+    cond = (put('region'), put('chain'))
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    run = S.make_model_sampler(model)
+    grid = run(put('tokens'), torch.as_tensor(order[:, :step], device='cuda'), gen, *cond)
+    with torch.inference_mode():
+        logits = model(grid, *cond)[:, :, :S.SAMPLE_TOP].float()
+    u = torch.rand((len(rows), 1, S.SAMPLE_TOP), generator=gen, device='cuda')
+    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    top = (logits[row, slot] + g[row, 0]).topk(2)
+    vals = top.values.tolist()
+    return {'row': row, 'slot': slot, 'step': step, 'top2': vals,
+            'top2_tokens': top.indices.tolist(), 'rel_gap': abs(vals[0] - vals[1]) / abs(vals[0])}
+
+
+def shard_sampling_phase(torch, dev, ab_ckpt):
+    """One Ab round (two antibodies x SHARD_ROWS rows, B = 16, 185 forwards)
+    through ``PairHumanizer`` with ``mesh=`` two ranks over gloo on this
+    card, against the one-process round with the same seed. f32: the tokens
+    equal, or at the first slot that differs the one-process round's two
+    top Gumbel-perturbed scores within 1e-5 relative (cuBLAS may take
+    another algorithm at B / 2). bf16: the share of equal tokens, and the
+    invariants (CDRs kept, only ordered slots written)."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.tools import parallel_check as PC
+    pairs = [[H1, L1], [H2, L2]]
+    root = _parallel_dir('shard_inputs')
+    path = os.path.join(root, 'pairs.json')
+    with open(path, 'w') as f:
+        json.dump(pairs, f)
+    inputs = [HZ.pair_input(h, l) for h, l in pairs]
+    cdr = np.concatenate([C.HEAVY_CDR_INDEX, C.LIGHT_CDR_INDEX]) != 0
+    out = {}
+    for fp32 in (True, False):
+        name = 'float32' if fp32 else 'bfloat16'
+        t0 = time.perf_counter()
+        ref = PC.sample_result(pairs, ab_ckpt, False, 2 * SHARD_ROWS, SHARD_ROWS, SEED, fp32,
+                               dev, None)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        ranks, wall = _launch(['sample', '--pairs', path, '--ckpt', ab_ckpt, '--batch',
+                               str(2 * SHARD_ROWS), '--rows', str(SHARD_ROWS), '--seed',
+                               str(SEED)] + (['--fp32'] if fp32 else []),
+                              f'shard_sampling_{name}')
+        got = ranks[0]['grids']
+        kept = all((got[i * SHARD_ROWS:(i + 1) * SHARD_ROWS][:, cdr] == inp['clean'][cdr]).all()
+                   and (got[i * SHARD_ROWS:(i + 1) * SHARD_ROWS][:, inp['tokens'] != C.IDX_MSK]
+                        == inp['tokens'][inp['tokens'] != C.IDX_MSK]).all()
+                   for i, inp in enumerate(inputs))
+        rec = {'phase': 'shard_sampling', 'dtype': name, 'B': 2 * SHARD_ROWS, 'world': 2,
+               'forwards': HZ._packed_pad_to(inputs), 'rows_equal_on_ranks':
+               bool((ranks[1]['grids'] == got).all()), 'equal_token_share':
+               float((got == ref).mean()), 'tokens_equal': bool((got == ref).all()),
+               'invariants_held': bool(kept), 'one_process_s': one_s, 'launch_wall_s': wall}
+        ok = rec['rows_equal_on_ranks'] and kept
+        if fp32 and not rec['tokens_equal']:
+            diff = np.argwhere(got != ref)
+            row = int(diff[0][0])
+            rec['first_difference'] = _tie_reading(torch, ab_ckpt, pairs, SEED, row,
+                                                   int(diff[0][1]))
+            ok = ok and rec['first_difference']['rel_gap'] <= PARALLEL_RTOL
+        emit(rec)
+        if not ok:
+            fail(f'shard_sampling ({name}): the sharded round breaks an invariant or differs '
+                 'from one process past a near tie')
+        out[name] = rec
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def breakdown_phase(torch):
+    """``tools/train_breakdown.py`` (Ab, then ``--nano``) and
+    ``tools/perf_breakdown.py`` at full width: their JSON, each on a line
+    of its own under a phase key."""
+    import contextlib
+    import io
+    from hudiff_tpu_torch.tools import perf_breakdown as PB
+    from hudiff_tpu_torch.tools import train_breakdown as TB
+    out = {}
+    for phase, fn, argv in (('breakdown_train', TB.main, []),
+                            ('breakdown_train_nano', TB.main, ['--nano']),
+                            ('breakdown_forward', PB.main, [])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = fn(argv)
+        emit({'phase': phase, 'argv': argv, 'wall_s': time.perf_counter() - t0, **res})
+        out[phase] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phases(torch, gen, dev, ab_ckpt):
+    """The eleventh slice: ``K1_tp``/``K3_tp``, ``parallel_tp``,
+    ``parallel_dp``, ``pretrain_tp``, ``pretrain_multihost``,
+    ``shard_sampling`` and ``breakdown``. Returns the kernels line's K1-K4 keys of the slice."""
+    att = tp_attention_phase(torch, gen, dev)
+    torch.cuda.empty_cache()
+    steps = world1_steps(torch, dev)
+    tp = parallel_step_phase(torch, dev, 2, steps)
+    dp = parallel_step_phase(torch, dev, 1, steps)
+    del steps
+    pretrain_tp_phase(torch)
+    pretrain_multihost_phase(torch)
+    shard_sampling_phase(torch, dev, ab_ckpt)
+    breakdown_phase(torch)
+    keys = {k: {'launches_parallel_tp_per_rank': tp['launches_per_rank'][0][k],
+                'launches_parallel_dp_per_rank': dp['launches_per_rank'][0][k]}
+            for k in ('K1', 'K2', 'K3', 'K4')}
+    for k in ('K1', 'K3'):
+        for heads in TP_HEADS:
+            rec, rec32 = att[(k, heads, 'bfloat16')], att[(k, heads, 'float32')]
+            keys[k].update({f'tp_H{heads}_{key}': rec[key] for key in (
+                'max_abs_err', 'excess_over_rtol', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                'library_ms')})
+            keys[k][f'tp_H{heads}_max_abs_err_f32'] = rec32['max_abs_err']
+            keys[k][f'tp_H{heads}_shape'] = (f'B={TRAIN_B} L=291 H={heads} D=64 bf16'
+                                             + (", given K1's residuals" if k == 'K3' else ''))
+    return keys
 
 
 def nano_entries(nano):

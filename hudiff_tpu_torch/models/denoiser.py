@@ -21,6 +21,17 @@ the JAX package's ``conv_pallas_policy`` (hudiff_tpu/models/denoiser.py:
 202-214) sends those to XLA in training only because of a TPU v5e
 measurement, which says nothing about this card, so the port has no such
 route.
+
+Tensor parallelism (``tp_mesh``, a ``parallel.mesh.Mesh`` of tp > 1; the
+JAX modules' field of that name): each ``SelfAttBlock`` holds this rank's
+shard, as ``parallel.mesh.param_pspec`` cuts it. Each attention's qkv
+projection keeps heads / tp whole heads of the head-major layout, runs
+``rope_attention_qkv_tp`` (K1, K3 in its backward) on them, and its out
+projection contracts them into a partial sum; the FFN's ``ff1`` keeps
+dim_feedforward / tp of its units, ``ff2`` their rows. The Megatron
+operators of parallel/megatron.py put one all-reduce after each row-split
+projection and one on the gradient before each column-split one. The
+towers, embedders, LayerNorms and decoder are replicated.
 """
 from __future__ import annotations
 
@@ -34,9 +45,10 @@ from torch import nn
 
 from .. import constants as C
 from ..ops.bytenet import ByteNetStack
-from ..ops.fused_attention import rope_attention_qkv
+from ..ops.fused_attention import rope_attention_qkv_tp, tp_splits_heads
 from ..ops.norm import LN_EPS
 from ..ops.rope import rope_tables
+from ..parallel.megatron import copy_to_tp, reduce_from_tp
 from .embedders import PosEmbedder, RegionEmbedder, SideEmbedder, dense, norm
 
 
@@ -88,28 +100,54 @@ def nano_config(**overrides) -> DenoiserConfig:
     return DenoiserConfig(**base)
 
 
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+def column_dense(x: torch.Tensor, layer: nn.Linear, dtype, mesh) -> torch.Tensor:
+    """``dense`` of a column-split projection: the input's gradient summed
+    over the TP group (``dense`` itself without a mesh)."""
+    return dense(x if mesh is None else copy_to_tp(x, mesh), layer, dtype)
+
+
+def row_dense(x: torch.Tensor, layer: nn.Linear, dtype, mesh) -> torch.Tensor:
+    """``dense`` of a row-split projection: the partial products summed
+    over the TP group, then the (replicated) bias added once (``dense``
+    itself without a mesh)."""
+    if mesh is None:
+        return dense(x, layer, dtype)
+    y = reduce_from_tp(F.linear(x.to(dtype), layer.weight.to(dtype)), mesh)
+    return y + layer.bias.to(dtype)
+
+
 class RoPEAttention(nn.Module):
     """Multi-head self-attention with rotary embeddings over one merged
-    head-major qkv projection ([q_h | k_h | v_h] per head)."""
+    head-major qkv projection ([q_h | k_h | v_h] per head); under
+    ``tp_mesh`` this rank's heads / tp heads of it."""
 
     def __init__(self, d_model: int, att_model: int, nhead: int, length: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, tp_mesh=None):
         super().__init__()
-        self.dtype, self.nhead = dtype, nhead
+        tp = _tp(tp_mesh)
+        if tp > 1 and not tp_splits_heads(nhead, 3 * att_model, tp_mesh):
+            raise ValueError(f'tensor parallelism splits attention by head: {nhead} heads '
+                             f'do not divide over tp={tp}')
+        self.dtype, self.nhead, self.att_model = dtype, nhead, att_model
+        self.tp_mesh = tp_mesh if tp > 1 else None
         head_dim = att_model // nhead
         self.scale = 1.0 / float(np.sqrt(head_dim))
-        self.qkv = nn.Linear(d_model, 3 * att_model, device=device)
-        self.out = nn.Linear(att_model, d_model, device=device)
+        self.qkv = nn.Linear(d_model, 3 * att_model // tp, device=device)
+        self.out = nn.Linear(att_model // tp, d_model, device=device)
         cos, sin = rope_tables(head_dim, length, device=device)
         self.register_buffer('cos', cos, persistent=False)
         self.register_buffer('sin', sin, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         L = x.shape[1]
-        qkv = dense(x, self.qkv, self.dtype)
-        out = rope_attention_qkv(qkv, self.cos[:L], self.sin[:L], self.scale,
-                                 self.nhead)
-        return dense(out, self.out, self.dtype)
+        qkv = column_dense(x, self.qkv, self.dtype, self.tp_mesh)
+        out = rope_attention_qkv_tp(qkv, self.cos[:L], self.sin[:L], self.scale,
+                                    self.nhead, self.tp_mesh, 3 * self.att_model)
+        return row_dense(out, self.out, self.dtype, self.tp_mesh)
 
 
 class SelfAttBlock(nn.Module):
@@ -117,32 +155,35 @@ class SelfAttBlock(nn.Module):
     input, not the attention output."""
 
     def __init__(self, d_model: int, att_model: int, dim_feedforward: int,
-                 nhead: int, length: int, dtype=torch.float32, device=None):
+                 nhead: int, length: int, dtype=torch.float32, device=None, tp_mesh=None):
         super().__init__()
-        self.dtype = dtype
+        tp = _tp(tp_mesh)
+        if dim_feedforward % tp:
+            raise ValueError(f'dim_feedforward {dim_feedforward} does not divide over tp={tp}')
+        self.dtype, self.tp_mesh = dtype, tp_mesh if tp > 1 else None
         attn = lambda: RoPEAttention(d_model, att_model, nhead, length,  # noqa: E731
-                                     dtype=dtype, device=device)
+                                     dtype=dtype, device=device, tp_mesh=tp_mesh)
         self.attn, self.attn_c = attn(), attn()
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.ff1 = nn.Linear(d_model, dim_feedforward, device=device)
-        self.ff2 = nn.Linear(dim_feedforward, d_model, device=device)
+        self.ff1 = nn.Linear(d_model, dim_feedforward // tp, device=device)
+        self.ff2 = nn.Linear(dim_feedforward // tp, d_model, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         at = x + self.attn(x)
         at = at + self.attn_c(norm(at, self.norm1))
-        h = F.relu(dense(norm(at, self.norm2), self.ff1, self.dtype))
-        return dense(h, self.ff2, self.dtype) + x
+        h = F.relu(column_dense(norm(at, self.norm2), self.ff1, self.dtype, self.tp_mesh))
+        return row_dense(h, self.ff2, self.dtype, self.tp_mesh) + x
 
 
 class SelfAttNet(nn.Module):
     def __init__(self, d_model: int, att_model: int, dim_feedforward: int,
                  nhead: int, length: int, n_layers: int, dtype=torch.float32,
-                 device=None):
+                 device=None, tp_mesh=None):
         super().__init__()
         self.blocks = nn.ModuleList(
             SelfAttBlock(d_model, att_model, dim_feedforward, nhead, length,
-                         dtype=dtype, device=device) for _ in range(n_layers))
+                         dtype=dtype, device=device, tp_mesh=tp_mesh) for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
@@ -173,9 +214,10 @@ class AntiTFNet(nn.Module):
 
     token embed -> split H/L ByteNet towers -> (+pos, +side) -> concat(3d)
     -> split dual conv towers -> joint RoPE self-attention -> LN -> decoder
-    (the decoder always computes in f32)."""
+    (the decoder always computes in f32). ``tp_mesh``: see the module's
+    docstring."""
 
-    def __init__(self, cfg: DenoiserConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: DenoiserConfig, dtype=torch.float32, device=None, tp_mesh=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         kw = dict(device=device)
@@ -193,7 +235,7 @@ class AntiTFNet(nn.Module):
             cfg.dropout, **kw)
         self.self_att = SelfAttNet(cfg.sum_d_model, cfg.att_model,
                                    cfg.dim_feedforward, cfg.nhead, cfg.max_len,
-                                   cfg.cs_layers, dtype=dtype, **kw)
+                                   cfg.cs_layers, dtype=dtype, tp_mesh=tp_mesh, **kw)
         self.last_norm = nn.LayerNorm(cfg.sum_d_model, eps=LN_EPS, **kw)
         self.decoder = nn.Linear(cfg.sum_d_model, cfg.n_tokens, **kw)
 
@@ -213,9 +255,10 @@ class NanoAntiTFNet(nn.Module):
 
     token embed -> one ByteNet stack -> (+pos) -> concat(2d) -> GELU
     ``nano_conv`` stack -> RoPE self-attention -> LN -> decoder (f32). No
-    side embedder: ``chain_type`` is accepted and unused."""
+    side embedder: ``chain_type`` is accepted and unused. ``tp_mesh``: see
+    the module's docstring."""
 
-    def __init__(self, cfg: DenoiserConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: DenoiserConfig, dtype=torch.float32, device=None, tp_mesh=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         kw = dict(device=device)
@@ -232,7 +275,7 @@ class NanoAntiTFNet(nn.Module):
                                       dropout=cfg.dropout, **kw)
         self.self_att = SelfAttNet(cfg.sum_d_model, cfg.att_model,
                                    cfg.dim_feedforward, cfg.nhead, cfg.max_len,
-                                   cfg.cs_layers, dtype=dtype, **kw)
+                                   cfg.cs_layers, dtype=dtype, tp_mesh=tp_mesh, **kw)
         self.last_norm = nn.LayerNorm(cfg.sum_d_model, eps=LN_EPS, **kw)
         self.decoder = nn.Linear(cfg.sum_d_model, cfg.n_tokens, **kw)
 

@@ -1,12 +1,12 @@
 """K1, K3, K5, K6 and K7: the fused attention kernels, forward and backward.
 
-Counterpart of hudiff_tpu/ops/pallas_attention.py (all of it except the
-tensor-parallel ``rope_attention_qkv_tp``, which waits for the port's
-parallelism):
+Counterpart of hudiff_tpu/ops/pallas_attention.py:
 
 - ``rope_attention_qkv``: RoPE attention over a head-major merged qkv
   projection; K1 forward (``_rope_fwd_kernel_qkv``), K3 backward
   (``_rope_bwd_kernel_qkv``), the custom VJP of :320-337;
+- ``rope_attention_qkv_tp``: the same on a tensor-parallel rank's heads
+  (:361-404);
 - ``rope_attention``: the same on separate q, k, v; K5 forward
   (``_rope_fwd_kernel``), K6 backward (``_rope_bwd_kernel``), the custom
   VJP of :171-188;
@@ -346,6 +346,31 @@ def rope_attention_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     if torch.is_grad_enabled() and qkv.requires_grad:
         return RopeAttentionQKV.apply(qkv, cos, sin, scale, heads)
     return rope_attention_qkv_forward(qkv, cos, sin, scale, heads)
+
+
+def tp_splits_heads(heads: int, width: int, mesh) -> bool:
+    """Whether ``mesh`` splits attention over ``heads`` heads and a merged
+    qkv of ``width`` columns by head group: tp > 1, ``heads`` divisible by
+    tp and ``width`` by 3 * heads. Elsewhere the call is unsharded, as
+    ``rope_attention_qkv_tp`` falls back in JAX."""
+    tp = 1 if mesh is None else mesh.tp
+    return tp > 1 and not heads % tp and not width % (3 * heads)
+
+
+def rope_attention_qkv_tp(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                          scale: float, heads: int, mesh, width: int) -> torch.Tensor:
+    """Tensor-parallel RoPE attention (pallas_attention.py:361-404): where
+    ``tp_splits_heads(heads, width, mesh)``, ``qkv`` is this rank's
+    contiguous block of the head-major merged projection's ``width``
+    columns, [B, L, width / tp], which holds heads / tp whole heads, and
+    this is ``rope_attention_qkv`` (K1, K3 in its backward) on them: [B, L,
+    heads / tp * 64], the rank's columns of the output, which the
+    row-split out projection contracts with one all-reduce. Elsewhere (tp
+    == 1, heads % tp, width % (3 * heads)) ``qkv`` is the whole projection
+    and the call is unsharded. No collective runs here."""
+    if not tp_splits_heads(heads, width, mesh):
+        return rope_attention_qkv(qkv, cos, sin, scale, heads)
+    return rope_attention_qkv(qkv, cos, sin, scale, heads // mesh.tp)
 
 
 def rope_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -26,6 +26,7 @@ whose backward is K4 on those, returning dx and the 12 parameter gradients
 in f32.
 Otherwise it calls K2 alone, as the sampler does. ``launches`` and
 ``bwd_launches`` count the CUDA kernels K2's and K4's C entries report.
+``block_matmul_flops`` is a call's FLOP count (utils/flops.py).
 """
 from __future__ import annotations
 
@@ -359,3 +360,14 @@ def bytenet_block(x, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         return ByteNetBlockFn.apply(x, *params, dilation, activation_name)
     return _forward(x, params, dilation, activation_name, keep=False)[0]
+
+
+def block_matmul_flops(B: int, L: int, D: int, H: int, K: int,
+                       backward: bool = False) -> float:
+    """Executed matrix-unit FLOPs of one block call, as the JAX package
+    counts them (pallas_bytenet.py:438-446): forward Dense D->H, K conv
+    taps H x H (every tap, padding included), Dense H->D; a forward and
+    backward pass is 3x the forward (the backward's data and weight
+    gradients are twice its matmuls)."""
+    fwd = 2.0 * B * L * (D * H + K * H * H + H * D)
+    return fwd * 3.0 if backward else fwd

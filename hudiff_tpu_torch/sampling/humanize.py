@@ -18,6 +18,17 @@ Usage:
       [--sample-method inpaint]
   python -m hudiff_tpu_torch.sampling.humanize graft --hseq ... --lseq ... \
       [--back-mutation] [--output OUT.csv]
+  # the candidate batch split over the cards of a node (data parallel,
+  # the same tokens as one process; --batch-size and --pack-size must
+  # divide by the number of processes):
+  torchrun --nproc_per_node 8 -m hudiff_tpu_torch.sampling.humanize ab --shard \
+      --ckpt CKPT.pt --data-fpath pairs.csv --pack-size 256
+
+``--shard`` under a world of W > 1 processes (torchrun's environment;
+NCCL on the card, gloo with ``--device cpu``) gives each rank B / W rows
+of every round and gathers them on every rank, so that every rank follows
+the same rounds; rank 0 writes the results, rank r > 0 its copy under
+``<logdir>/rank_<r>/``. Alone, ``--shard`` changes nothing, as in JAX.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from .. import constants as C
 from ..models.denoiser import DenoiserConfig
 from ..numbering import align as AL
 from ..numbering import imgt as IMGT
+from ..parallel import mesh as M
 from ..tokenizer import Tokenizer
 from ..training import checkpoints as CKPT
 from ..training.logger import get_logger, get_new_log_dir, seed_all
@@ -342,13 +354,19 @@ class _Humanizer:
     from a numpy generator and tokens from a ``torch.Generator`` on the
     device, both seeded with ``seed``. A round runs ceil(pad_to /
     ``positions_per_step``) forwards. ``COND`` names the row keys the model
-    is conditioned on."""
+    is conditioned on. ``mesh`` (``parallel.mesh.make_mesh()``, tp = 1)
+    splits each round's rows over its ranks, each on its own device, and
+    gathers them; the sampled tokens are one process's."""
     COND: Tuple[str, ...] = ()
 
     def __init__(self, model, batch_size: int = 16, shuffle: bool = True,
                  seed: int = 2023, device='cuda',
-                 device_batch: Optional[int] = None, positions_per_step: int = 1):
-        self.device = resolve_device(device)
+                 device_batch: Optional[int] = None, positions_per_step: int = 1,
+                 mesh: Optional[M.Mesh] = None):
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None and self.mesh.tp > 1:
+            raise ValueError('sampling splits rows over ranks; build the mesh with tp = 1')
+        self.device = resolve_device(device) if self.mesh is None else M.rank_device(device)
         self.batch_size = batch_size
         self.device_batch = device_batch or batch_size
         self.shuffle = shuffle
@@ -364,10 +382,16 @@ class _Humanizer:
         order = S.build_order_rows([r['positions'] for r in rows],
                                    rng=self.order_rng, shuffle=self.shuffle,
                                    pad_to=pad_to)
-        out = self.run(put('tokens'),
-                       torch.as_tensor(order, dtype=torch.long, device=self.device),
-                       self.generator, *(put(k) for k in self.COND))
-        return out.cpu().numpy().astype(np.int32)
+        order = torch.as_tensor(order, dtype=torch.long, device=self.device)
+        args, mine = [put('tokens'), order, *(put(k) for k in self.COND)], None
+        if self.mesh is not None:
+            B, W = len(rows), self.mesh.world
+            if B % W:
+                raise ValueError(f'--shard: a round of {B} rows does not split over {W} ranks')
+            args = [a[self.mesh.rank * (B // W):(self.mesh.rank + 1) * (B // W)] for a in args]
+            mine = (self.mesh.rank * (B // W), B)
+        out = self.run(args[0], args[1], self.generator, *args[2:], rows=mine)
+        return M.gather_rows(out, self.mesh).cpu().numpy().astype(np.int32)
 
     def sample_rows(self, rows: List[Dict], pad_to: int,
                     batch: Optional[int] = None) -> np.ndarray:
@@ -521,7 +545,7 @@ def run_ab(args) -> str:
                         shuffle=(args.sample_order == 'shuffle'),
                         seed=args.seed, device=args.device,
                         device_batch=max(args.pack_size, args.batch_size),
-                        positions_per_step=args.positions_per_step)
+                        positions_per_step=args.positions_per_step, mesh=args.mesh)
     inpaint = args.sample_method == 'inpaint'
 
     if args.fasta:
@@ -644,7 +668,7 @@ def run_nano(args) -> str:
                         shuffle=(args.sample_order == 'shuffle'), seed=args.seed,
                         device=args.device,
                         device_batch=max(args.pack_size, args.batch_size),
-                        positions_per_step=args.positions_per_step)
+                        positions_per_step=args.positions_per_step, mesh=args.mesh)
     inpaint = args.sample_method == 'inpaint'
     if args.fasta:
         # the first heavy-type record, so that a complex FASTA whose first
@@ -757,6 +781,10 @@ def main(argv=None):
                             'inpainting mask (INPAINT_HEAVY_CDR_INDEX)')
         q.add_argument('--device', default='cuda',
                        help="torch device; 'cpu' runs the plain versions of the kernels")
+        q.add_argument('--shard', action='store_true',
+                       help='split the candidate batch over the processes of a torchrun '
+                            'launch (data-parallel sampling, the same tokens); alone, a '
+                            'no-op')
         if name == 'ab':
             q.add_argument('--fasta', default=None,
                            help='humanize the chain pair in this FASTA')
@@ -784,7 +812,29 @@ def main(argv=None):
     if args.cmd == 'graft':
         return run_graft(args)
     seed_all(args.seed)
-    return run_ab(args) if args.cmd == 'ab' else run_nano(args)
+    args.mesh, started = _maybe_mesh(args)
+    try:
+        return run_ab(args) if args.cmd == 'ab' else run_nano(args)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _maybe_mesh(args):
+    """(mesh, whether this call started the process group): with
+    ``--shard`` in a launch of WORLD_SIZE > 1, the process group on this
+    rank's device (``args.device`` becomes it) and a dp-only mesh, rank r >
+    0 writing under ``<logdir>/rank_<r>``; else (None, False), where
+    ``--shard`` is a no-op, as in JAX (hudiff_tpu/sampling/humanize.py:
+    373-379)."""
+    if not args.shard or int(os.environ.get('WORLD_SIZE', '1')) <= 1:
+        return None, False
+    started = not torch.distributed.is_initialized()
+    args.device = str(M.init_distributed(device=args.device))
+    mesh = M.make_mesh(model_axis=1)
+    if mesh.rank:
+        args.logdir = os.path.join(args.logdir, f'rank_{mesh.rank}')
+    return mesh, started
 
 
 def run_graft(args) -> Optional[str]:

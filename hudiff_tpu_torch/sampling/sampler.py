@@ -16,10 +16,15 @@ of device work with no host synchronisation:
 ``sequential_reference_sampler`` keeps the reference's cost structure
 instead: one forward per position, the tokens read back to the host after
 each draw.
+
+A batch split over ranks (the humanize CLI's ``--shard``) samples the
+same tokens: each rank runs its rows, and every step draws the whole
+batch's noise from the shared seed and keeps those rows (``rows=``), as
+JAX's sharded scan draws ``[B, ...]`` noise whatever the sharding.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,18 +35,25 @@ from .. import constants as C
 SAMPLE_TOP = C.N_TOKENS - 1
 
 
-def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One draw per row of ``logits`` [..., V] (f32), by Gumbel-max."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32)
+def categorical(logits: torch.Tensor, generator: torch.Generator,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One draw per row of ``logits`` [..., V] (f32), by Gumbel-max.
+    ``rows`` = (first, total): ``logits`` are rows first.. of a batch of
+    ``total``; the noise of all ``total`` rows is drawn and theirs kept."""
+    shape = logits.shape if rows is None else (rows[1], *logits.shape[1:])
+    u = torch.rand(shape, generator=generator, device=logits.device, dtype=torch.float32)
+    if rows is not None:
+        u = u[rows[0]:rows[0] + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(logits.float() + gumbel, dim=-1)
 
 
 def make_scan_sampler(apply_fn: Callable[..., torch.Tensor], positions_per_step: int = 1):
-    """``sampler(tokens, order, generator, *cond) -> tokens`` around
-    ``apply_fn(tokens, *cond) -> [B, L, V]`` logits; ``order`` is [B, K]
-    int positions (-1 = no-op). ``tokens`` is not modified.
+    """``sampler(tokens, order, generator, *cond, rows=None) -> tokens``
+    around ``apply_fn(tokens, *cond) -> [B, L, V]`` logits; ``order`` is
+    [B, K] int positions (-1 = no-op). ``tokens`` is not modified. ``rows``
+    = (first, total): these are rows first.. of a batch of ``total`` split
+    over ranks, which draws the whole batch's noise (``categorical``).
 
     ``positions_per_step`` k > 1 pads the order with -1 to a multiple of k
     and runs ceil(K / k) forwards, each drawing its k positions
@@ -51,9 +63,10 @@ def make_scan_sampler(apply_fn: Callable[..., torch.Tensor], positions_per_step:
 
     @torch.inference_mode()
     def sampler(tokens: torch.Tensor, order: torch.Tensor,
-                generator: torch.Generator, *cond) -> torch.Tensor:
+                generator: torch.Generator, *cond,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         B, L = tokens.shape
-        rows = torch.arange(B, device=tokens.device)[:, None]
+        row_ix = torch.arange(B, device=tokens.device)[:, None]
         n_steps = -(-order.shape[1] // k)
         order = torch.nn.functional.pad(order, (0, n_steps * k - order.shape[1]), value=-1)
         # column L takes the writes of -1 slots (JAX drops them), so a padded
@@ -63,8 +76,9 @@ def make_scan_sampler(apply_fn: Callable[..., torch.Tensor], positions_per_step:
         for pos in order.reshape(B, n_steps, k).unbind(1):     # pos: [B, k]
             valid = pos >= 0
             logits = apply_fn(grid, *cond)                  # [B, L, V]
-            sel = logits[rows, torch.where(valid, pos, 0), :SAMPLE_TOP]
-            buf[rows, torch.where(valid, pos, L)] = categorical(sel, generator).to(buf.dtype)
+            sel = logits[row_ix, torch.where(valid, pos, 0), :SAMPLE_TOP]
+            buf[row_ix, torch.where(valid, pos, L)] = categorical(sel, generator,
+                                                                 rows).to(buf.dtype)
         return grid.clone()
 
     return sampler

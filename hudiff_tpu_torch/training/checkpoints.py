@@ -178,20 +178,25 @@ def from_payload(payload: Mapping[str, Any], dtype: torch.dtype = torch.float32,
 
 def save_training(ckpt_dir: str, step: int, model: torch.nn.Module,
                   optimizer: torch.optim.Optimizer, config: Optional[dict] = None,
-                  extra: Optional[dict] = None) -> str:
+                  extra: Optional[dict] = None,
+                  state: Optional[Tuple[dict, dict]] = None) -> str:
     """Write ``step_<step>.pt`` (model and optimizer state), its
     ``step_<step>.json`` metadata and the ``LATEST`` marker; returns the
     ``.pt`` path. ``config`` is plain data: ``{'model': ..., 'train': ...,
     'kind': ...}`` (a fine-tune's also ``'finetuned': True``, which the
     ``.pt`` file's config keeps for ``load``); the kind saved is the
-    model's."""
+    model's. ``state``, when given, is the (model, optimizer) state dicts
+    to write instead of the objects' own (a tensor-parallel run's, gathered
+    to the full model's)."""
     config = dict(config or {}, kind=model_kind(model))
     path = os.path.abspath(os.path.join(ckpt_dir, f'step_{step}.pt'))
+    model_sd, opt_sd = state if state is not None else (model.state_dict(),
+                                                        optimizer.state_dict())
     torch.save({'config': {'model': dict(config.get('model', {})),
                            'finetuned': bool(config.get('finetuned', False)),
                            'kind': config['kind']},
-                'model': _host_state(model),
-                'optimizer': optimizer.state_dict()}, path)
+                'model': {k: v.detach().cpu() for k, v in model_sd.items()},
+                'optimizer': opt_sd}, path)
     meta = {'step': step, 'config': config, **(extra or {})}
     with open(os.path.join(ckpt_dir, f'step_{step}.json'), 'w') as f:
         json.dump(meta, f, indent=2, default=float)

@@ -15,7 +15,9 @@ The optimizer is ``torch.optim.Adam`` / ``AdamW``. torch's Adam applies
 ``_adam_l2`` (add_decayed_weights, then adam); ``AdamW`` decays the weights
 decoupled, as ``optax.adamw``. Gradient clipping by global norm comes first
 (``TrainState.apply_gradients`` calls ``clip_gradients`` before the step),
-in the order of ``optax.chain(clip_by_global_norm, ...)``.
+in the order of ``optax.chain(clip_by_global_norm, ...)``; a
+tensor-parallel model's global norm sums its split parameters over the TP
+group (``parallel.mesh.grad_norm``).
 """
 from __future__ import annotations
 
@@ -149,11 +151,22 @@ def make_optimizer(opt_cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim
     raise ValueError(f'unknown optimizer: {kind}')
 
 
-def clip_gradients(params: Iterable[torch.nn.Parameter], clip_norm: Optional[float]) -> None:
+def clip_gradients(params: Iterable[torch.nn.Parameter], clip_norm: Optional[float],
+                   norm: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """Scale the gradients to a global norm of at most ``clip_norm`` (none
-    when it is falsy), as ``optax.clip_by_global_norm``."""
-    if clip_norm:
-        torch.nn.utils.clip_grad_norm_(params, clip_norm)
+    when it is falsy), as ``optax.clip_by_global_norm``; returns the norm
+    before clipping. ``norm``, when given, is that norm, taken by the
+    caller (a tensor-parallel model's spans ranks: ``parallel.mesh.
+    grad_norm``); the scale is ``clip_grad_norm_``'s."""
+    if not clip_norm:
+        return None
+    if norm is None:
+        return torch.nn.utils.clip_grad_norm_(params, clip_norm)
+    scale = torch.clamp(clip_norm / (norm + 1e-6), max=1.0)
+    for p in params:
+        if p.grad is not None:
+            p.grad.mul_(scale.to(p.grad.dtype))
+    return norm
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:

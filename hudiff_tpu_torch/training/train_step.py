@@ -16,6 +16,15 @@ keys the JAX step (train_step.py:79); torch's draws are not JAX's. A step
 may instead be handed a fixed ``Corrupted``, which the parity tests use.
 The pair step trains ``AntiTFNet`` on [B, 291] grids, the heavy step
 ``NanoAntiTFNet`` on [B, 152] ones.
+
+Under a ``parallel.mesh.Mesh`` (``mesh=``) a step is handed its node's
+whole batch and corrupts all of it, so that one node draws what one
+process draws; each rank then runs the model on its DP rows
+(``batch_slice``), the logits of every DP rank are gathered, and the loss
+is taken over the gathered batch on every rank, as GSPMD takes it over the
+global array. Each rank's gradients are its rows' share of that loss;
+``TrainState`` sums them over the DP group, clips by the global norm
+(split parameters summed over the TP group) and steps.
 """
 from __future__ import annotations
 
@@ -27,20 +36,33 @@ import torch
 
 from .. import constants as C
 from ..ops import losses, masking
+from ..parallel import mesh as M
 from . import schedules
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer and the count of optimizer steps; gradients
-    are clipped to ``clip_norm`` (none when falsy) before each update."""
+    are clipped to ``clip_norm`` (none when falsy) before each update. Under
+    ``mesh`` they are first summed over the DP group, and the clip takes the
+    global norm (``parallel.mesh.grad_norm``). ``grad_norm`` is the last
+    update's norm before clipping (a tensor; None without clipping)."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     clip_norm: Optional[float] = None
     step: int = 0
+    mesh: Optional[M.Mesh] = None
+    grad_norm: Optional[torch.Tensor] = None
 
     def apply_gradients(self) -> None:
-        schedules.clip_gradients(self.model.parameters(), self.clip_norm)
+        if self.mesh is None:
+            self.grad_norm = schedules.clip_gradients(self.model.parameters(), self.clip_norm)
+        else:
+            M.reduce_gradients(self.model.parameters(), self.mesh)
+            self.grad_norm = schedules.clip_gradients(
+                self.model.parameters(), self.clip_norm,
+                norm=M.grad_norm(self.model.named_parameters(), self.mesh)
+                if self.clip_norm else None)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
@@ -81,13 +103,26 @@ def _pair_loss(logits, tokens, mask, cdr_mask, loss_type: str, l_weight: float):
     return m
 
 
+def _local_rows(mesh, B, *ts):
+    """This rank's DP rows of each [B, ...] tensor of the node's batch."""
+    rows = M.batch_slice(mesh, B)
+    return [t[rows] for t in ts]
+
+
+def _gathered(mesh, *ts):
+    """Each rank's rows of every tensor, over the DP group (the logits'
+    gradient flows back to this rank's rows)."""
+    return [M.gather_rows(t, mesh) for t in ts]
+
+
 def make_pair_train_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
-                         mouse: bool = False) -> Callable:
+                         mouse: bool = False, mesh: Optional[M.Mesh] = None) -> Callable:
     """Returns ``step(state, tokens, chain_type, seed, corrupted=None) ->
     metrics``: one optimizer step on clean grids ``tokens`` [B, 291] with
     ``chain_type`` [B, 2]; metrics are detached 0-d tensors on the device
     (``loss`` among them). ``model`` is ``state.model``, as in the JAX
-    factory's signature."""
+    factory's signature. Under ``mesh`` the grids are the node's batch (see
+    the module's docstring)."""
     rows = {}
 
     def step(state: TrainState, tokens: torch.Tensor, chain_type: torch.Tensor, seed: int,
@@ -102,8 +137,11 @@ def make_pair_train_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
         cdr_mask = (cdr_row != 0).expand(B, C.PAIR_LEN)
         cor = corrupted if corrupted is not None else masking.corrupt(
             generator(dev, seed, state.step), tokens, protected)
-        logits = state.model(cor.src, region, chain_type)
-        m = _pair_loss(logits, tokens, cor.mask, cdr_mask, loss_type, l_weight)
+        src, tgt, mask, cdr_mask, region, chain_type = _local_rows(
+            mesh, B, cor.src, tokens, cor.mask, cdr_mask, region, chain_type)
+        logits, tgt, mask, cdr_mask = _gathered(
+            mesh, state.model(src, region, chain_type), tgt, mask, cdr_mask)
+        m = _pair_loss(logits, tgt, mask, cdr_mask, loss_type, l_weight)
         m['loss'].backward()
         state.apply_gradients()
         return {k: v.detach() for k, v in m.items()}
@@ -111,10 +149,11 @@ def make_pair_train_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
     return step
 
 
-def make_heavy_train_step(model) -> Callable:
+def make_heavy_train_step(model, mesh: Optional[M.Mesh] = None) -> Callable:
     """Nanobody pretrain step ``step(state, tokens, seed, corrupted=None) ->
     metrics`` on clean [B, 152] grids: the framework is corrupted, the CDRs
-    are protected (reference nanobody_scripts/nanotrain.py:43-335)."""
+    are protected (reference nanobody_scripts/nanotrain.py:43-335). Under
+    ``mesh``: as ``make_pair_train_step``."""
     rows = {}
 
     def step(state: TrainState, tokens: torch.Tensor, seed: int,
@@ -127,8 +166,11 @@ def make_heavy_train_step(model) -> Callable:
         protected = (cdr_row != 0).expand(B, C.HEAVY_LEN)
         cor = corrupted if corrupted is not None else masking.corrupt(
             generator(dev, seed, state.step), tokens, protected)
-        logits = state.model(cor.src, region_row.expand(B, C.HEAVY_LEN))
-        m = _heavy_loss(logits, tokens, cor.mask, protected)
+        src, tgt, mask, protected, region = _local_rows(
+            mesh, B, cor.src, tokens, cor.mask, protected, region_row.expand(B, C.HEAVY_LEN))
+        logits, tgt, mask, protected = _gathered(
+            mesh, state.model(src, region), tgt, mask, protected)
+        m = _heavy_loss(logits, tgt, mask, protected)
         m['loss'].backward()
         state.apply_gradients()
         return {k: v.detach() for k, v in m.items()}
@@ -165,11 +207,13 @@ def evaluate(step_metrics_fn: Callable[[Dict[str, Any], int], Dict[str, Any]],
 
 
 def make_eval_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
-                   pair: bool = True) -> Callable:
+                   pair: bool = True, mesh: Optional[M.Mesh] = None) -> Callable:
     """Validation step ``step(tokens, chain_type, generator) -> metrics``:
     deterministic forward (``model.eval()``, no autograd), the same losses,
     no update; the model's mode is restored afterwards. ``pair=False`` is
-    the heavy (nanobody) step: ``chain_type`` is ignored (pass None)."""
+    the heavy (nanobody) step: ``chain_type`` is ignored (pass None). Under
+    ``mesh`` the metrics are those of the gathered global batch, the same
+    on every rank."""
     rows = {}
 
     def step(tokens: torch.Tensor, chain_type: Optional[torch.Tensor],
@@ -181,15 +225,18 @@ def make_eval_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
         B, L = tokens.shape
         protected = (cdr_row != 0).expand(B, L)
         cor = masking.corrupt(gen, tokens, protected)
+        src, tgt, mask, protected, region = _local_rows(
+            mesh, B, cor.src, tokens, cor.mask, protected, region_row.expand(B, L))
+        cond = () if not pair else tuple(_local_rows(mesh, B, chain_type))
         was_training = model.training
         model.eval()
         try:
             with torch.no_grad():
+                logits, tgt, mask, protected = _gathered(
+                    mesh, model(src, region, *cond), tgt, mask, protected)
                 if not pair:
-                    return _heavy_loss(model(cor.src, region_row.expand(B, L)), tokens,
-                                       cor.mask, protected)
-                logits = model(cor.src, region_row.expand(B, L), chain_type)
-                return _pair_loss(logits, tokens, cor.mask, protected, loss_type, l_weight)
+                    return _heavy_loss(logits, tgt, mask, protected)
+                return _pair_loss(logits, tgt, mask, protected, loss_type, l_weight)
         finally:
             model.train(was_training)
 

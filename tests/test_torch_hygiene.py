@@ -68,3 +68,17 @@ def _imported_roots(path: Path):
 def test_no_forbidden_import_statements(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f'{path} imports {bad}'
+
+
+def test_module_walk_finds_the_parallel_and_tool_modules():
+    """The runtime probe above imports what ``pkgutil.walk_packages`` finds:
+    ``parallel/`` is a package of its own, and the flop counter and the
+    tools are among the modules it reaches."""
+    import pkgutil
+
+    import hudiff_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(hudiff_tpu_torch.__path__,
+                                                   'hudiff_tpu_torch.')}
+    for name in ('parallel', 'parallel.mesh', 'parallel.megatron', 'utils.flops',
+                 'tools.train_breakdown', 'tools.perf_breakdown', 'tools.parallel_check'):
+        assert f'hudiff_tpu_torch.{name}' in names, name
