@@ -118,7 +118,26 @@ version on the card. Then:
   ``tools/perf_breakdown.py`` at full width). The multi-rank phases run two
   ranks on one card: they hold correctness, not scaling. K1-K4 carry
   ``launches_parallel_tp_per_rank`` and ``launches_parallel_dp_per_rank``,
-  K1 and K3 ``tp_H4_*`` and ``tp_H2_*``.
+  K1 and K3 ``tp_H4_*`` and ``tp_H2_*``;
+- the JAX package's Orbax checkpoints and the dataset tools (the twelfth
+  slice), after the eval phases: ``orbax_read`` (both in-repo demos read by
+  the port's own OCDBT and zarr readers over the host's libzstd, with jax,
+  orbax, tensorstore and zstandard blocked: seconds, MB, MB/s, arrays, the
+  libzstd found, and a SHA-256 over the
+  leaves held against ORBAX_DEMO_DIGESTS, JAX's reading by a CPU test),
+  ``demo_forward_f32`` (each demo's logits, card against CPU),
+  ``K1_demo`` / ``K2_demo`` / ``K2_demo_nano`` / ``K2_pps`` (K1 and K2
+  against their plain versions at the demos' shapes: d_model 64 / hidden 32
+  at K = 13 with GELU, the Ab dual tower 192/96 ReLU, the Nb nano_conv
+  128/64 GELU, attention at L = 291 and 152; and at full width at the
+  pps_quality batch), ``demo_humanize`` (the ``ab`` and ``nano`` CLIs with
+  ``--ckpt`` the demo directories: CDRs kept, counters against the
+  forwards and a profile: K1 2 and K2 18 / 9 a forward; then
+  ``api.humanize_pair`` on the Ab demo), ``regen_demo_eval`` (subset mode,
+  Ab and Nb, over CSVs of this file's chains), ``pps_quality`` (full width,
+  k = 1, 2, 4, 8 over three seeds, and the tool's ``main`` on a tiny model)
+  and ``germline_margin``. K1 and K2 carry ``launches_demo_*``,
+  ``launches_pps_quality*`` and ``demo_*`` shape keys.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -299,11 +318,12 @@ def emit(obj):
 
 
 def fail(msg):
-    """Stop with exit code 1: the error on stdout, and on stderr beside the
-    last record emitted, so that the end of either stream says what failed."""
+    """Stop with exit code 1: the error on stdout, and on stderr after the
+    last record emitted (its first 4000 characters), so that the last line
+    of either stream says what failed."""
     last = json.dumps(_last_record[0])[:4000] if _last_record else 'none'
     emit({'phase': 'failed', 'error': msg})
-    print(f'chip_smoke failed: {msg}\nlast record: {last}', file=sys.stderr, flush=True)
+    print(f'last record: {last}\nchip_smoke failed: {msg}', file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -777,6 +797,9 @@ def main():
     # -- the evaluation path and the released payloads -------------------------
     evaluated = eval_phases(torch, dev, ab_tuned, nano_tuned)
 
+    # -- the JAX package's Orbax checkpoints, the demos and the dataset tools ----
+    orbax = orbax_phases(torch, dev, ab_tuned)
+
     # -- parallelism, the flop counter and the breakdown tools -------------------
     parallel = parallel_phases(torch, gen, dev, ab_ckpt)
 
@@ -806,7 +829,7 @@ def main():
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
          **nk['K1'], **tuned['K1'], 'launches_serve': served['K1'], **evaluated['K1'],
-         **parallel['K1']},
+         **parallel['K1'], **orbax['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -823,7 +846,8 @@ def main():
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
                   'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2'],
-         'launches_serve': served['K2'], **evaluated['K2'], **parallel['K2']},
+         'launches_serve': served['K2'], **evaluated['K2'], **parallel['K2'],
+         **orbax['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -2534,8 +2558,9 @@ ROUND_MARK_CYCLES = 1000   # torch.cuda._sleep around each profiled round
 def _serve_burst(torch, SV, svc, prep, requests=SERVE_REQUESTS):
     """``requests`` against ``svc`` behind ``serve(port=0)`` in a thread,
     released together from a barrier, then /health and /metrics: (K1/K2
-    launches, wall s, replies as (status, body, client s), /health,
-    /metrics). The counters and the host-prep log ``prep`` are set to 0
+    launches, wall s, replies as (status, body, client s) or, where the
+    connection failed, (its error, None, client s), /health, /metrics).
+    The counters and the host-prep log ``prep`` are set to 0
     just before the release; the server is shut down after."""
     import threading
     import urllib.error
@@ -2559,6 +2584,8 @@ def _serve_burst(torch, SV, svc, prep, requests=SERVE_REQUESTS):
                 replies[i] = (r.status, json.loads(r.read()), time.perf_counter() - t)
         except urllib.error.HTTPError as e:
             replies[i] = (e.code, json.loads(e.read()), time.perf_counter() - t)
+        except OSError as e:   # a connection refused, reset or timed out
+            replies[i] = (f'{type(e).__name__}: {e}', None, time.perf_counter() - t)
 
     threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
     for t in threads:
@@ -3143,16 +3170,17 @@ def _eval_pairs():
 
 
 def _counting_rounds(cls, forwards):
-    """Wrap ``cls.sample_rows`` adding each round's forwards (ceil(pad_to /
-    k)) to ``forwards[0]``; returns the undo."""
-    orig = cls.sample_rows
+    """Wrap ``cls._sample`` (every round of a humanizer, packed or not)
+    adding its forwards (ceil(pad_to / k)) to ``forwards[0]``; returns the
+    undo."""
+    orig = cls._sample
 
-    def recording(self, rows, pad_to, batch=None):
+    def recording(self, rows, pad_to):
         forwards[0] += -(-pad_to // self.positions_per_step)
-        return orig(self, rows, pad_to, batch=batch)
+        return orig(self, rows, pad_to)
 
-    cls.sample_rows = recording
-    return lambda: setattr(cls, 'sample_rows', orig)
+    cls._sample = recording
+    return lambda: delattr(cls, '_sample')   # back to the base class's
 
 
 def _run_cli(fn, argv):
@@ -3787,6 +3815,486 @@ def parallel_phases(torch, gen, dev, ab_ckpt):
             keys[k][f'tp_H{heads}_shape'] = (f'B={TRAIN_B} L=291 H={heads} D=64 bf16'
                                              + (", given K1's residuals" if k == 'K3' else ''))
     return keys
+
+
+# -- the twelfth slice: the JAX package's Orbax checkpoints and the dataset tools --
+DEMO_DIRS = {'ab': 'examples/demo_ab_tiny', 'nb': 'examples/demo_nb_tiny'}
+DEMO_KIND = {'ab': 'pair', 'nb': 'heavy'}
+ORBAX_BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard')
+DEMO_BATCHES = (16, 64)   # demo_humanize and api (16 rows), regen_demo_eval (4 x 16)
+REGEN_SUBSET = 4
+PPS_KS = (1, 2, 4, 8)
+PPS_SEEDS = (2023, 2024, 2025)
+PPS_MICE = 8
+PPS_ROWS = 16
+PPS_DEVICE_BATCH = 128
+PPS_MAIN_STEPS = 100
+
+
+def repo_chain_csvs(root, n_vhh=8):
+    """CSVs in the dataset tools' layouts, built from the chains in this
+    file (no dataset is in the repository): a HuAb348-layout pair CSV
+    (``type``, ``name``, ``order_name``, ``h_seq``, ``l_seq``) of the
+    sixteen ``_eval_pairs`` as ``mouse`` rows and their germline CDR grafts
+    as ``humanized`` rows under the same names, and a VHH CSV (``vhh_seq``)
+    of VHH1, VHH2 and seeded framework mutants with their CDRs. Returns
+    (pair CSV, VHH CSV)."""
+    import csv
+    import numpy as np
+    from hudiff_tpu_torch.numbering import germline as G
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    os.makedirs(root, exist_ok=True)
+    pairs = _eval_pairs()
+    pair_csv = os.path.join(root, 'repo_pairs.csv')
+    with open(pair_csv, 'w', newline='') as f:
+        w = csv.writer(f)
+        w.writerow(['type', 'name', 'order_name', 'h_seq', 'l_seq'])
+        for i, (name, h, l) in enumerate(pairs):
+            w.writerow(['mouse', name, f'{i}_mouse', h, l])
+        for i, (name, h, l) in enumerate(pairs):
+            w.writerow(['humanized', name, f'{i}_humanized', *G.cdr_pair_grafting(h, l)])
+    rs = np.random.RandomState(SEED + 64)
+    vhhs = [VHH1, VHH2]
+    while len(vhhs) < n_vhh:
+        src = vhhs[len(vhhs) % 2]
+        m = _mutant(src, rs, 3)
+        if HZ.nano_input(m) is not None and _region_cdrs(m) == _region_cdrs(src):
+            vhhs.append(m)
+    vhh_csv = os.path.join(root, 'repo_vhh.csv')
+    with open(vhh_csv, 'w', newline='') as f:
+        w = csv.writer(f)
+        w.writerow(['vhh_seq'])
+        w.writerows([v] for v in vhhs)
+    return pair_csv, vhh_csv
+
+
+# The in-repo Orbax demos (examples/demo_*_tiny): SHA-256, leaf count and bytes
+# over every leaf in key order (hudiff_tpu_torch/training/orbax.py::leaves_digest)
+# of what hudiff_tpu.training.checkpoints.restore gives; a CPU test
+# (tests/test_torch_orbax.py) holds these equal to JAX's reading, and the card
+# host's reading (no JAX there) is held against them.
+ORBAX_DEMO_DIGESTS = {
+    'ab': ('ce5585fec28315d020b07ce100dd31bcb47fc390c1cbee4ad7ee5eb59400086e', 111, 6731292),
+    'nb': ('12bcd569c82073e2571d336516a1277e1db2192d38dc52e4e201b9c510bb7594', 68, 3097580),
+}
+
+
+def _demo_dir(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), DEMO_DIRS[name])
+
+
+def demo_kernels_per_forward(cfg, kind):
+    """K1 and K2 launches in one forward of a model of ``cfg``: two
+    attentions a self-attention block; three K2 kernels a ByteNet block
+    (Ab: the h and l towers of the aa and dual encoders; Nb: the aa tower
+    and nano_conv)."""
+    blocks = (2 * (cfg.n_encoder_layers + cfg.dual_layers) if kind == 'pair'
+              else cfg.n_encoder_layers + cfg.dual_layers)
+    return {'K1': 2 * cfg.cs_layers, 'K2': 3 * blocks}
+
+
+def orbax_read_phase():
+    """Both demos read by ``training/orbax.py`` with the JAX stack and
+    zstandard blocked in ``sys.modules`` (an import of any raises):
+    seconds, bytes read and decoded, the rate, the array count, and the
+    SHA-256 over every leaf in key order against ORBAX_DEMO_DIGESTS (JAX's
+    reading, held by tests/test_torch_orbax.py). Also whether each blocked
+    package is installed on this host at all, and the host's libzstd that
+    decompressed the chunks (``ctypes.util.find_library`` and its version)."""
+    import ctypes.util
+    import importlib.util
+    from hudiff_tpu_torch import native
+    from hudiff_tpu_torch.training import orbax as OB
+    installed = {}
+    for name in ORBAX_BLOCKED:
+        try:
+            installed[name] = importlib.util.find_spec(name) is not None
+        except (ImportError, ValueError):
+            installed[name] = False
+    native.load()   # the native library's build is not part of the reading
+    libzstd = {'find_library': ctypes.util.find_library('zstd'),
+               'version': native.zstd_version()}
+    saved = {name: sys.modules.get(name) for name in ORBAX_BLOCKED}
+    out = {}
+    try:
+        for name in ORBAX_BLOCKED:
+            sys.modules[name] = None
+        for name in ('ab', 'nb'):
+            path = _demo_dir(name)
+            t0 = time.perf_counter()
+            restored = OB.restore_orbax(path)
+            seconds = time.perf_counter() - t0
+            on_disk = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, fs in os.walk(OB.step_dir(path, restored['step']))
+                          for f in fs)
+            digest, n, nbytes = OB.leaves_digest(restored['payload'])
+            rec = {'phase': 'orbax_read', 'demo': DEMO_DIRS[name], 'step': restored['step'],
+                   'seconds': seconds, 'arrays': n, 'mb_decoded': nbytes / 1e6,
+                   'mb_on_disk': on_disk / 1e6, 'mb_per_s': nbytes / 1e6 / seconds,
+                   'sha256': digest, 'sha256_expected': ORBAX_DEMO_DIGESTS[name][0]}
+            out[name] = rec
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+    loaded = sorted(n for n in ORBAX_BLOCKED if sys.modules.get(n) is not None)
+    for name, rec in out.items():
+        rec.update(installed_on_host=installed, blocked_modules_loaded=loaded,
+                   libzstd=libzstd)
+        emit(rec)
+        if (rec['sha256'], rec['arrays'], int(round(rec['mb_decoded'] * 1e6))) != \
+                ORBAX_DEMO_DIGESTS[name] or loaded:
+            fail(f'orbax_read: {DEMO_DIRS[name]} read other leaves than JAX reads, or a '
+                 f'blocked package was loaded: {loaded}')
+
+
+def demo_forward_phase(torch, dev):
+    """Each demo loaded by ``load_denoiser`` from its Orbax directory: f32
+    logits on the card against the CPU (FORWARD_ATOL)."""
+    import numpy as np
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    for name in ('ab', 'nb'):
+        kind = DEMO_KIND[name]
+        cpu, _ = HZ.load_denoiser(_demo_dir(name), kind, device='cpu', use_bf16=False)
+        gpu, finetuned = HZ.load_denoiser(_demo_dir(name), kind, device=dev, use_bf16=False)
+        rs = np.random.RandomState(SEED + 5)
+        L = C.PAIR_LEN if kind == 'pair' else C.HEAVY_LEN
+        args = [torch.from_numpy(rs.randint(0, C.N_TOKENS, (4, L))).long()]
+        if kind == 'pair':
+            args += [torch.from_numpy(np.tile(np.concatenate(
+                [C.HEAVY_REGION_INDEX, C.LIGHT_REGION_INDEX]), (4, 1))).long(),
+                torch.tensor([[0, 1], [0, 2], [0, 1], [0, 2]])]
+        else:
+            args += [torch.from_numpy(np.tile(C.HEAVY_REGION_INDEX, (4, 1))).long()]
+        with torch.inference_mode():
+            ref = cpu(*args)
+            out = gpu(*(a.to(dev) for a in args)).cpu()
+        err = (out - ref).abs().max().item()
+        rec = {'phase': 'demo_forward_f32', 'demo': DEMO_DIRS[name], 'B': 4,
+               'shape': list(out.shape), 'max_abs_err': err, 'tol': FORWARD_ATOL,
+               'max_abs_logit': ref.abs().max().item(), 'finetuned': finetuned}
+        emit(rec)
+        if not (torch.isfinite(out).all().item() and err <= FORWARD_ATOL):
+            fail(f'demo_forward_f32: {DEMO_DIRS[name]} on the card disagrees with the CPU')
+        del cpu, gpu
+
+
+def demo_kernel_phases(torch, dev):
+    """K1 and K2 against their plain versions at every shape the demos and
+    the pps_quality phase give them, f32 and bf16 (the K1/K2 limits), timed
+    with their bounds and library times: K1 at 8 heads x 64 over L = 291
+    (Ab) and 152 (Nb), B in DEMO_BATCHES and, at full width, PPS_DEVICE_BATCH;
+    K2 at the Ab demo's 64/32 GELU (K = 13, L = 152 and 139) and 192/96 ReLU
+    towers, the Nb demo's 128/64 GELU nano_conv (L = 152; its 64/32 aa tower
+    is the Ab demo's heavy one), B in DEMO_BATCHES, and at full width the
+    256/128 GELU and 768/384 ReLU towers at dilation 1, B = PPS_DEVICE_BATCH.
+    Returns {(kernel, shape key): record}."""
+    from hudiff_tpu_torch import constants as C
+    from hudiff_tpu_torch.models.denoiser import DenoiserConfig
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    from hudiff_tpu_torch.training import orbax as OB
+    gen = torch.Generator(device='cpu').manual_seed(SEED + 21)
+    torch.manual_seed(SEED + 21)
+    heads, hd = 8, 64
+    out = {}
+    for L, batches in ((C.PAIR_LEN, DEMO_BATCHES + (PPS_DEVICE_BATCH,)),
+                       (C.HEAVY_LEN, DEMO_BATCHES)):
+        cos, sin = rope_tables(hd, L, device=dev)
+        for B in batches:
+            for dtype in (torch.float32, torch.bfloat16):
+                qkv = torch.randn(B, L, heads * 3 * hd, generator=gen).to(dev, dtype)
+                rec = k1_record(torch, qkv, cos, sin, heads, 'K1_demo')
+                out[('K1', L, B, rec['dtype'])] = rec
+                del qkv
+    cfgs = {}
+    for name in ('ab', 'nb'):
+        meta = OB.restore_orbax(_demo_dir(name))['meta']['config']['model']
+        cfgs[name] = DenoiserConfig.from_dict(meta)
+    ab, nb = cfgs['ab'], cfgs['nb']
+    k2 = k2_phase(torch, gen, dev, [(ab.d_model, ab.activation, ab.n_encoder_layers),
+                                    (ab.sum_d_model, 'relu', ab.dual_layers)],
+                  DEMO_BATCHES, (C.HEAVY_LEN, C.LIGHT_LEN), ab.aa_kernel_size, ab.r,
+                  'K2_demo')
+    out.update({('K2', 'ab', B, dt): rec for (B, dt), rec in k2.items()})
+    k2 = k2_phase(torch, gen, dev, [(nb.sum_d_model, nb.activation, nb.dual_layers)],
+                  DEMO_BATCHES, (C.HEAVY_LEN,), nb.aa_kernel_size, nb.r, 'K2_demo_nano')
+    out.update({('K2', 'nb', B, dt): rec for (B, dt), rec in k2.items()})
+    full = DenoiserConfig()
+    k2 = k2_phase(torch, gen, dev, [(full.d_model, full.activation, 1),
+                                    (full.sum_d_model, 'relu', 1)],
+                  (PPS_DEVICE_BATCH,), (C.HEAVY_LEN, C.LIGHT_LEN), full.aa_kernel_size,
+                  full.r, 'K2_pps')
+    out.update({('K2', 'pps', B, dt): rec for (B, dt), rec in k2.items()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def demo_humanize_phase(torch, dev):
+    """``humanize ab`` and ``humanize nano`` with ``--ckpt`` the Orbax demos
+    (bf16, 16 rows; in this process, stdout captured): CDRs kept, counters
+    equal to the kernels of the rounds' forwards (K1 2 x cs_layers, K2 3 x
+    the ByteNet blocks a forward, from the demo's config), and a profile of
+    the demo's forwards whose counters must equal the K1/K2 kernels seen.
+    Then ``api.humanize_pair(ckpt=examples/demo_ab_tiny)``. Returns the
+    launches of each."""
+    from hudiff_tpu_torch import api
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'orbax')
+    out = {}
+    for name, argv, cls in (
+            ('ab', ['ab', '--hseq', H1, '--lseq', L1], HZ.PairHumanizer),
+            ('nb', ['nano', '--vhh-seq', VHH1], HZ.NanoHumanizer)):
+        kind = DEMO_KIND[name]
+        model, _ = HZ.load_denoiser(_demo_dir(name), kind, device=dev)
+        per_forward = demo_kernels_per_forward(model.cfg, kind)
+        forwards = [0]
+        undo = _counting_rounds(cls, forwards)
+        try:
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sample_csv, _ = _run_cli(HZ.main, [
+                *argv, '--ckpt', _demo_dir(name), '--batch-size', '16',
+                '--logdir', os.path.join(root, f'humanize_{name}'), '--device', dev.type])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {'K1': FA.launches, 'K2': FB.launches}
+        finally:
+            undo()
+        expected = {k: v * forwards[0] for k, v in per_forward.items()}
+        samples = [r for r in _sample_rows(sample_csv) if r['Specific'] == 'humanization']
+        if kind == 'pair':
+            group = HZ.pair_input(H1, L1)['l_group']
+            kept = [_region_cdrs(r['hseq'], r['lseq'], group) == _region_cdrs(H1, L1, group)
+                    for r in samples]
+            inputs = [HZ.pair_input(H1, L1)]
+        else:
+            kept = [_region_cdrs(r['vhh_seq']) == _region_cdrs(VHH1) for r in samples]
+            inputs = [HZ.nano_input(VHH1)]
+        hum = cls(model, batch_size=16, device=dev)
+        seen = profile(torch, model, hum, inputs, phase=f'profile_demo_{name}')
+        rec = {'phase': 'demo_humanize', 'demo': DEMO_DIRS[name], 'rows': 16,
+               'forwards': forwards[0], 'wall_s': wall, 'samples': len(samples),
+               'cdrs_kept': kept, 'launches': launched, 'expected_launches': expected,
+               'kernels_per_forward_from_config': per_forward,
+               'profiled_launches_per_forward': seen}
+        emit(rec)
+        if not (samples and all(kept) and launched == expected
+                and {k: seen[k] for k in per_forward} == per_forward
+                and not any(v for k, v in seen.items() if k not in per_forward)):
+            fail(f'demo_humanize {name}: no sample, a CDR changed, or the launches '
+                 f'{launched} differ from the forwards {expected} / the profile {seen}')
+        out[name] = launched
+        del model, hum
+    api._HUMANIZER_CACHE.clear()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cands = api.humanize_pair(H1, L1, ckpt=_demo_dir('ab'), n=2, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {'K1': FA.launches, 'K2': FB.launches}
+    group = HZ.pair_input(H1, L1)['l_group']
+    kept = [_region_cdrs(h, l, group) == _region_cdrs(H1, L1, group) for h, l in cands]
+    emit({'phase': 'demo_api', 'ckpt': DEMO_DIRS['ab'], 'candidates': len(cands),
+          'cdrs_kept': kept, 'wall_s': wall, 'launches': launched})
+    if not (cands and len(set(cands)) == len(cands) and all(kept) and launched['K1']
+            and launched['K2']):
+        fail('demo_api: api.humanize_pair on the Ab demo gave no candidate, changed a CDR '
+             'or launched no K1/K2')
+    api._HUMANIZER_CACHE.clear()
+    out['api'] = launched
+    torch.cuda.empty_cache()
+    return out
+
+
+def regen_phase(csvs):
+    """``tools/regen_demo_eval`` in subset mode (REGEN_SUBSET antibodies),
+    Ab and Nb, its CSV constants pointed at the repository's chains: the
+    port's CLIs in processes of their own on the Orbax demos. Holds
+    n_matched = n and every sample's realigned CDRs equal to its parent's;
+    the tool's bands (which ``regen_ab`` / ``regen_nano`` hold) are taken
+    here as readings, since a few antibodies do not make a mean. The CLIs'
+    launches are in their own processes and not counted here (demo_humanize
+    counts the same CLIs)."""
+    import csv
+    from hudiff_tpu_torch.eval import harness as EH
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.tools import regen_demo_eval as RG
+    RG.HUAB348, RG.VHH_CSV = csvs
+    with open(csvs[0], newline='') as f:
+        parents = {r['name']: (r['h_seq'], r['l_seq']) for r in csv.DictReader(f)
+                   if r['type'] == 'mouse'}
+    with open(csvs[1], newline='') as f:
+        vhhs = [r['vhh_seq'] for r in csv.DictReader(f)]
+    for kind, check in (('ab', RG.check_ab_bands), ('nano', RG.check_nano_bands)):
+        t0 = time.perf_counter()
+        stages = {}
+        report, samples = RG._regen(kind, REGEN_SUBSET, 2023, 'cuda', stages)
+        wall = time.perf_counter() - t0
+        report.update(bands=check(report, REGEN_SUBSET), stages_s=stages)
+        bad = []
+        for r in samples:
+            key = EH._parental_key(r['name'])
+            if kind == 'ab':
+                h, l = parents[key]
+                group = HZ.pair_input(h, l)['l_group']
+                ok = _region_cdrs(r['hseq'], r['lseq'], group) == _region_cdrs(h, l, group)
+            else:
+                ok = _region_cdrs(r['vhh_seq']) == _region_cdrs(vhhs[int(key)])
+            if not ok:
+                bad.append(r['name'])
+        emit({'phase': 'regen_demo_eval', 'kind': kind, 'subset': REGEN_SUBSET,
+              'wall_s': wall, 'samples': len(samples), 'samples_whose_cdrs_differ': bad,
+              'report': report, 'launches': 'not counted (the CLIs run in processes of '
+              'their own)'})
+        if report['n_matched'] != REGEN_SUBSET or len(samples) != REGEN_SUBSET or bad:
+            fail(f'regen_demo_eval {kind}: n_matched {report["n_matched"]} of '
+                 f'{REGEN_SUBSET}, or a sample changed its CDRs: {bad}')
+
+
+def pps_quality_phase(torch, dev, ab_ckpt, pair_csv):
+    """``tools/pps_quality.eval_one_setting`` at full width: the
+    germline-tuned Ab checkpoint (bf16) humanizing PPS_MICE mice x PPS_ROWS
+    rows at device batch PPS_DEVICE_BATCH, for each k in PPS_KS and each
+    seed: preservation and germline FR identity with their CIs
+    (``summarize``), ms a forward, forwards = ceil(185 / k) a round and
+    counters equal to their kernels. Then ``pps_quality.main`` as the tool
+    runs (its defaults), on a tiny model trained PPS_MAIN_STEPS steps on the
+    repository's chains. Returns the launches of both."""
+    import math
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.tools import pps_quality as PPS
+    PPS.HUAB348 = pair_csv
+    model, _ = HZ.load_denoiser(ab_ckpt, 'pair', device=dev)
+    per_forward = demo_kernels_per_forward(model.cfg, 'pair')
+    mice = PPS.load_mice(PPS_MICE)
+    steps = HZ._packed_pad_to([inp for _, inp in mice])   # a round's order width (185)
+    per_seed, timing = {k: {} for k in PPS_KS}, {}
+    total = {'K1': 0, 'K2': 0}
+    forwards = [0]
+    undo = _counting_rounds(HZ.PairHumanizer, forwards)
+    try:
+        for k in PPS_KS:
+            hum = HZ.PairHumanizer(model, batch_size=PPS_ROWS, device_batch=PPS_DEVICE_BATCH,
+                                   positions_per_step=k, device=dev)
+            PPS.eval_one_setting(hum, mice[:1], 0, PPS_ROWS)   # warm-up, not recorded
+            for seed in PPS_SEEDS:
+                forwards[0] = 0
+                reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                per_seed[k][seed] = PPS.eval_one_setting(hum, mice, seed, PPS_ROWS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = {'K1': FA.launches, 'K2': FB.launches}
+                rounds = math.ceil(len(mice) * PPS_ROWS / PPS_DEVICE_BATCH)
+                want_forwards = rounds * math.ceil(steps / k)
+                expected = {kk: v * forwards[0] for kk, v in per_forward.items()}
+                timing[(k, seed)] = {'wall_s': wall, 'forwards': forwards[0],
+                                     'ms_per_forward': wall / forwards[0] * 1e3}
+                if (launched != expected or forwards[0] != want_forwards
+                        or not per_seed[k][seed]['cdr_invariant']):
+                    emit({'phase': 'pps_quality', 'k': k, 'seed': seed, **timing[(k, seed)],
+                          'launches': launched, 'expected': expected,
+                          'expected_forwards': want_forwards, **per_seed[k][seed]})
+                    fail(f'pps_quality k={k} seed={seed}: launches, forwards or the CDR '
+                         'invariant off')
+                for kk in total:
+                    total[kk] += launched[kk]
+            del hum
+    finally:
+        undo()
+    table = PPS.summarize(per_seed, list(PPS_KS), list(PPS_SEEDS))
+    emit({'phase': 'pps_quality', 'ckpt': os.path.basename(ab_ckpt), 'width': 'full',
+          'mice': len(mice), 'rows_per_mouse': PPS_ROWS, 'device_batch': PPS_DEVICE_BATCH,
+          'seeds': list(PPS_SEEDS), 'framework_positions': steps,
+          'per_k': {str(k): {**table[k],
+                             'forwards_per_round': math.ceil(steps / k),
+                             'ms_per_forward': [timing[(k, s)]['ms_per_forward']
+                                                for s in PPS_SEEDS],
+                             'wall_s': [timing[(k, s)]['wall_s'] for s in PPS_SEEDS]}
+                    for k in PPS_KS},
+          'launches': total,
+          'cuts': f'{len(mice)} mice of the tool\'s default 64 (the repository holds 16 '
+                  'pairs)'})
+    if not all(table[k]['cdr_invariant'] for k in PPS_KS):
+        fail('pps_quality: a CDR changed')
+    del model
+    torch.cuda.empty_cache()
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main_out, _ = _run_cli(PPS.main, ['--train-steps', str(PPS_MAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launched = {'K1': FA.launches, 'K2': FB.launches}
+    emit({'phase': 'pps_quality_main', 'train_steps': PPS_MAIN_STEPS, 'wall_s': wall,
+          'launches': main_launched, **main_out})
+    if not (main_out['n_mice'] and all(r['cdr_invariant'] for r in main_out['per_k'].values())
+            and main_launched['K1'] and main_launched['K2']):
+        fail('pps_quality_main: no mouse, a CDR changed, or no K1/K2 launched')
+    return {'pps': total, 'pps_main': main_launched}
+
+
+def germline_margin_phase(pair_csv):
+    """``tools/germline_margin`` over the repository's chains (host only)."""
+    from hudiff_tpu_torch.tools import germline_margin as GM
+    GM.HUAB348 = pair_csv
+    t0 = time.perf_counter()
+    out, _ = _run_cli(lambda argv: GM.main(), [])
+    wall = time.perf_counter() - t0
+    emit({'phase': 'germline_margin', 'wall_s': wall, **out})
+    if not (out['H'] and out['H']['n_chains'] == 32):
+        fail('germline_margin: the heavy chains were not all measured')
+
+
+def orbax_phases(torch, dev, ab_tuned):
+    """The twelfth slice: ``orbax_read``, ``demo_forward_f32``,
+    ``K1_demo``/``K2_demo``, ``demo_humanize``, ``regen_demo_eval``,
+    ``pps_quality`` (full width) and ``germline_margin``. Returns the
+    kernels line's K1/K2 keys of the slice."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'orbax')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    orbax_read_phase()
+    demo_forward_phase(torch, dev)
+    recs = demo_kernel_phases(torch, dev)
+    launched = demo_humanize_phase(torch, dev)
+    csvs = repo_chain_csvs(root)
+    regen_phase(csvs)
+    pps = pps_quality_phase(torch, dev, ab_tuned, csvs[0])
+    germline_margin_phase(csvs[0])
+    keys = {}
+    for k in ('K1', 'K2'):
+        keys[k] = {'launches_demo_humanize_ab': launched['ab'][k],
+                   'launches_demo_humanize_nano': launched['nb'][k],
+                   'launches_demo_api': launched['api'][k],
+                   'launches_pps_quality': pps['pps'][k],
+                   'launches_pps_quality_main': pps['pps_main'][k]}
+    for (kern, *shape), rec in recs.items():
+        if kern == 'K1':
+            L, B, dt = shape
+            tag = f'demo_L{L}_B{B}_{dt}'
+        else:
+            which, B, dt = shape
+            tag = f'demo_{which}_B{B}_{dt}'
+            rec = dict(rec, ms=rec['ms'] / rec['calls'], plain_ms=rec['plain_ms'] / rec['calls'],
+                       bound_ms=rec['bound_ms'] / rec['calls'],
+                       library_ms=(rec['library_ms'] / rec['calls']
+                                   if rec['library_ms'] is not None else None))
+        keys[kern][tag] = {key: rec.get(key) for key in (
+            'max_abs_err', 'excess_over_rtol', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms', 'calls')}
+    return keys
+
 
 
 def nano_entries(nano):

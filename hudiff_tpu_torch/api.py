@@ -10,15 +10,15 @@ Python with humanizer caching:
     report = hd.evaluate_ab('samples.csv', 'humanization_pair_data.csv')
 
 Checkpoints are the port's own files (training/checkpoints.save, a
-pretraining or fine-tune ``step_<it>.pt``) or the released reference
-``.pt`` files, converted on load; the JAX package's Orbax directories are
-refused. The models run on ``cuda`` unless the caller passes
+pretraining or fine-tune ``step_<it>.pt``) and run directories, the
+released reference ``.pt`` files, converted on load, and the JAX package's
+Orbax run directories (``examples/demo_ab_tiny``), read without JAX
+(``training/orbax.py``). The models run on ``cuda`` unless the caller passes
 ``device='cpu'``; loaded humanizers are cached per (ckpt, options, device)
 so that repeated calls pay only the device rounds.
 """
 from __future__ import annotations
 
-import os
 from typing import Dict, List, Optional, Tuple
 
 _HUMANIZER_CACHE: Dict[tuple, object] = {}
@@ -31,10 +31,6 @@ def _humanizer(ckpt: str, kind: str, batch_size: int, seed: int,
     dev = resolve_device(device)
     key = (ckpt, kind, batch_size, seed, positions_per_step, use_bf16, str(dev))
     if key not in _HUMANIZER_CACHE:
-        if os.path.isdir(ckpt):
-            raise ValueError(f'{ckpt} is a directory: Orbax checkpoints are the JAX '
-                             "package's; the port reads its own .pt files and the "
-                             'released reference .pt files')
         model, finetuned = H.load_denoiser(ckpt, 'pair' if kind == 'ab' else 'heavy',
                                            device=dev, use_bf16=use_bf16)
         cls = H.PairHumanizer if kind == 'ab' else H.NanoHumanizer

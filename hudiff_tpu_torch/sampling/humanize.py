@@ -16,6 +16,9 @@ Usage:
       [--sample-method inpaint] [--positions-per-step 2]
   python -m hudiff_tpu_torch.sampling.humanize nano --ckpt NB.pt --vhh-seq ... \
       [--sample-method inpaint]
+  # the JAX package's Orbax run directories, read without JAX:
+  python -m hudiff_tpu_torch.sampling.humanize ab --ckpt examples/demo_ab_tiny \
+      --hseq ... --lseq ...
   python -m hudiff_tpu_torch.sampling.humanize graft --hseq ... --lseq ... \
       [--back-mutation] [--output OUT.csv]
   # the candidate batch split over the cards of a node (data parallel,
@@ -48,6 +51,7 @@ from ..numbering import imgt as IMGT
 from ..parallel import mesh as M
 from ..tokenizer import Tokenizer
 from ..training import checkpoints as CKPT
+from ..training import orbax as ORBAX
 from ..training.logger import get_logger, get_new_log_dir, seed_all
 from ..utils.device import resolve_device
 from . import sampler as S
@@ -241,20 +245,34 @@ def select_most_similar(parental: np.ndarray, candidates: np.ndarray) -> int:
 # ---------------------------------------------------------------------------
 
 def load_denoiser(ckpt_path: str, kind: str, device='cuda', use_bf16: bool = True):
-    """(model, finetuned) from a port checkpoint (training/checkpoints.save)
-    or a released reference ``.pt``/``.pth``/``.ckpt`` payload, converted on
-    load (hudiff_tpu/sampling/humanize.py:240-277); the file's content says
-    which. A port checkpoint's ``kind`` decides the model and must be
-    ``kind`` ('pair' or 'heavy'). Released payloads: pretraining ones carry
-    ``['config']['model']`` and ``['model']``; Ab fine-tune ones
-    ``['pretrain_config']`` and ``['model']`` (reference sample.py:446-454);
-    Nb fine-tune ones ``['infilling_params']`` and the whole framework's
-    state_dict, whose ``infilling_pretrain.`` entries are the denoiser
-    (reference nanosample.py:185-193). ``finetuned`` is True for the two
-    fine-tune layouts."""
+    """(model, finetuned) from a port checkpoint (training/checkpoints.save),
+    a run directory, or a released reference ``.pt``/``.pth``/``.ckpt``
+    payload, converted on load (hudiff_tpu/sampling/humanize.py:240-277). A
+    directory is the JAX package's Orbax run directory when a
+    ``step_<n>/manifest.ocdbt`` is there: its latest step is read as
+    hudiff_tpu/sampling/humanize.py:267-275 reads it (``meta['config']
+    ['model']``, the ``params`` slot with or without its double ``params``,
+    ``finetuned`` from the meta) and loaded through ``from_flax_params``;
+    else it is the port's run directory (``checkpoints.restore``). A file's
+    content says which it is. A port checkpoint's ``kind`` (an Orbax tree's
+    ``nano_conv``) decides the model and must be ``kind`` ('pair' or
+    'heavy'). Released payloads: pretraining ones carry ``['config']
+    ['model']`` and ``['model']``; Ab fine-tune ones ``['pretrain_config']``
+    and ``['model']`` (reference sample.py:446-454); Nb fine-tune ones
+    ``['infilling_params']`` and the whole framework's state_dict, whose
+    ``infilling_pretrain.`` entries are the denoiser (reference
+    nanosample.py:185-193). ``finetuned`` is True for the two fine-tune
+    layouts."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
-    payload = CKPT.load_payload(ckpt_path)
+    if os.path.isdir(ckpt_path) and ORBAX.is_orbax_run(ckpt_path):
+        variables, cfg, finetuned = CKPT.orbax_variables(ORBAX.restore_orbax(ckpt_path))
+        found = CKPT.tree_kind(variables)
+        if kind != found:
+            raise ValueError(f'{ckpt_path} holds a {found!r} model, not a {kind!r} one')
+        return CKPT.from_flax_params(variables, cfg, dtype=dtype, device=dev), finetuned
+    payload = (CKPT.restore(ckpt_path)['payload'] if os.path.isdir(ckpt_path)
+               else CKPT.load_payload(ckpt_path))
     if CKPT.is_port_payload(payload):
         model, config = CKPT.from_payload(payload, dtype=dtype, device=dev)
         found = config.get('kind', 'pair')
@@ -754,7 +772,8 @@ def main(argv=None):
     for name in ('ab', 'nano'):
         q = sub.add_parser(name)
         q.add_argument('--ckpt', required=True,
-                       help='port checkpoint (.pt) or released reference .pt')
+                       help='port checkpoint (.pt) or run directory, released '
+                            'reference .pt, or the JAX package\'s Orbax run directory')
         q.add_argument('--ckpt-version', choices=['pretrain', 'finetune'], default=None)
         q.add_argument('--data-fpath', default=None)
         q.add_argument('--batch-size', type=int, default=16)

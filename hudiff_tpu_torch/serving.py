@@ -400,11 +400,20 @@ def make_handler(service: HumanizationService):
     return Handler
 
 
+class _Server(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog sized for a burst of
+    clients. socketserver's default backlog of 5 overflows when more
+    clients connect at once than the accept loop takes in (it competes for
+    the GIL with the coalescers' sampling loops), and the connections past
+    it are reset or retried a second later."""
+    request_queue_size = 128
+
+
 def serve(service: HumanizationService, host: str = '127.0.0.1',
           port: int = 8000) -> ThreadingHTTPServer:
     """Create (but do not start) the HTTP server; call serve_forever() or
     run it from a thread. port=0 picks an ephemeral port."""
-    return ThreadingHTTPServer((host, port), make_handler(service))
+    return _Server((host, port), make_handler(service))
 
 
 def main(argv=None):

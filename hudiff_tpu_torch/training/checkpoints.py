@@ -24,6 +24,14 @@ reads its model part too; beside it ``step_<it>.json`` holds ``step``,
 names the newest step. ``restore`` returns the kind beside the payload;
 ``model_class(kind)`` is the class to load it into.
 
+``latest_step`` and ``restore`` also take the JAX package's Orbax run
+directories (``<dir>/step_<n>/`` OCDBT checkpoints beside ``step_<n>.json``;
+a step is Orbax when its ``step_<n>/manifest.ocdbt`` exists), read without
+JAX by ``training/orbax.py``. ``restore`` then gives the same payload form:
+the model's state_dict through the Flax name map, ``'optimizer'`` None and
+optax's state under ``'opt_state'``; ``optimizer_state`` turns that into
+the port's Adam state (``adam_state_from_optax``).
+
 ``from_flax_params`` and ``load`` run on ``cuda`` unless the caller passes
 ``device='cpu'``; without a card they raise.
 
@@ -50,6 +58,7 @@ import torch
 
 from ..models.denoiser import AntiTFNet, DenoiserConfig, NanoAntiTFNet
 from ..utils.device import resolve_device
+from . import orbax
 
 _BLOCK = (('LayerNorm_0', 'ln1'), ('Dense_0', 'fc1'), ('LayerNorm_1', 'ln2'),
           ('LayerNorm_2', 'ln3'), ('Dense_1', 'fc2'))
@@ -206,12 +215,13 @@ def save_training(ckpt_dir: str, step: int, model: torch.nn.Module,
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
-    """The step named by ``LATEST``, else the largest ``step_<n>.pt``."""
+    """The step named by ``LATEST``, else the largest ``step_<n>.pt`` or Orbax
+    ``step_<n>/``."""
     marker = os.path.join(ckpt_dir, 'LATEST')
     if os.path.exists(marker):
         with open(marker) as f:
             return int(f.read().strip())
-    steps = []
+    steps = orbax.orbax_steps(ckpt_dir)
     if os.path.isdir(ckpt_dir):
         for name in os.listdir(ckpt_dir):
             stem, ext = os.path.splitext(name)
@@ -222,12 +232,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
     """``{'payload': {'config', 'model', 'optimizer'}, 'meta': ..., 'step':
-    ..., 'kind': ...}`` of ``step`` (default: the latest), tensors on the
-    CPU; ``model_class(kind)`` takes ``payload['model']``."""
+    ..., 'kind': ..., 'format': 'port' | 'orbax'}`` of ``step`` (default: the
+    latest), tensors on the CPU; ``model_class(kind)`` takes
+    ``payload['model']``. An Orbax step's payload also holds optax's state
+    as ``'opt_state'`` (``optimizer_state`` converts it)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f'no checkpoints under {ckpt_dir}')
+    if orbax.is_orbax_step(orbax.step_dir(ckpt_dir, step)):
+        return _from_orbax(orbax.restore_orbax(ckpt_dir, step))
     payload = torch.load(os.path.join(ckpt_dir, f'step_{step}.pt'), map_location='cpu',
                          weights_only=True)
     meta_path = os.path.join(ckpt_dir, f'step_{step}.json')
@@ -236,7 +250,78 @@ def restore(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
         with open(meta_path) as f:
             meta = json.load(f)
     return {'payload': payload, 'meta': meta, 'step': step,
-            'kind': payload['config'].get('kind', 'pair')}
+            'kind': payload['config'].get('kind', 'pair'), 'format': 'port'}
+
+
+def orbax_variables(restored: Mapping[str, Any]) -> Tuple[dict, DenoiserConfig, bool]:
+    """(Flax variables ``{'params': ...}``, model config, finetuned) of a
+    restored Orbax step, as hudiff_tpu/sampling/humanize.py:267-275 reads
+    them: the config from ``meta['config']['model']``, the ``params`` slot
+    with or without its double ``params``, ``finetuned`` from the meta."""
+    meta_cfg = restored['meta'].get('config', {})
+    cfg = DenoiserConfig.from_dict(dict(meta_cfg.get('model', {})))
+    tree = restored['payload']['params']
+    variables = tree if 'params' in tree else {'params': tree}
+    return variables, cfg, bool(meta_cfg.get('finetuned', False))
+
+
+def _from_orbax(restored: Dict[str, Any]) -> Dict[str, Any]:
+    variables, cfg, finetuned = orbax_variables(restored)
+    kind = tree_kind(variables)
+    payload = {'config': {'model': dataclasses.asdict(cfg), 'finetuned': finetuned,
+                          'kind': kind},
+               'model': flax_to_state_dict(variables, cfg), 'optimizer': None,
+               'opt_state': restored['payload'].get('opt_state')}
+    return {'payload': payload, 'meta': restored['meta'], 'step': restored['step'],
+            'kind': kind, 'format': 'orbax'}
+
+
+def _adam_states(tree) -> list:
+    """Every optax ``ScaleByAdamState`` (a dict of ``count``, ``mu``, ``nu``)
+    in an optimizer state tree."""
+    if isinstance(tree, dict):
+        if {'count', 'mu', 'nu'} <= set(tree):
+            return [tree]
+        return [s for v in tree.values() for s in _adam_states(v)]
+    if isinstance(tree, (list, tuple)):
+        return [s for v in tree for s in _adam_states(v)]
+    return []
+
+
+def adam_state_from_optax(opt_state, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer) -> dict:
+    """The ``state_dict`` of the port's Adam/AdamW (``optimizer``, over
+    ``model.parameters()``) holding optax's Adam moments: ``mu`` and ``nu``
+    are parameter-shaped Flax trees and go through the parameters' name
+    map (``flax_to_state_dict``), ``count`` becomes each parameter's
+    ``step``. Both optimizers take the same bias-corrected update from
+    them. The parameter groups are ``optimizer``'s own."""
+    states = _adam_states(opt_state)
+    if len(states) != 1:
+        raise ValueError(f'expected one Adam state in the optimizer state, found {len(states)}')
+    adam = states[0]
+    mu = flax_to_state_dict(adam['mu'], model.cfg)
+    nu = flax_to_state_dict(adam['nu'], model.cfg)
+    step = torch.tensor(float(np.asarray(adam['count'])))
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(mu):
+        raise ValueError('the Adam moments do not name the model\'s parameters')
+    sd = optimizer.state_dict()
+    return {'state': {i: {'step': step.clone(), 'exp_avg': mu[n], 'exp_avg_sq': nu[n]}
+                      for i, n in enumerate(names)},
+            'param_groups': sd['param_groups']}
+
+
+def optimizer_state(payload: Mapping[str, Any], model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer ``state_dict`` of a restored payload for ``optimizer``
+    over the full ``model``'s parameters: the port's own, or optax's Adam
+    state converted (``adam_state_from_optax``)."""
+    if payload.get('optimizer') is not None:
+        return payload['optimizer']
+    if payload.get('opt_state') is None:
+        raise ValueError('the checkpoint holds no optimizer state')
+    return adam_state_from_optax(payload['opt_state'], model, optimizer)
 
 
 # ---------------------------------------------------------------------------

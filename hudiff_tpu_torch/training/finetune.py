@@ -289,13 +289,15 @@ def oas_heavy_val_batches(path: str, batch_size: int):
 def _restore_finetune(resume_dir: str, state: T.TrainState, plateau, kind: str, logger):
     """Resume a fine-tune run: model, optimizer and step counter,
     host-scheduler state and best validation loss (the reference reloads
-    the saved framework and scheduler, nanofinetune.py:530-539). Returns
-    (the iteration to continue after, the best validation loss)."""
+    the saved framework and scheduler, nanofinetune.py:530-539), from the
+    port's run directory or the JAX package's Orbax one. Returns (the
+    iteration to continue after, the best validation loss)."""
     restored = CKPT.restore(resume_dir)
     if restored['kind'] != kind:
         raise ValueError(f"{resume_dir} holds a {restored['kind']!r} model, not {kind!r}")
     state.model.load_state_dict(restored['payload']['model'])
-    state.optimizer.load_state_dict(restored['payload']['optimizer'])
+    state.optimizer.load_state_dict(CKPT.optimizer_state(restored['payload'], state.model,
+                                                         state.optimizer))
     meta = restored['meta']
     state.step = int(meta.get('opt_steps', restored['step']))
     best = float(meta.get('val_loss', float('inf')))

@@ -8,7 +8,9 @@ scheduler, full-split validation, best-val checkpoints and JSONL metrics,
 with the JAX CLI's iteration semantics: one iteration is ``batch_acc``
 optimizer steps, ``max_iter`` and ``valid_step`` count iterations, logged
 train metrics are window means, and a resume continues at
-``opt_steps // batch_acc`` with the scheduler's state.
+``opt_steps // batch_acc`` with the scheduler's state. ``--resume`` takes
+the port's run directories and the JAX package's Orbax ones (optax's Adam
+moments mapped onto the port's Adam through the parameters' name map).
 
 Usage:
   # synthetic smoke run (no data needed), on the CPU:
@@ -215,8 +217,8 @@ def run(cfg: Namespace, kind: str = 'pair', data_path: Optional[str] = None,
             raise ValueError(f"{resume} holds a {restored['kind']!r} model, not {kind!r}")
         shards = mesh or M.Mesh()
         model.load_state_dict(M.shard_state_dict(restored['payload']['model'], shards))
-        optimizer.load_state_dict(M.shard_optimizer_state(restored['payload']['optimizer'],
-                                                          model, shards))
+        opt_sd = checkpoints.optimizer_state(restored['payload'], model, optimizer)
+        optimizer.load_state_dict(M.shard_optimizer_state(opt_sd, model, shards))
         # checkpoints are labeled by iteration; state.step counts optimizer
         # steps (batch_acc per iteration)
         meta = restored['meta']

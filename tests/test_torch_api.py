@@ -1,8 +1,8 @@
 """The port's one-call API (hudiff_tpu_torch/api.py) and its loading of the
 released reference payloads, against the JAX package on the CPU.
 
-- tests/test_api.py's four tests over a test-size port checkpoint, plus the
-  refusal of an Orbax directory and the card as the default device.
+- tests/test_api.py's four tests over a test-size port checkpoint, plus
+  an Orbax directory served (once refused) and the card as the default device.
 - The released layouts (tests/test_release_payloads.py pins them: Ab
   pretraining, Ab fine-tune, Nb fine-tune with ``infilling_pretrain.``
   keys; configs pickled as ``easydict.EasyDict`` through the unpickle shim),
@@ -124,9 +124,12 @@ def test_graft_and_identity():
 
 
 def test_orbax_dirs_are_refused_and_the_card_is_the_default(ab_ckpt):
-    with pytest.raises(ValueError, match='Orbax'):
-        api.humanize_pair(H1, L1, os.path.join(REPO, 'examples', 'demo_ab_tiny'),
-                          device='cpu')
+    """Orbax directories were refused until the port read them
+    (training/orbax.py); now the JAX package's demo directory serves, and
+    the card stays the default device."""
+    cands = api.humanize_pair(H1, L1, os.path.join(REPO, 'examples', 'demo_ab_tiny'),
+                              batch_size=2, use_bf16=False, device='cpu')
+    assert len(cands) == 1 and all(len(h) > 80 and len(l) > 80 for h, l in cands)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             api.humanize_pair(H1, L1, ab_ckpt)

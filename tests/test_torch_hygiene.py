@@ -1,7 +1,9 @@
-"""The port imports torch and numpy, never JAX, Flax, Optax, Orbax or any
-module of the JAX package, and neither do chip_smoke.py and the card-only
-tests (both run where JAX is not installed). Its native library is its own
-build, never the JAX package's committed one.
+"""The port imports torch and numpy, never JAX, Flax, Optax, Orbax,
+tensorstore, zstandard or any module of the JAX package (it reads Orbax
+checkpoints with its own OCDBT and zarr readers over the host's libzstd),
+and neither do chip_smoke.py and the card-only tests (both run where JAX
+is not installed). Its native library is its own build, never the JAX
+package's committed one.
 
 The test session has already imported jax (conftest.py), so the runtime
 check runs in a fresh subprocess; a static scan of every import statement
@@ -18,7 +20,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / 'hudiff_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hudiff_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard',
+             'hudiff_tpu')
 
 _PROBE = r'''
 import importlib, json, pkgutil, sys
@@ -80,5 +83,7 @@ def test_module_walk_finds_the_parallel_and_tool_modules():
     names = {m.name for m in pkgutil.walk_packages(hudiff_tpu_torch.__path__,
                                                    'hudiff_tpu_torch.')}
     for name in ('parallel', 'parallel.mesh', 'parallel.megatron', 'utils.flops',
-                 'tools.train_breakdown', 'tools.perf_breakdown', 'tools.parallel_check'):
+                 'tools.train_breakdown', 'tools.perf_breakdown', 'tools.parallel_check',
+                 'training.ocdbt', 'training.orbax', 'tools.germline_margin',
+                 'tools.pps_quality', 'tools.regen_demo_eval', 'tools.migrate_qkv_layout'):
         assert f'hudiff_tpu_torch.{name}' in names, name

@@ -210,6 +210,39 @@ def test_concurrent_requests(server):
                for code, out in results)
 
 
+def test_a_burst_of_connections_is_served(server):
+    """More clients than socketserver's default listen backlog (5) connect
+    at once, released together from a barrier while other threads hold
+    the GIL, as the coalescers' sampling loops do: none is reset, every
+    POST gets its reply (404 for a path the service does not have)."""
+    n = 64
+    ready = threading.Barrier(n + 1)
+    out, stop = [None] * n, threading.Event()
+
+    def call(i):
+        ready.wait(60)
+        try:
+            out[i] = _post(server + '/no-such-path', {'h_seq': H1})[0]
+        except OSError as e:
+            out[i] = repr(e)
+
+    def busy():
+        while not stop.is_set():
+            sum(range(10000))
+
+    hogs = [threading.Thread(target=busy) for _ in range(3)]
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+    for t in hogs + threads:
+        t.start()
+    ready.wait(60)
+    for t in threads:
+        t.join()
+    stop.set()
+    for t in hogs:
+        t.join()
+    assert out == [404] * n
+
+
 def test_request_coalescing(serve_ctx):
     """N concurrent single-candidate requests coalesce into ~1 packed device
     round, not N rounds (device_batch 8, 150 ms arrival window)."""
