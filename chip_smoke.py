@@ -137,7 +137,18 @@ version on the card. Then:
   Ab and Nb, over CSVs of this file's chains), ``pps_quality`` (full width,
   k = 1, 2, 4, 8 over three seeds, and the tool's ``main`` on a tiny model)
   and ``germline_margin``. K1 and K2 carry ``launches_demo_*``,
-  ``launches_pps_quality*`` and ``demo_*`` shape keys.
+  ``launches_pps_quality*`` and ``demo_*`` shape keys;
+- the sampler round as a CUDA graph and the port's bench (the thirteenth
+  slice): every humanizer round on the card is now graph replays
+  (``make_graph_sampler``), phase 5's included; ``graph_sampler``, after
+  phase 5, holds them against the eager loop at Ab B = 16 and 64 and Nb B
+  = 64 (the same tokens and generator offset from the same generator
+  state, a replayed step's logits, the invariants, the counters against
+  the profiler over a replayed window; ms a forward, device ms and idle
+  share for both), and ``bench``, after K8, runs ``python -m
+  hudiff_tpu_torch.bench`` in a process of its own and prints its line.
+  K1 and K2 carry ``launches_graph_sampler``, K1-K4 ``launches_bench``
+  (the bench's whole run, as it counts them).
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -771,6 +782,9 @@ def main():
             or seen['K2'] % blocks):
         fail(f'kernel launches {launches} do not match the profiled forwards {seen}')
 
+    # -- the sampler round as CUDA graph replays, against the eager loop --------
+    graphed = graph_sampler_phase(torch, dev)
+
     # -- phases 6-10: the pretraining slice ------------------------------------
     results['K3'] = k3_phase(torch, gen, dev)
     results['K4'] = k4_phase(
@@ -810,6 +824,9 @@ def main():
     results['K7'] = k7_phase(torch, gen, dev)
     results['K8'] = k8_phase(torch, dev)
 
+    # -- the port's bench, in a process of its own ----------------------------------
+    benched = bench_phase(torch)['detail']['launches']
+
     # -- the kernels line ------------------------------------------------------
     k1, k1_f32 = results['K1'][(MAIN_B, 'bfloat16')], results['K1'][(MAIN_B, 'float32')]
     k2, k2_f32 = results['K2'][(MAIN_B, 'bfloat16')], results['K2'][(MAIN_B, 'float32')]
@@ -829,7 +846,8 @@ def main():
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
          **nk['K1'], **tuned['K1'], 'launches_serve': served['K1'], **evaluated['K1'],
-         **parallel['K1'], **orbax['K1']},
+         **parallel['K1'], **orbax['K1'], 'launches_graph_sampler': graphed['K1'],
+         'launches_bench': benched['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
                  'applied as its operand lands)',
          'route': 'cuda',
@@ -847,7 +865,8 @@ def main():
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
                   'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2'],
          'launches_serve': served['K2'], **evaluated['K2'], **parallel['K2'],
-         **orbax['K2']},
+         **orbax['K2'], 'launches_graph_sampler': graphed['K2'],
+         'launches_bench': benched['K2']},
         {'name': 'K3 fused RoPE attention backward (merged head-major dqkv)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_attention.py:248',
@@ -859,7 +878,7 @@ def main():
          'library_ms': k3['library_ms'],
          'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
                   '(three kernels); ms_standalone runs K1 for them first', **nk['K3'],
-         **tuned['K3'], **parallel['K3']},
+         **tuned['K3'], **parallel['K3'], 'launches_bench': benched['K3']},
         {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
                  'backward in their epilogues, one grouped weight-gradient GEMM, one '
                  'fixed-order sum)',
@@ -877,7 +896,7 @@ def main():
          'launch_ms_one_dual_tower_call': k4['launch_ms'],
          'shape': f'B={TRAIN_B}, one call (all its kernels), mean over the {n4} '
                   'tower blocks of one step, bf16', **nk['K4'], **tuned['K4'],
-         **parallel['K4']},
+         **parallel['K4'], 'launches_bench': benched['K4']},
         *later_kernels(results, api)]})
     emit({'phase': 'done', 'total_s': time.perf_counter() - t_start})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -928,7 +947,8 @@ def profiled(torch, window, n):
     which ``profiled_run`` leaves out of the counts. A window whose counters
     differ from the K1-K8 kernels seen after the marker is profiled again,
     up to twice, the last reading held; the record then also keeps the
-    first reading and how many windows followed it."""
+    first reading and how many windows followed it. ``device_span_ms``:
+    the held window's first kernel start to last kernel end, over ``n``."""
     rec, windows = {}, 3
     for attempt in range(windows):
         warm = {}
@@ -938,6 +958,9 @@ def profiled(torch, window, n):
             {k: warm[k] - warm_seen[k] for k in KERNELS if warm[k] != warm_seen[k]})
         counted = counters()
         groups, seen, top = kernel_groups(after, n)
+        rec['device_span_ms'] = ((max(e.time_range.end for e in after)
+                                  - min(e.time_range.start for e in after)) / 1e3 / n
+                                 if after else 0.0)
         if counted == seen or attempt == windows - 1:
             return counted, (groups, seen, top), rec
         rec.setdefault('first_window', {'counted_launches': counted, 'profiled_launches': seen})
@@ -2268,6 +2291,189 @@ SAMPLER_BATCH = 32      # their device batch: two antibodies in one round
 SERVE_BATCH, SERVE_DEVICE_BATCH, SERVE_WINDOW_MS = 16, 64, 50.0
 KERNELS_PER_FORWARD = {'pair': {'K1': 10, 'K2': 72}, 'heavy': {'K1': 10, 'K2': 36}}
 CDR_KEYS = ('cdr1', 'cdr2', 'cdr3')
+
+
+GRAPH_SHAPES = (('pair', MAIN_B), ('pair', BIG_B), ('heavy', BIG_B))
+GRAPH_PROFILED_STEPS = 20   # steps of a profiled window (its round's first columns)
+BENCH_TIMEOUT = 600         # seconds for `python -m hudiff_tpu_torch.bench`
+BENCH_SECTIONS = ('nano_sampling', 'tp_shard_map_smoke', 'pretrain_step', 'nano_finetune_step')
+
+
+def _graph_inputs(torch, kind, B, dev):
+    """A packed bf16 round of the two test antibodies (VHHs for 'heavy'),
+    the second inpainted (its germline-identical framework slots frozen),
+    at B rows: (model, tokens, order, cond, forwards). The orders are
+    padded with -1 to the packed width, so the second's rows carry -1
+    pads."""
+    import numpy as np
+    from hudiff_tpu_torch.models.denoiser import AntiTFNet, DenoiserConfig, NanoAntiTFNet
+    from hudiff_tpu_torch.models.denoiser import nano_config
+    from hudiff_tpu_torch.sampling import humanize as HZ
+    from hudiff_tpu_torch.sampling import sampler as S
+    pair = kind == 'pair'
+    torch.manual_seed(SEED + 11)
+    model = S.cast_params_once((AntiTFNet(DenoiserConfig(), dtype=torch.bfloat16, device=dev)
+                                if pair else NanoAntiTFNet(nano_config(), dtype=torch.bfloat16,
+                                                           device=dev)).eval())
+    inputs = ([HZ.pair_input(H1, L1), HZ.pair_inpaint_input(H2, L2)] if pair
+              else [HZ.nano_input(VHH1), HZ.nano_input(VHH2, inpaint=True)])
+    rows = [inputs[i % 2] for i in range(B)]
+    pad_to = HZ._packed_pad_to(inputs)
+    order = S.build_order_rows([r['positions'] for r in rows], rng=SEED, pad_to=pad_to)
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.long, device=dev)
+
+    cond = [put(np.stack([r[k] for r in rows])) for k in (('region', 'chain') if pair
+                                                          else ('region',))]
+    return model, put(np.stack([r['tokens'] for r in rows])), put(order), cond, pad_to
+
+
+def _round_invariants(torch, out, tokens, order):
+    """Only ordered slots written (CDRs and the slots of -1 pads kept),
+    every draw in the sampling vocabulary."""
+    from hudiff_tpu_torch.sampling import sampler as S
+    written = torch.zeros_like(tokens, dtype=torch.bool)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+    written[rows.expand_as(order)[order >= 0], order[order >= 0]] = True
+    return (bool((out[~written] == tokens[~written]).all())
+            and bool(((out[written] >= 0) & (out[written] < S.SAMPLE_TOP)).all()))
+
+
+def graph_sampler_phase(torch, dev):
+    """The sampler round as CUDA graph replays (``make_graph_sampler``, the
+    humanizers' round on the card) against the eager loop
+    (``make_scan_sampler``) at GRAPH_SHAPES, full width, bf16: from the
+    same generator state both give the same tokens and leave the generator
+    at the same offset, over a capturing round and a replayed one; one
+    replayed step's logits against the eager forward on its grid; the
+    rounds' invariants; the launch counters against the kernels the
+    profiler sees over a replayed window of GRAPH_PROFILED_STEPS steps;
+    ms a forward (host clock over a whole replayed round), device ms a
+    forward and the idle share (1 - kernel time over the window's span on
+    the device timeline) for both."""
+    from hudiff_tpu_torch.sampling import sampler as S
+    launches = {'K1': {}, 'K2': {}}
+    for kind, B in GRAPH_SHAPES:
+        model, tokens, order, cond, forwards = _graph_inputs(torch, kind, B, dev)
+        per_forward = KERNELS_PER_FORWARD[kind]
+        samplers = {'eager': S.make_scan_sampler(model), 'graph': S.make_graph_sampler(model)}
+        rec = {'phase': 'graph_sampler', 'kind': kind, 'B': B, 'forwards': forwards,
+               'pads': int((order < 0).sum().item()), 'rounds': []}
+        for r, seed in enumerate((SEED, SEED + 1)):   # the graph's capturing round, then replays
+            outs, rnd = {}, {}
+            for name, run in samplers.items():
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = run(tokens, order, gen, *cond)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c = counters()
+                rnd[name] = {'wall_s': wall, 'ms_per_forward': wall / forwards * 1e3,
+                             'generator_offset': gen.get_offset(),
+                             'launches': {'K1': c['K1'], 'K2': c['K2']}}
+            e, g = outs['eager'], outs['graph']
+            rnd['tokens_equal'] = bool(torch.equal(e, g))
+            rnd['rows_differing'] = int((e != g).any(dim=1).sum().item())
+            rnd['invariants'] = _round_invariants(torch, g, tokens, order)
+            rec['rounds'].append(rnd)
+            expected = {k: v * forwards for k, v in per_forward.items()}
+            if not (rnd['tokens_equal'] and rnd['invariants']
+                    and rnd['graph']['generator_offset'] == rnd['eager']['generator_offset']
+                    and rnd['graph']['launches'] == expected == rnd['eager']['launches']):
+                emit(rec)
+                fail(f'graph round {r} ({kind}, B={B}): tokens, invariants, generator offset '
+                     f'or launches differ from the eager loop\'s')
+        for k in ('K1', 'K2'):   # the graph rounds', each counted from 0
+            launches[k][f'{kind}_B{B}'] = sum(r['graph']['launches'][k] for r in rec['rounds'])
+
+        # one replayed step's logits against the eager forward on its grid
+        entry = next(iter(samplers['graph'].rounds.values()))
+        with torch.inference_mode():
+            entry.buffers.load(tokens, order, torch.Generator(device=dev).manual_seed(SEED + 2),
+                               cond)
+            grid = entry.buffers.buf[:, :tokens.shape[1]].clone()
+            entry.replay()
+            ref = model(grid, *cond)
+            diff = (entry.logits - ref).abs()
+        held = (diff - BF16_RTOL * ref.abs()).max().item()
+        rec['logits'] = {'max_abs_err': diff.max().item(), 'excess_over_rtol': held,
+                         'rtol': BF16_RTOL, 'tol': TOL_BF16['K2'],
+                         'bit_equal': bool(torch.equal(entry.logits, ref))}
+        if held > TOL_BF16['K2']:
+            emit(rec)
+            fail(f'a replayed step\'s logits ({kind}, B={B}) are off the eager forward\'s')
+
+        # counters against the profiler over a replayed window, both loops
+        window_order = order[:, :GRAPH_PROFILED_STEPS]
+        for name, run in samplers.items():
+            def window():
+                reset_counters()
+                run(tokens, window_order, torch.Generator(device=dev).manual_seed(SEED), *cond)
+                torch.cuda.synchronize()
+
+            counted, (groups, seen, top), prof = profiled(torch, window, GRAPH_PROFILED_STEPS)
+            busy = sum(groups.values())
+            want = {k: v * GRAPH_PROFILED_STEPS for k, v in per_forward.items()}
+            rec[name] = {'ms_per_forward': rec['rounds'][1][name]['ms_per_forward'],
+                         'device_ms_per_forward': busy,
+                         'device_span_ms_per_forward': prof['device_span_ms'],
+                         'device_idle_share': 1 - busy / prof['device_span_ms'],
+                         'kernels_per_forward': sum(t['calls'] for t in top)
+                         / GRAPH_PROFILED_STEPS,
+                         'device_ms_per_forward_by_group': groups,
+                         'counted_launches': counted, 'profiled_launches': seen,
+                         'profiler': prof}
+            if counted != seen or {k: seen[k] for k in want} != want:
+                emit(rec)
+                fail(f'{name} round ({kind}, B={B}): launch counters {counted} != kernels the '
+                     f'profiler saw {seen} (expected {want})')
+        rec['speedup_vs_eager'] = (rec['rounds'][1]['eager']['wall_s']
+                                   / rec['rounds'][1]['graph']['wall_s'])
+        emit(rec)
+        del model, samplers, entry
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bench_phase(torch):
+    """``python -m hudiff_tpu_torch.bench`` at its defaults in a process of
+    its own: exit 0, one JSON line with no ``error``, ``value`` > 0, every
+    section present and measured, the tp smoke exact, this card's name, its
+    power limit and K1-K4 launched. Its line is printed on a line of its
+    own."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, '-m', 'hudiff_tpu_torch.bench'], cwd=root,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f'the bench ran past {BENCH_TIMEOUT} s')
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        line = None
+    emit({'phase': 'bench', 'wall_s': wall, 'rc': proc.returncode,
+          'stdout_lines': len(lines), 'stderr_tail': proc.stderr[-3000:]})
+    if line is not None:
+        print(json.dumps(line), flush=True)
+    detail = (line or {}).get('detail', {})
+    missing = [k for k in ('batch', 'positions', 'scan_sec_per_batch', 'eager_sec_per_batch',
+                           'sequential_sec_per_seq', 'sequential_sec_per_seq_runs',
+                           'device_kind', 'power_limit', 'launches', *BENCH_SECTIONS)
+               if k not in detail]
+    if (proc.returncode != 0 or line is None or len(lines) != 1 or 'error' in line or missing
+            or not line.get('value', 0) > 0 or not line.get('vs_baseline', 0) > 0
+            or detail['tp_shard_map_smoke'].get('max_abs_err_vs_unsharded') != 0.0
+            or detail['device_kind'] != torch.cuda.get_device_name(0)
+            or not all(detail['launches'].get(k, 0) > 0 for k in ('K1', 'K2', 'K3', 'K4'))):
+        fail(f'the bench failed: rc {proc.returncode}, error {(line or {}).get("error")}, '
+             f'missing {missing}')
+    return line
 
 
 def service_shapes_phase(torch, dev):

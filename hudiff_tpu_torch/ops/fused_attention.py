@@ -38,7 +38,10 @@ grad) they call the forward kernel directly. K7 has no backward: a CUDA
 input that needs a gradient raises. Launch counters: ``launches`` (K1),
 ``bwd_launches`` (the kernels K3's C entry reports, three per call),
 ``rope_launches`` (K5), ``rope_bwd_launches`` (K6, three per call) and
-``attention_launches`` (K7).
+``attention_launches`` (K7), named in ``COUNTERS``. A wrapper called while
+a CUDA graph captures counts its kernels once, though none ran; the graph
+sampler (sampling/sampler.py) takes that capture's counts back and adds
+them again at each replay, so the counters stay the kernels launched.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ bwd_launches = 0
 rope_launches = 0
 rope_bwd_launches = 0
 attention_launches = 0
+COUNTERS = ('launches', 'bwd_launches', 'rope_launches', 'rope_bwd_launches',
+            'attention_launches')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

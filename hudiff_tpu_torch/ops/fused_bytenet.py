@@ -25,7 +25,9 @@ three LayerNorms' row statistics and the weights in x's type it gave K2, and
 whose backward is K4 on those, returning dx and the 12 parameter gradients
 in f32.
 Otherwise it calls K2 alone, as the sampler does. ``launches`` and
-``bwd_launches`` count the CUDA kernels K2's and K4's C entries report.
+``bwd_launches`` (``COUNTERS``) count the CUDA kernels K2's and K4's C
+entries report; under a CUDA graph the graph sampler counts replays
+(``ops/fused_attention.py`` says how).
 ``block_matmul_flops`` is a call's FLOP count (utils/flops.py).
 """
 from __future__ import annotations
@@ -41,6 +43,7 @@ from .norm import LN_EPS, activation, layer_norm
 
 launches = 0
 bwd_launches = 0
+COUNTERS = ('launches', 'bwd_launches')
 
 _SIGNATURES = {
     'hd_bytenet_block_fwd': [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8

@@ -371,7 +371,9 @@ class _Humanizer:
     to bf16 once, in place (sampler.cast_params_once). Orders are drawn
     from a numpy generator and tokens from a ``torch.Generator`` on the
     device, both seeded with ``seed``. A round runs ceil(pad_to /
-    ``positions_per_step``) forwards. ``COND`` names the row keys the model
+    ``positions_per_step``) forwards: on a card as CUDA graph replays, one
+    graph per batch shape (``sampler.make_graph_sampler``), on the CPU as
+    the eager loop. ``COND`` names the row keys the model
     is conditioned on. ``mesh`` (``parallel.mesh.make_mesh()``, tp = 1)
     splits each round's rows over its ranks, each on its own device, and
     gathers them; the sampled tokens are one process's."""

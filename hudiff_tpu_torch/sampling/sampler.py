@@ -1,17 +1,25 @@
 """Reverse OA-ARDM sampling.
 
 Counterpart of hudiff_tpu/sampling/sampler.py (``make_scan_sampler`` with
-any ``positions_per_step``, ``make_jit_sampler``'s bf16 cast-once,
-``build_order``, ``build_order_rows`` and ``sequential_reference_sampler``).
-The JAX package runs the loop as one ``lax.scan``; here it is a Python loop
-of device work with no host synchronisation:
+any ``positions_per_step``, ``make_jit_sampler``, ``build_order``,
+``build_order_rows`` and ``sequential_reference_sampler``). The JAX package
+runs the loop as one ``lax.scan``, jitted into one program per shape
+(``make_jit_sampler``). Here each step:
 
-- each step runs one full forward, gathers every row's logits at its own
-  k positions, draws a categorical over ``logits[..., :22]`` in f32 from an
+- runs one full forward, gathers every row's logits at its own k
+  positions, draws a categorical over ``logits[..., :22]`` in f32 from an
   explicit ``torch.Generator`` on the model's device (Gumbel-max), and
   writes the tokens back;
-- an order slot of -1 is a no-op, so rows with fewer masked positions share
-  one ``[B, K]`` order matrix.
+- treats an order slot of -1 as a no-op, so rows with fewer masked
+  positions share one ``[B, K]`` order matrix.
+
+``make_scan_sampler`` is that loop in Python, with no host
+synchronisation: about 240 kernel launches a step from the host.
+``make_graph_sampler`` is ``make_jit_sampler``'s counterpart on the card:
+one step captured as a CUDA graph per shape and replayed once a step, the
+step's positions read on the device at a step counter the graph advances
+(``RoundBuffers``). ``make_model_sampler`` gives the graph round to a model
+on a card and the loop to one on the CPU.
 
 ``sequential_reference_sampler`` keeps the reference's cost structure
 instead: one forward per position, the tokens read back to the host after
@@ -24,6 +32,7 @@ JAX's sharded scan draws ``[B, ...]`` noise whatever the sharding.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -84,6 +93,183 @@ def make_scan_sampler(apply_fn: Callable[..., torch.Tensor], positions_per_step:
     return sampler
 
 
+def _launch_counts():
+    """{(module, name): value} of every kernel launch counter a step can
+    move (``COUNTERS`` of ops/fused_attention.py and ops/fused_bytenet.py)."""
+    from ..ops import fused_attention as FA
+    from ..ops import fused_bytenet as FB
+    return {(m, n): getattr(m, n) for m in (FA, FB) for n in m.COUNTERS}
+
+
+def _add_launches(counts) -> None:
+    for (m, n), d in counts.items():
+        setattr(m, n, getattr(m, n) + d)
+
+
+class RoundBuffers:
+    """The static state of a graph round and ``step()``, the body its graph
+    captures; uncaptured, it runs on any device.
+
+    - ``buf`` [B, L + 1]: the grid; column L takes the writes of -1 slots;
+    - ``order`` [B, S, k]: the order as steps, padded with -1 to S = ceil(
+      max(``width``, L) / k) steps, the widest order it takes;
+    - ``cond``: the conditioning; ``counter``: the step index, [1] int64;
+    - ``generator``: its own, on the device: ``load`` sets it to the
+      caller's state and ``finish`` hands the advanced state back, so that
+      a graph registers one generator whichever the caller passes.
+
+    A step reads its positions at ``counter``, runs one forward over the
+    grid, draws its k positions and writes them back as
+    ``make_scan_sampler``'s step does, and advances ``counter``; it returns
+    the logits."""
+
+    def __init__(self, apply_fn: Callable[..., torch.Tensor], positions_per_step: int,
+                 tokens: torch.Tensor, cond: Sequence[torch.Tensor], width: int,
+                 rows: Optional[Tuple[int, int]] = None):
+        B, L = tokens.shape
+        dev = tokens.device
+        self.apply_fn, self.k, self.rows, self.L = apply_fn, positions_per_step, rows, L
+        self.buf = tokens.new_zeros(B, L + 1)
+        self.order = torch.full((B, -(-max(width, L) // self.k), self.k), -1,
+                                dtype=torch.long, device=dev)
+        self.cond = [c.clone() for c in cond]
+        self.counter = torch.zeros(1, dtype=torch.long, device=dev)
+        self.row_ix = torch.arange(B, device=dev)[:, None]
+        self.generator = torch.Generator(device=dev)
+
+    @property
+    def width(self) -> int:
+        return self.order.shape[1] * self.k
+
+    def load(self, tokens: torch.Tensor, order: torch.Tensor, generator: torch.Generator,
+             cond: Sequence[torch.Tensor]) -> int:
+        """Copy a round's inputs in and zero the step counter; returns its
+        steps, ceil(order width / k)."""
+        B = tokens.shape[0]
+        self.buf[:, :self.L].copy_(tokens)
+        flat = self.order.view(B, -1)
+        flat.fill_(-1)
+        flat[:, :order.shape[1]].copy_(order)
+        for static, c in zip(self.cond, cond):
+            static.copy_(c)
+        self.counter.zero_()
+        self.generator.set_state(generator.get_state())
+        return -(-order.shape[1] // self.k)
+
+    def step(self) -> torch.Tensor:
+        pos = self.order.index_select(1, self.counter)[:, 0]       # [B, k]
+        valid = pos >= 0
+        logits = self.apply_fn(self.buf[:, :self.L], *self.cond)  # [B, L, V]
+        sel = logits[self.row_ix, torch.where(valid, pos, 0), :SAMPLE_TOP]
+        self.buf[self.row_ix, torch.where(valid, pos, self.L)] = categorical(
+            sel, self.generator, self.rows).to(self.buf.dtype)
+        self.counter += 1
+        return logits
+
+    def finish(self, generator: torch.Generator) -> torch.Tensor:
+        """Advance ``generator`` to this round's end; returns the grid."""
+        generator.set_state(self.generator.get_state())
+        return self.buf[:, :self.L].clone()
+
+
+@dataclasses.dataclass
+class GraphRound:
+    """One shape's buffers, its captured step (``graph``; its output
+    ``logits`` hold the last replayed step's) and the kernel launches one
+    replay makes (``launches``, by counter)."""
+    buffers: RoundBuffers
+    graph: torch.cuda.CUDAGraph
+    logits: torch.Tensor
+    launches: dict
+
+    def replay(self, n: int = 1) -> None:
+        """``n`` steps: each a replay, its kernels added to the counters."""
+        for _ in range(n):
+            self.graph.replay()
+            _add_launches(self.launches)
+
+
+class GraphSampler:
+    """``make_graph_sampler``'s sampler; ``rounds`` holds one
+    ``GraphRound`` per key (B, L, k, ``rows``, dtypes and shapes of the
+    tokens and the conditioning, device)."""
+
+    def __init__(self, apply_fn: Callable[..., torch.Tensor], positions_per_step: int = 1):
+        self.apply_fn = apply_fn
+        self.k = max(1, positions_per_step)
+        self.rounds: dict = {}
+        self.pool = None
+
+    @torch.inference_mode()
+    def __call__(self, tokens: torch.Tensor, order: torch.Tensor, generator: torch.Generator,
+                 *cond, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if tokens.device.type != 'cuda':
+            raise ValueError(f'make_graph_sampler: a CUDA graph needs CUDA tensors, not '
+                             f'{tokens.device} (make_scan_sampler runs on the CPU)')
+        key = (tuple(tokens.shape), tokens.dtype, tokens.device, self.k, rows,
+               tuple((tuple(c.shape), c.dtype) for c in cond))
+        with torch.cuda.device(tokens.device):
+            entry = self.rounds.get(key)
+            if entry is None or entry.buffers.width < order.shape[1]:
+                self.rounds.pop(key, None)
+                buffers = RoundBuffers(self.apply_fn, self.k, tokens, cond, order.shape[1],
+                                       rows)
+                n = buffers.load(tokens, order, generator, cond)
+                if n == 0:
+                    return buffers.finish(generator)
+                entry = self.rounds[key] = self._capture(buffers)
+                n -= 1
+            else:
+                n = entry.buffers.load(tokens, order, generator, cond)
+            entry.replay(n)
+            return entry.buffers.finish(generator)
+
+    def _capture(self, buffers: RoundBuffers) -> GraphRound:
+        """Run the round's first step eagerly on a side stream (it loads
+        every kernel's library and sets its attributes, which a capture may
+        not), then capture the next step there. The capture's launch counts
+        are taken back: its kernels did not run."""
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            buffers.step()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(buffers.generator)
+        before = _launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                  capture_error_mode='thread_local'):
+                logits = buffers.step()
+        finally:
+            after = _launch_counts()
+            _add_launches({c: before[c] - after[c] for c in before})
+        torch.cuda.current_stream().wait_stream(stream)
+        return GraphRound(buffers, graph, logits,
+                          {c: after[c] - before[c] for c in before if after[c] != before[c]})
+
+
+def make_graph_sampler(apply_fn: Callable[..., torch.Tensor], positions_per_step: int = 1):
+    """``make_scan_sampler``'s sampler as CUDA graph replays, the counterpart
+    of ``make_jit_sampler``'s one program per shape: same call, same tokens
+    from the same generator state.
+
+    The first round of a key runs its first step eagerly, then captures
+    one step (forward, gather, draw, write-back, counter) into a
+    ``torch.cuda.CUDAGraph``; every round after copies its tokens, order
+    and conditioning into that key's buffers, zeroes the counter and
+    replays the graph once a step: one host call a step, no
+    synchronisation. The graph registers the buffers' generator, so each
+    replay draws new noise and advances it as the eager draw would. The
+    graphs of one sampler share one memory pool: one round runs at a time,
+    and the only output a graph keeps is its logits, read right after its
+    own replay. Captures run under ``capture_error_mode='thread_local'``,
+    so that other threads (the service's handlers) may call CUDA meanwhile.
+    A failed capture or replay raises; a CPU tensor raises."""
+    return GraphSampler(apply_fn, positions_per_step)
+
+
 def cast_params_once(model: torch.nn.Module) -> torch.nn.Module:
     """For a bf16-computing model, cast every >=2-D f32 parameter (Linear and
     conv weights, embedding tables, the decoder weight) to bf16 in place,
@@ -97,13 +283,18 @@ def cast_params_once(model: torch.nn.Module) -> torch.nn.Module:
 
 
 def make_model_sampler(model: torch.nn.Module, positions_per_step: int = 1):
-    """``run(tokens, order, generator, *cond) -> tokens`` for a denoiser
-    conditioned on ``cond``: ``(region, chain)`` for the paired one,
-    ``(region,)`` for the nanobody one (the counterpart of
-    ``make_jit_sampler`` with and without ``has_chain_type``). Puts the
-    model in eval mode and applies ``cast_params_once`` to it."""
-    return make_scan_sampler(cast_params_once(model.eval()),
-                             positions_per_step=positions_per_step)
+    """``run(tokens, order, generator, *cond, rows=None) -> tokens`` for a
+    denoiser conditioned on ``cond``: ``(region, chain)`` for the paired
+    one, ``(region,)`` for the nanobody one (``make_jit_sampler`` with and
+    without ``has_chain_type``). Puts the model in eval mode and applies
+    ``cast_params_once`` to it. A model on a card gets graph rounds
+    (``make_graph_sampler``), one on the CPU (or with no parameters) the
+    eager loop."""
+    model = cast_params_once(model.eval())
+    param = next(model.parameters(), None)
+    on_card = param is not None and param.device.type == 'cuda'
+    return (make_graph_sampler if on_card else make_scan_sampler)(
+        model, positions_per_step=positions_per_step)
 
 
 def sequential_reference_sampler(model: torch.nn.Module):
