@@ -150,6 +150,22 @@ version on the card. Then:
   K1 and K2 carry ``launches_graph_sampler``, K1-K4 ``launches_bench``
   (the bench's whole run, as it counts them).
 
+- K1 and K2 redesigned for Hopper (the fourteenth slice): bf16 K1 at L <=
+  384 with 64 or more (b, h) pairs and bf16 K2 on the 768/384 and 512/256
+  towers up to B = 64-128 run on
+  TMA + mbarriers + wgmma (``ops/fused_attention.py::rope_attention_qkv_plan``
+  and ``ops/fused_bytenet.py::bytenet_block_plan`` choose by shape). After
+  the build, ``hopper_kernels`` records the five Hopper instantiations'
+  registers and their HGMMA, UTMALDG and HMMA counts (``sass_counts(...,
+  symbols=True)``), and fails unless each holds HGMMA and UTMALDG and no
+  HMMA. Every K1 and K2 record (phases 2-3, the nano, service, demo and pps
+  shapes) carries ``path`` and, in bf16, the device ms of a call replayed
+  from a CUDA graph (``graph_ms``, as the sampler runs them) for the design
+  the plan took (``device_ms``) and for each design that takes the shape
+  (``device_ms_wgmma``, ``device_ms_mma_sync``), each design's output held
+  to the kernel's limits; the kernels line carries them for B = 16 and 64
+  with the Hopper kernels' SASS counts.
+
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
 device it exits 2 and prints no result.
@@ -355,6 +371,104 @@ def time_ms(torch, fn, reps=10, windows=5):
     return statistics.median(out)
 
 
+def graph_ms(torch, fn, n=20, windows=5):
+    """Device ms of one call of ``fn``: ``n`` calls captured in a CUDA graph
+    (after a warm-up call on a side stream, as the graph sampler does),
+    replayed, the median over ``windows`` replays; no host time in it, as
+    on the graph-replayed main path. The wrappers' counters rise by the
+    captured calls' launches, outside every counted window."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(out)
+
+
+def k1_paths(torch, qkv, cos, sin, scale, heads, splits=False):
+    """K1's launch at this shape (path, grid) and, in bf16, the device ms
+    (graph_ms) of each design that takes the shape (``device_ms_wgmma``,
+    ``device_ms_mma_sync``; ``device_ms`` the plan's) and of SDPA on the
+    same inputs, each design's output held to the K1 limits; with
+    ``splits`` also the Hopper design's device ms at every split of a
+    head's query tiles (all the same bits)."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    B, L, _ = qkv.shape
+    plan = FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype)
+    rec = {'path': plan['path'], 'grid': list(plan['grid']), 'smem_bytes': plan['smem_bytes']}
+    if qkv.dtype != torch.bfloat16 or -(-L // 64) > FA.K1_MAX_KV_TILES:
+        return rec
+    ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
+    plans = {p: FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype, path=p)
+             for p in ('wgmma', 'mma_sync')}
+    for path, pl in plans.items():
+        if not check_err(torch, 'K1', FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
+                                                                    plan=pl), ref)[1]:
+            fail(f'K1 ({path} design) disagrees with its plain version at B={B} L={L}')
+        rec[f'device_ms_{path}'] = graph_ms(torch, lambda: FA.rope_attention_qkv_forward(
+            qkv, cos, sin, scale, heads, plan=pl))
+    rec['device_ms'] = rec[f"device_ms_{plan['path']}"]
+    qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
+    rec['library_device_ms'] = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qr, kr, vr, scale=scale))
+    if splits:
+        out = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, plan=plans['wgmma'])
+        rec['device_ms_by_split'] = {}
+        for split in range(1, plans['wgmma']['kv_tiles'] + 1):
+            other = FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype, split=split)
+            if not torch.equal(out, FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
+                                                                  plan=other)):
+                fail(f'K1 split {split} gives other bits than split '
+                     f'{plans["wgmma"]["grid"][0]}')
+            rec['device_ms_by_split'][split] = graph_ms(
+                torch, lambda: FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
+                                                             plan=other))
+    return rec
+
+
+def k2_paths(torch, x, args, dil, act):
+    """K2's path at this shape and, in bf16, the device ms (graph_ms) of
+    both designs where the Hopper one takes the shape (D and H multiples of
+    128), each held to the K2 limit."""
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    B, L, D = x.shape
+    H, K = args[2].shape[0], args[6].shape[1]
+    rec = {'path': FB.bytenet_block_plan(B, L, D, H, K, dil, x.dtype)['path']}
+    if x.dtype != torch.bfloat16:
+        return rec
+    ref = FB.bytenet_block_reference(x, *args, dilation=dil, activation_name=act)
+    for path in ('wgmma', 'mma_sync'):
+        try:
+            plan = FB.bytenet_block_plan(B, L, D, H, K, dil, x.dtype, path=path)
+        except ValueError:   # the Hopper design does not take this shape
+            continue
+        y = FB._forward(x, args, dil, act, keep=False, plan=plan)[0]
+        if not check_err(torch, 'K2', y, ref)[1]:
+            fail(f'K2 ({path} design) disagrees with its plain version at B={B} L={L} D={D}')
+        rec[f'device_ms_{path}'] = graph_ms(
+            torch, lambda: FB._forward(x, args, dil, act, keep=False, plan=plan))
+    return rec
+
+
 def check_err(torch, kernel, out, ref):
     """A kernel's output against its plain version: the record's error keys,
     and whether the output is finite and within the limit."""
@@ -530,10 +644,12 @@ def ptxas_registers(logs):
     return out
 
 
-def sass_counts(library, opcodes=('HGMMA', 'UTMALDG')):
+def sass_counts(library, opcodes=('HGMMA', 'UTMALDG'), symbols=False):
     """How many of each SASS opcode every kernel of a built library holds,
     from ``cuobjdump --dump-sass``: {kernel: {opcode: count}} (kernel: the
-    name that ends in _kernel, from its mangled name)."""
+    name that ends in _kernel, from its mangled name; with ``symbols`` that
+    name and up to 40 characters of the mangled template arguments after it,
+    so that a template's instantiations count apart)."""
     import re
     from hudiff_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
@@ -543,16 +659,40 @@ def sass_counts(library, opcodes=('HGMMA', 'UTMALDG')):
     for line in out.splitlines():
         m = re.search(r'Function : (\S+)', line)
         if m:
-            kernel = next((m.group(1)[d.end():e] for d in re.finditer(r'\d+', m.group(1))
+            sym = m.group(1)
+            kernel = next((sym[d.end():e] + (sym[e:e + 40] if symbols else '')
+                           for d in re.finditer(r'\d+', sym)
                            for e in (d.end() + int(d.group()[k:]) for k in range(len(d.group())))
-                           if re.fullmatch(r'[A-Za-z]\w*_kernel', m.group(1)[d.end():e])),
-                          m.group(1))
+                           if re.fullmatch(r'[A-Za-z]\w*_kernel', sym[d.end():e])), sym)
             counts[kernel] = dict.fromkeys(opcodes, 0)
         elif kernel:
             for op in opcodes:
                 if re.search(rf'\b{op}\b', line):
                     counts[kernel][op] += 1
     return counts
+
+
+def hopper_build_record(_build):
+    """The Hopper kernels of K1 and K2 as built, one record: registers and
+    spills of each instantiation (-Xptxas -v) and, from cuobjdump, its HGMMA
+    (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions. Fails
+    unless all five instantiations hold HGMMA and UTMALDG and no HMMA."""
+    libs = ('rope_attention', 'bytenet_block')
+    regs = ptxas_registers({k: v for k, v in _build.BUILD_LOGS.items() if k in libs})
+    sass = {}
+    for lib in libs:
+        counts = sass_counts(_build.library_path(lib), ('HGMMA', 'UTMALDG', 'HMMA'), symbols=True)
+        sass.update({k: v for k, v in counts.items() if 'wgmma_' in k})
+    rec = {'phase': 'hopper_kernels',
+           'registers': {src: [r for r in rows if 'wgmma_' in r[0]]
+                         for src, rows in regs.items()} or 'not measured (built earlier)',
+           'sass': sass}
+    emit(rec)
+    bad = {k: v for k, v in sass.items() if not v['HGMMA'] or not v['UTMALDG'] or v['HMMA']}
+    if len(sass) != 5 or bad:
+        fail(f'the Hopper K1/K2 kernels: want HGMMA and UTMALDG and no HMMA in all five, '
+             f'got {sass}')
+    return rec
 
 
 MARK = 'chip_smoke_profiled_run'
@@ -662,6 +802,7 @@ def main():
           'build_s': {k: round(v, 3) for k, v in build_s.items()},
           'build_total_s': round(time.perf_counter() - t0, 3)})
     emit({'phase': 'registers', 'kernels': ptxas_registers(_build.BUILD_LOGS)})
+    hopper = hopper_build_record(_build)
 
     gen = torch.Generator(device='cpu').manual_seed(SEED)
     results = {'K1': {}, 'K2': {}}
@@ -704,6 +845,7 @@ def main():
                 library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                     qr, kr, vr, scale=scale)))
             rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops, name)
+            rec.update(k1_paths(torch, qkv, cos, sin, scale, heads, splits=True))
             emit(rec)
             results['K1'][(B, name)] = rec
 
@@ -845,6 +987,15 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
+         'path': k1['path'], 'grid': k1['grid'], 'device_ms': k1['device_ms'],
+         'device_ms_mma_sync': k1['device_ms_mma_sync'], 'device_ms_wgmma': k1['device_ms_wgmma'],
+         'library_device_ms': k1['library_device_ms'],
+         'device_ms_by_split': k1['device_ms_by_split'],
+         'device_ms_B64': results['K1'][(BIG_B, 'bfloat16')]['device_ms'],
+         'library_device_ms_B64': results['K1'][(BIG_B, 'bfloat16')]['library_device_ms'],
+         'device_ms_mma_sync_B64': results['K1'][(BIG_B, 'bfloat16')]['device_ms_mma_sync'],
+         'library_ms_B64': results['K1'][(BIG_B, 'bfloat16')]['library_ms'],
+         'sass': {k: v for k, v in hopper['sass'].items() if 'rope' in k},
          **nk['K1'], **tuned['K1'], 'launches_serve': served['K1'], **evaluated['K1'],
          **parallel['K1'], **orbax['K1'], 'launches_graph_sampler': graphed['K1'],
          'launches_bench': benched['K1']},
@@ -861,6 +1012,13 @@ def main():
          'bound_by': k2['bound_by'], 'library_ms': k2['library_ms'] / n2,
          'library': LIBRARY_COMPOSITION, 'ms_per_forward': k2['ms'],
          'stage_excess': {k: k2[k] for k in STAGE_KEYS},
+         'paths': k2['paths'], 'device_ms': k2['device_ms'] / n2,
+         'device_ms_wgmma': k2.get('device_ms_wgmma'),
+         'device_ms_mma_sync': k2.get('device_ms_mma_sync'),
+         'device_ms_per_forward': k2['device_ms'],
+         'device_ms_per_forward_B64': results['K2'][(BIG_B, 'bfloat16')]['device_ms'],
+         'paths_B64': results['K2'][(BIG_B, 'bfloat16')]['paths'],
+         'sass': {k: v for k, v in hopper['sass'].items() if 'bytenet' in k},
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
                   'tower blocks of one forward, bf16', **nk['K2'], **tuned['K2'],
@@ -1086,6 +1244,14 @@ def k2_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                         tot['ops_ms'] += t_ops
                         rec['ms'] = time_ms(torch, lambda: FB.bytenet_block(x, *args, **kw),
                                             reps=5, windows=3)
+                        rec.update(k2_paths(torch, x, args, dil, act))
+                        if f"device_ms_{rec['path']}" in rec:   # the design the plan took
+                            rec['device_ms'] = rec[f"device_ms_{rec['path']}"]
+                        for key in ('device_ms', 'device_ms_wgmma', 'device_ms_mma_sync'):
+                            if key in rec:
+                                tot[key] = tot.get(key, 0.0) + rec[key]
+                        tot.setdefault('paths', {})
+                        tot['paths'][rec['path']] = tot['paths'].get(rec['path'], 0) + 1
                         rec['plain_ms'] = time_ms(torch, lambda: FB.bytenet_block_reference(
                             x, *args, **kw), reps=2, windows=3)
                         if dtype == torch.bfloat16:
@@ -1570,6 +1736,7 @@ def k1_record(torch, qkv, cos, sin, heads, phase):
             qr, kr, vr, scale=scale)))
     nbytes = qkv.numel() * qkv.element_size() * 4 // 3 + 2 * cos.numel() * 4
     rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, 4.0 * B * heads * L * L * hd, name)
+    rec.update(k1_paths(torch, qkv, cos, sin, scale, heads))
     emit(rec)
     return rec
 

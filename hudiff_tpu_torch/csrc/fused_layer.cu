@@ -283,7 +283,6 @@ constexpr int STAGE = X_BOX + 2 * W_BOX;
 constexpr int LDK = tc::LD;              // output staging row stride (elements)
 constexpr int ATTN_STAGES = 3, OUT_STAGES = 4;
 constexpr int OUT_BN = 128, OUT_LD = OUT_BN + 8;
-constexpr int ALIGN_SLACK = 1024;        // the base rounded up to 1024 bytes
 
 // Launch 1's shared memory from the aligned base: the ring, the output
 // staging (16 rows a warp), K and V (or the two warpgroups' windows), the
@@ -295,9 +294,9 @@ struct AttnSmem {
   static constexpr int WINDOWS = 2 * 2 * KV_TILE;   // a K and a V tile per warpgroup
   static constexpr int BARS = 2 * ATTN_STAGES * 8;
   static long long kv_bytes(int L) { return 2LL * round_up(L, BT) * 128; }
-  static bool in_smem(int L) { return KV + kv_bytes(L) + BARS + ALIGN_SLACK <= MAX_SMEM; }
+  static bool in_smem(int L) { return KV + kv_bytes(L) + BARS + wg::SMEM_SLACK <= MAX_SMEM; }
   static int kv_region(int L) { return in_smem(L) ? (int)kv_bytes(L) : WINDOWS; }
-  static int bytes(int L) { return KV + kv_region(L) + BARS + ALIGN_SLACK; }
+  static int bytes(int L) { return KV + kv_region(L) + BARS + wg::SMEM_SLACK; }
   // K then V of one (b, h), [round_up(L, 64), 64] each, when they do not fit
   static long long ws_bytes(int L) { return 2LL * round_up(L, BT) * HD * 2; }
 };
@@ -305,7 +304,7 @@ struct AttnSmem {
 struct OutSmem {
   static constexpr int STAGING = OUT_STAGES * STAGE;
   static constexpr int BARS_AT = STAGING + CONSUMER_WARPS * 16 * OUT_LD * 2;
-  static constexpr int BYTES = BARS_AT + 2 * OUT_STAGES * 8 + ALIGN_SLACK;
+  static constexpr int BYTES = BARS_AT + 2 * OUT_STAGES * 8 + wg::SMEM_SLACK;
 };
 
 struct AttnArgs {
@@ -322,16 +321,6 @@ struct OutArgs {
   bf16* y;
   int M, A, dm, tiles_n, tiles;  // o [M, A], Wout [A, dm], y [M, dm]; 128 x 128 tiles
 };
-
-__device__ __forceinline__ unsigned char* aligned_smem() {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  return smem_raw + ((ALIGN_SLACK - (wg::smem_u32(smem_raw) & (ALIGN_SLACK - 1))) &
-                     (ALIGN_SLACK - 1));
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -405,7 +394,7 @@ __device__ __forceinline__ void project(float (&acc)[J][4], Ring<S>& ring,
 __global__ void __launch_bounds__(WG_THREADS, 1)
     fused_layer_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                                   const __grid_constant__ CUtensorMap map_w, AttnArgs a) {
-  unsigned char* smem = aligned_smem();
+  unsigned char* smem = wg::aligned_smem();
   const int h = blockIdx.x, b = blockIdx.y, L = a.L, A = a.H * HD;
   const int n_t = (L + BM - 1) / BM, n_k = a.dm / BK, Lk = round_up(L, BT);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -489,7 +478,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
   }
   wg::fence_proxy();                 // K and V, stored by threads, are read by wgmma
-  bar_sync(1, CONSUMER_WARPS * 32);  // every K and V row written
+  wg::bar_sync(1, CONSUMER_WARPS * 32);  // every K and V row written
 
   // -- phase B: q of 128 rows at a time, then attention over K and V ------
   const float sl2 = a.scale * tc::LOG2E;
@@ -531,7 +520,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     for (int k0 = 0; k0 < L; k0 += BT) {
       const unsigned char *cK = kv + k0 * 128, *cV = kv + Lk * 128 + k0 * 128;
       if (!held) {  // this group's window: the next K and V tile from the workspace
-        bar_sync(2 + grp, 128);  // the group is done with the last tile
+        wg::bar_sync(2 + grp, 128);  // the group is done with the last tile
         for (int idx = threadIdx.x % 128; idx < 2 * BT * 8; idx += 128) {
           const int which = idx >> 9, r = (idx >> 3) % BT, ch = idx & 7;
           tc::cp_async16(window + which * AttnSmem::KV_TILE + wg::swizzle128(r, ch * 8),
@@ -540,7 +529,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         tc::cp_async_commit();
         tc::cp_async_wait_all();
         wg::fence_proxy();
-        bar_sync(2 + grp, 128);
+        wg::bar_sync(2 + grp, 128);
         cK = window, cV = window + AttnSmem::KV_TILE;
       }
       float s[8][4];
@@ -586,7 +575,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 __global__ void __launch_bounds__(WG_THREADS, 1)
     fused_layer_out_wgmma_kernel(const __grid_constant__ CUtensorMap map_o,
                                  const __grid_constant__ CUtensorMap map_w, OutArgs a) {
-  unsigned char* smem = aligned_smem();
+  unsigned char* smem = wg::aligned_smem();
   const int n_k = a.A / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Ring<OUT_STAGES> ring(smem + OutSmem::BARS_AT);
@@ -642,43 +631,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // ---- host -------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the CUDA driver API, reached through the runtime's
-// entry-point query, so that the library links no -lcuda
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map: `rank` dims innermost first, the byte strides of dims
-// 1.., a box of `box`, 128-byte swizzle, zeros past the edges.
-bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encoder();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // Each kernel's limit on dynamic shared memory, set once: the port drives
 // one card per process. Launch 1's size depends on L, so its limit is the
@@ -747,10 +699,10 @@ int launch_bf16(const Call& c, cudaStream_t stream, int* launched) {
   const cuuint64_t wout_dims[2] = {(cuuint64_t)c.dm, (cuuint64_t)A};
   const cuuint64_t wout_strides[1] = {(cuuint64_t)c.dm * 2};
   const cuuint32_t w_box[2] = {64, BK}, o_box[2] = {BK, BM};
-  if (!encode(&map_x, c.x, 3, x_dims, x_strides, x_box) ||
-      !encode(&map_wqkv, c.wqkv, 2, wqkv_dims, wqkv_strides, w_box) ||
-      !encode(&map_o, c.o, 2, o_dims, o_strides, o_box) ||
-      !encode(&map_wout, c.wout, 2, wout_dims, wout_strides, w_box))
+  if (!wg::encode(&map_x, c.x, 3, x_dims, x_strides, x_box) ||
+      !wg::encode(&map_wqkv, c.wqkv, 2, wqkv_dims, wqkv_strides, w_box) ||
+      !wg::encode(&map_o, c.o, 2, o_dims, o_strides, o_box) ||
+      !wg::encode(&map_wout, c.wout, 2, wout_dims, wout_strides, w_box))
     return (int)cudaErrorInvalidValue;
   const AttnArgs at{static_cast<const bf16*>(c.bqkv), c.cos_t, c.sin_t, static_cast<bf16*>(c.o),
                     static_cast<bf16*>(c.ws), c.L, c.dm, c.H, AttnSmem::kv_region(c.L), c.scale};

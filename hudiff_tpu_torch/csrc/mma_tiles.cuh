@@ -211,6 +211,33 @@ __device__ __forceinline__ float2 rope_pair(float a, float b, float c, float s) 
                      __fadd_rn(__fmul_rn(a, s), __fmul_rn(b, c)));
 }
 
+// Rotate the 8 rotate-half pairs (lo[e], hi[e]) of one row in place, in f32
+// (rope_pair) and rounded to bf16; cos_row / sin_row are the row's table
+// entries at the same columns (16-byte aligned f32)
+__device__ __forceinline__ void rotate8(bf16* lo, bf16* hi, const float* cos_row,
+                                        const float* sin_row) {
+  uint4 x = *reinterpret_cast<const uint4*>(lo);
+  uint4 y = *reinterpret_cast<const uint4*>(hi);
+  const bf16* xe = reinterpret_cast<const bf16*>(&x);
+  const bf16* ye = reinterpret_cast<const bf16*>(&y);
+  const float4* cp = reinterpret_cast<const float4*>(cos_row);
+  const float4* sp = reinterpret_cast<const float4*>(sin_row);
+  const float4 c4[2] = {__ldg(cp), __ldg(cp + 1)}, s4[2] = {__ldg(sp), __ldg(sp + 1)};
+  const float* cs = reinterpret_cast<const float*>(c4);
+  const float* sn = reinterpret_cast<const float*>(s4);
+  uint4 a, b;
+  bf16* a_e = reinterpret_cast<bf16*>(&a);
+  bf16* b_e = reinterpret_cast<bf16*>(&b);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float2 r = rope_pair(__bfloat162float(xe[e]), __bfloat162float(ye[e]), cs[e], sn[e]);
+    a_e[e] = __float2bfloat16(r.x);
+    b_e[e] = __float2bfloat16(r.y);
+  }
+  *reinterpret_cast<uint4*>(lo) = a;
+  *reinterpret_cast<uint4*>(hi) = b;
+}
+
 // Rotate a landed q or k tile in place, rotate-half in f32 (rope_pair) and
 // rounded to bf16, with [L, 32] f32 tables. Rows >= L (zeros) are left
 // alone. Every thread takes part; the caller synchronises before and after.
@@ -220,26 +247,7 @@ __device__ __forceinline__ void rotate_tile(bf16* s, const float* cos_t, const f
     const int r = idx >> 2, c0 = (idx & 3) * 8, l = row0 + r;
     if (l >= L) continue;
     bf16* p = s + r * LD + c0;
-    uint4 x = *reinterpret_cast<const uint4*>(p);
-    uint4 y = *reinterpret_cast<const uint4*>(p + 32);
-    const bf16* xe = reinterpret_cast<const bf16*>(&x);
-    const bf16* ye = reinterpret_cast<const bf16*>(&y);
-    const float4* cp = reinterpret_cast<const float4*>(cos_t + l * 32 + c0);
-    const float4* sp = reinterpret_cast<const float4*>(sin_t + l * 32 + c0);
-    const float4 c4[2] = {__ldg(cp), __ldg(cp + 1)}, s4[2] = {__ldg(sp), __ldg(sp + 1)};
-    const float* cs = reinterpret_cast<const float*>(c4);
-    const float* sn = reinterpret_cast<const float*>(s4);
-    uint4 lo, hi;
-    bf16* lo_e = reinterpret_cast<bf16*>(&lo);
-    bf16* hi_e = reinterpret_cast<bf16*>(&hi);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float2 r = rope_pair(__bfloat162float(xe[e]), __bfloat162float(ye[e]), cs[e], sn[e]);
-      lo_e[e] = __float2bfloat16(r.x);
-      hi_e[e] = __float2bfloat16(r.y);
-    }
-    *reinterpret_cast<uint4*>(p) = lo;
-    *reinterpret_cast<uint4*>(p + 32) = hi;
+    rotate8(p, p + 32, cos_t + l * 32 + c0, sin_t + l * 32 + c0);
   }
 }
 

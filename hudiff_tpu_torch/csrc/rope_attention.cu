@@ -1,5 +1,5 @@
 // K1, K5 and K7: one hand-written attention forward, instantiated three
-// times for three layouts.
+// times for three layouts, and K1's Hopper design.
 //
 // Replaces, in hudiff_tpu/ops/pallas_attention.py:
 //   K1 _rope_fwd_kernel_qkv (via _pallas_fwd_qkv / rope_attention_qkv):
@@ -35,33 +35,63 @@
 // What bounds it on an H100 (data-sheet peaks of the NVIDIA H100 80GB HBM3 at
 // 700 W): bytes. At B=64, L=291, bf16 one K1 call reads the 57 MB qkv block
 // and writes 19 MB, about 23 us at 3.35 TB/s, against 11 GFLOP (11 us at
-// 989 TFLOP/s) of tensor-core work; K5 and K7 move the same bytes.
+// 989 TFLOP/s) of tensor-core work; K5 and K7 move the same bytes. At the
+// sampler's B=16 a call is 5.7 us of bytes, and what costs is the chain of
+// dependent steps a block runs: load, rotate, then per key tile a product,
+// the softmax and a second product.
 //
-// Design, bf16 (FlashAttention-2's forward on mma.sync; csrc/mma_tiles.cuh):
-// the [291, 291] f32 score block (339 KB) does not fit a block's 227 KB, so
-// one block of four warps takes (b, h, 64 queries) and walks the keys in
-// tiles of 64 with an online softmax. The q tile is rotated once in shared
-// memory and held as A fragments in registers. K/V tiles arrive by cp.async
-// into a double buffer (the next tile's copy overlaps this tile's products);
-// a landed k tile is rotated in place. Each warp keeps its 16 rows of S, P
-// and O in registers: S = q k^T by m16n8k16 products, the row max and sum by
-// quad shuffles (exp2 of scaled log2 scores), P re-packed as bf16 A
-// fragments for O += P V, O rescaled in registers; no S, P or O tile goes
-// through shared memory. Keys >= L get P = 0 explicitly; rows >= L are never
-// stored. The output is staged through the free q tile and written 16 bytes
-// a lane. Each query tile reads its head's K/V again; the repeats hit L2.
-// The residual instantiations split P into bf16(P) and the rest, which
-// rounding dropped, and accumulate (P - bf16(P)) V as a second product, so
-// that out_f32 = (P v)/l carries P to ~2^-16; one more product per tile.
+// K1 in bf16 at L <= 384 with 64 or more (b, h) pairs, on Hopper
+// (wgmma_rope_attention_qkv_kernel; wgmma_tiles.cuh), in place of the
+// mma.sync design below for it: a block takes (head h, row b) and every
+// split-th of the head's query tiles (ops/fused_attention.py::
+// rope_attention_qkv_plan: 2 blocks a head at L = 291, 1 or 2 at 152). A producer warp TMA-loads the block's q tiles and
+// the head's whole K and V (a 3-D tensor map over qkv [B][L][H*192], boxes
+// of 64 rows at columns 192h, +64, +128; rows past L come back as TMA's
+// zeros) into 128-byte-swizzled shared memory at once, each tile on its own
+// mbarrier: at L = 291 K and V are 80 KB, and nothing waits on a copy but
+// its first use. The two consumer warpgroups rotate K in place together,
+// once for the block (the mma.sync design rotates every K tile again in
+// each of a head's five blocks), then take the q tiles in turn: a q tile is rotated in
+// place, and the online softmax runs on wgmma, S = q k^T from shared memory
+// (both operands K-major), S and P in registers, O += P V with P as
+// register A fragments (V the N-major operand), keys >= L at P = 0. The
+// output is staged in the q tile and written 16 bytes a lane. Without the
+// residuals a block uses at most 113 registers, so two share an SM. Why no
+// cluster multicast of K and V: a head's blocks each read its 80 KB of K
+// and V from L2 (qkv is in L2 on the main path, written by the projection
+// just before) once, against a chain of dependent steps many times longer;
+// splitting a head's query tiles over two blocks halves the chain a block
+// waits on and puts 256 blocks on the 132 SMs at B = 16, and a second block
+// on an SM hides the rest. chip_smoke.py times every split (K1's
+// device_ms_by_split); two read fastest at L = 291 on an H100 (PERF.md).
+//
+// The other instantiations keep the mma.sync design (bf16 FlashAttention-2 on
+// mma.sync; csrc/mma_tiles.cuh): the [291, 291] f32 score block (339 KB)
+// does not fit a block's 227 KB, so one block of four warps takes (b, h, 64
+// queries) and walks the keys in tiles of 64 with an online softmax. The q
+// tile is rotated once in shared memory and held as A fragments in
+// registers. K/V tiles arrive by cp.async into a double buffer (the next
+// tile's copy overlaps this tile's products); a landed k tile is rotated
+// in place. Each warp keeps its 16 rows of S, P and O in registers: S = q
+// k^T by m16n8k16 products, the row max and sum by quad shuffles (exp2 of
+// scaled log2 scores), P re-packed as bf16 A fragments for O += P V, O
+// rescaled in registers. Keys >= L get P = 0 explicitly; rows >= L are
+// never stored. Each query tile reads its head's K/V again; the repeats hit
+// L2. K5, K7 and K1 past L = 384 take it.
+// The residual instantiations (both designs) split P into bf16(P) and the
+// rest, which rounding dropped, and accumulate (P - bf16(P)) V as a second
+// product, so that out_f32 = (P v)/l carries P to ~2^-16; one more product
+// per tile.
 // f32 (the tests' reference type) keeps the exact FMA path of
 // attention_tiles.cuh: S and O in f32 shared tiles, one warp reduction per
-// row. The three instantiations have their own kernel names, so a profiler
-// tells them apart.
+// row. The instantiations have their own kernel names, so a profiler tells
+// them apart.
 
 #include <type_traits>
 
 #include "attention_tiles.cuh"
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 using namespace hd;
 
@@ -347,6 +377,218 @@ __device__ __forceinline__ void attention_fwd_bf16(const Args& a) {
   }
 }
 
+// ---- bf16 K1 on Hopper: TMA + wgmma ------------------------------------------
+
+constexpr int TMA_GROUPS = 2;                          // consumer warpgroups a block
+constexpr int TMA_THREADS = (4 * TMA_GROUPS + 1) * 32;  // and one producer warp
+constexpr int TMA_TILE = BKV * 128;                    // 64 rows of 128 bytes: 8 KB
+constexpr int TMA_MAX_TILES = 6;                       // K and V held up to L = 384
+constexpr int TMA_BARS = 128;                          // the mbarriers' bytes
+
+// Shared memory from the aligned base: K tiles, V tiles, the block's q tiles
+// (every split-th of the head's), the mbarriers (K, one per q tile, one per
+// V tile)
+__host__ __device__ constexpr int tma_q_tiles(int kv_tiles, int split) {
+  return (kv_tiles + split - 1) / split;
+}
+__host__ __device__ constexpr int tma_smem_bytes(int kv_tiles, int split) {
+  return (2 * kv_tiles + tma_q_tiles(kv_tiles, split)) * TMA_TILE + TMA_BARS + wg::SMEM_SLACK;
+}
+
+struct TmaArgs {
+  tc::bf16* out;               // [B, L, H*64]
+  float* lse;                  // [B, H, L] f32, or nullptr (then out_f32 too)
+  float* out_f32;              // [B, L, H*64] f32
+  const float *cos_t, *sin_t;  // [L, 32] f32
+  int L, H, kv_tiles;
+  float scale;
+};
+
+// One consumer warpgroup's query tile (rows row0 + [0, 64), landed at tq on
+// qbar) over the held, rotated K and V: the output rows (and with RES the
+// residuals) written
+template <bool RES>
+__device__ __forceinline__ void attend_tile(const TmaArgs& a, const unsigned char* sK,
+                                            const unsigned char* sV, unsigned char* tq,
+                                            uint64_t* qbar, uint64_t* vbar, int row0, int b,
+                                            int h, int grp, int wq, int lane, float sl2, int A) {
+  using tc::bf16;
+  const int T = a.kv_tiles, L = a.L, g = lane >> 2, t4 = lane & 3;
+  // q rotated in place, as K was: the warpgroup's 128 threads take 8 pairs
+  // of a row each, twice; then wgmma reads it
+  wg::mbar_wait(qbar, 0);
+  const int gt = threadIdx.x % 128;
+#pragma unroll
+  for (int idx = gt; idx < BKV * 4; idx += 128) {
+    const int r = idx >> 2, c0 = (idx & 3) * 8, l = row0 + r;
+    if (l >= L) continue;
+    tc::rotate8(reinterpret_cast<bf16*>(tq + wg::swizzle128(r, c0)),
+                reinterpret_cast<bf16*>(tq + wg::swizzle128(r, c0 + D2)), a.cos_t + l * D2 + c0,
+                a.sin_t + l * D2 + c0);
+  }
+  wg::fence_proxy();
+  wg::bar_sync(2 + grp, 128);
+
+  // K1's online softmax over the held K and V, on wgmma: S = q k^T from
+  // shared memory (q and K both K-major), O += P V with P from registers (V
+  // the N-major operand); with RES also O_lo += (P - bf16(P)) V
+  float o[8][4], o_lo[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  tc::zero(o);
+  if (RES) tc::zero(o_lo);
+  for (int j = 0; j < T; ++j) {
+    float s[8][4];
+    const uint64_t dq = wg::desc(tq, 0, 1024), dk = wg::desc(sK + j * TMA_TILE, 0, 1024);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n64<0>(s, wg::desc_add(dq, 32 * kk), wg::desc_add(dk, 32 * kk), kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_acc(s);
+    float alpha[2];
+    tc::online_softmax(s, m, l, alpha, BKV * j, L, sl2, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[n][e] *= alpha[e >> 1];
+        if (RES) o_lo[n][e] *= alpha[e >> 1];
+      }
+    uint32_t pf[4][4], pf_lo[4][4];
+    tc::to_a(pf, s);  // P rounded to bf16
+    if (RES) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] -= __bfloat162float(__float2bfloat16(s[n][e]));
+      tc::to_a(pf_lo, s);
+    }
+    wg::mbar_wait(&vbar[j], 0);
+    const uint64_t dv = wg::desc(sV + j * TMA_TILE, TMA_TILE, 1024);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::mma_m64n64_rs<1>(o, pf[kk], wg::desc_add(dv, 2048 * kk), 1);
+    if (RES)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_m64n64_rs<1>(o_lo, pf_lo[kk], wg::desc_add(dv, 2048 * kk), 1);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_acc(o);
+    if (RES) wg::fence_acc(o_lo);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  // out = bf16(O / l), staged in the warp's own 16 rows of the q tile (the
+  // warpgroup's products that read it are done), then 16 bytes a lane
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(tq + wg::swizzle128(16 * wq + g + 8 * hh, 8 * j + 2 * t4)) =
+          tc::pack(o[j][2 * hh] * inv[hh], o[j][2 * hh + 1] * inv[hh]);
+  __syncwarp();
+  bf16* out = a.out + (size_t)b * L * A + h * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = lane + 32 * i, r = idx >> 3, ch = idx & 7, row = row0 + 16 * wq + r;
+    if (row < L)
+      *reinterpret_cast<uint4*>(out + (size_t)row * A + ch * 8) =
+          *reinterpret_cast<const uint4*>(tq + wg::swizzle128(16 * wq + r, ch * 8));
+  }
+  if (!RES) return;
+  float* lse = a.lse + ((size_t)b * a.H + h) * L;
+  float* of = a.out_f32 + (size_t)b * L * A + h * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * wq + g + 8 * r;
+    if (row >= L) continue;
+    if (t4 == 0) lse[row] = (m[r] + log2f(l[r])) * tc::LN2;
+    float* dst = of + (size_t)row * A + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2((o[n][2 * r] + o_lo[n][2 * r]) * inv[r],
+                      (o[n][2 * r + 1] + o_lo[n][2 * r + 1]) * inv[r]);
+  }
+}
+
+// Block x of a head's `split` blocks takes (head h, row b) and the query
+// tiles x, x + split, ...: a producer warp TMA-loads those q tiles and
+// every K and V tile of the head at once, each landing on its own
+// mbarrier; the two consumer warpgroups rotate K in shared memory together
+// (once for the block), then take the q tiles in turn and run the online
+// softmax of each tile's 64 queries over the held K and V on wgmma, q
+// rotated in registers and packed as A fragments, S and P in registers.
+template <bool RES>
+__global__ void __launch_bounds__(TMA_THREADS, RES ? 1 : 2)
+    wgmma_rope_attention_qkv_kernel(const __grid_constant__ CUtensorMap map, TmaArgs a) {
+  using tc::bf16;
+  unsigned char* smem = wg::aligned_smem();
+  const int T = a.kv_tiles, L = a.L, h = blockIdx.y, b = blockIdx.z;
+  const int split = gridDim.x, x = blockIdx.x, nq = (T - x + split - 1) / split;
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + T * TMA_TILE;
+  unsigned char* sQ = smem + 2 * T * TMA_TILE;  // slot i: query tile x + split * i
+  uint64_t* kbar =
+      reinterpret_cast<uint64_t*>(smem + (2 * T + tma_q_tiles(T, split)) * TMA_TILE);
+  uint64_t* qbar = kbar + 1;
+  uint64_t* vbar = qbar + nq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    wg::mbar_init(kbar, 1);
+    for (int i = 0; i < nq; ++i) wg::mbar_init(&qbar[i], 1);
+    for (int j = 0; j < T; ++j) wg::mbar_init(&vbar[j], 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * TMA_GROUPS) {  // the producer: lane 0 issues every copy
+    if (lane != 0) return;
+    wg::tma_prefetch(&map);
+    const int col = 3 * HD * h;  // q, k, v of head h at col, col + 64, col + 128
+    for (int i = 0; i < nq; ++i) {
+      wg::mbar_arrive_expect(&qbar[i], TMA_TILE);
+      wg::tma_load_3d(sQ + i * TMA_TILE, &map, &qbar[i], col, BKV * (x + split * i), b);
+    }
+    wg::mbar_arrive_expect(kbar, T * TMA_TILE);
+    for (int j = 0; j < T; ++j)
+      wg::tma_load_3d(sK + j * TMA_TILE, &map, kbar, col + HD, BKV * j, b);
+    for (int j = 0; j < T; ++j) {
+      wg::mbar_arrive_expect(&vbar[j], TMA_TILE);
+      wg::tma_load_3d(sV + j * TMA_TILE, &map, &vbar[j], col + 2 * HD, BKV * j, b);
+    }
+    return;
+  }
+
+  // K rotated in place once, rows [0, L): a thread takes 8 pairs of a row;
+  // rows >= L stay TMA's zeros (their keys get P = 0)
+  wg::mbar_wait(kbar, 0);
+  for (int idx = threadIdx.x; idx < T * BKV * 4; idx += 128 * TMA_GROUPS) {
+    const int r = idx >> 2, c0 = (idx & 3) * 8;
+    if (r >= L) continue;
+    unsigned char* tile = sK + (r / BKV) * TMA_TILE;
+    tc::rotate8(reinterpret_cast<bf16*>(tile + wg::swizzle128(r % BKV, c0)),
+                reinterpret_cast<bf16*>(tile + wg::swizzle128(r % BKV, c0 + D2)),
+                a.cos_t + r * D2 + c0, a.sin_t + r * D2 + c0);
+  }
+  wg::fence_proxy();                  // K, rewritten by threads, is read by wgmma
+  wg::bar_sync(1, 128 * TMA_GROUPS);
+
+  const int grp = warp / 4, wq = warp % 4;
+  const float sl2 = a.scale * tc::LOG2E;
+  const int A = a.H * HD;
+  for (int i = grp; i < nq; i += TMA_GROUPS)
+    attend_tile<RES>(a, sK, sV, sQ + i * TMA_TILE, &qbar[i], vbar, BKV * (x + split * i), b, h,
+                     grp, wq, lane, sl2, A);
+}
+
 // RES: also write the backward's residuals, lse and (bf16) the unrounded
 // output
 template <typename T, bool ROPE, bool RES>
@@ -457,4 +699,56 @@ extern "C" int hd_attention(const void* q, const void* k, const void* v, void* o
   if (dtype == 1)
     return launch<__nv_bfloat16, plain_attention_kernel<__nv_bfloat16>>(a, B, H, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K1 on Hopper (bf16, L <= 384): qkv [B, L, H*3*64] head-major at a 16-byte
+// aligned address, cos/sin [L, 32] f32, out [B, L, H*64]; the residuals
+// lse [B, H, L] f32 and out_f32 [B, L, H*64] f32, both or neither (null: not
+// written). `plan` is the launch the caller computed
+// (ops/fused_attention.py::rope_attention_qkv_plan), 14 values: grid x (the
+// blocks a head's query tiles are split over), y, z, threads, shared-memory bytes, K/V tiles, the qkv tensor map's dims (3,
+// innermost first), byte strides (2) and box (3); a plan other than this
+// entry's own for the shape is refused. Returns a cudaError_t code (0 =
+// launched).
+extern "C" int hd_rope_attention_qkv_tma(const void* qkv, const void* cos_t, const void* sin_t,
+                                         void* out, void* lse, void* out_f32, int B, int L,
+                                         int H, float scale, const long long* plan,
+                                         void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
+      (lse == nullptr) != (out_f32 == nullptr) || reinterpret_cast<uintptr_t>(qkv) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (L + BKV - 1) / BKV;
+  const long long split = plan[0], width = 3LL * H * HD;
+  if (split < 1 || split > tiles || tiles > TMA_MAX_TILES) return (int)cudaErrorInvalidValue;
+  const long long want[14] = {split, H, B, TMA_THREADS, tma_smem_bytes(tiles, (int)split), tiles,
+                              width, L, B, width * 2, (long long)L * width * 2, HD, BKV, 1};
+  for (int i = 0; i < 14; ++i)
+    if (plan[i] != want[i]) return (int)cudaErrorInvalidValue;
+  if (want[4] > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // the limit, set once for both instantiations: the port drives one card per process
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(wgmma_rope_attention_qkv_kernel<false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               MAX_SMEM);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(wgmma_rope_attention_qkv_kernel<true>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   MAX_SMEM);
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)plan[6], (cuuint64_t)plan[7], (cuuint64_t)plan[8]};
+  const cuuint64_t strides[2] = {(cuuint64_t)plan[9], (cuuint64_t)plan[10]};
+  const cuuint32_t box[3] = {(cuuint32_t)plan[11], (cuuint32_t)plan[12], (cuuint32_t)plan[13]};
+  if (!wg::encode(&map, qkv, 3, dims, strides, box)) return (int)cudaErrorInvalidValue;
+  const TmaArgs a{static_cast<tc::bf16*>(out), static_cast<float*>(lse),
+                  static_cast<float*>(out_f32), static_cast<const float*>(cos_t),
+                  static_cast<const float*>(sin_t), L, H, tiles, scale};
+  const dim3 grid((unsigned)plan[0], (unsigned)plan[1], (unsigned)plan[2]);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr)
+    wgmma_rope_attention_qkv_kernel<true><<<grid, TMA_THREADS, (int)plan[4], s>>>(map, a);
+  else
+    wgmma_rope_attention_qkv_kernel<false><<<grid, TMA_THREADS, (int)plan[4], s>>>(map, a);
+  return (int)cudaGetLastError();
 }

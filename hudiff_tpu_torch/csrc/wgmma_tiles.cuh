@@ -1,4 +1,5 @@
-// Hopper's asynchronous tile machinery for fused_layer.cu (K8, bf16): TMA
+// Hopper's asynchronous tile machinery for the bf16 kernels of
+// fused_layer.cu (K8), rope_attention.cu (K1) and bytenet_block.cu (K2): TMA
 // tensor maps and bulk copies into shared memory, mbarriers, and wgmma, as
 // raw PTX. Raw PTX and not CuTe's atoms: the kernels need four
 // instructions of each kind, nvcc builds a source that includes no CUTLASS
@@ -32,6 +33,21 @@ namespace wg {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The bytes a kernel adds to its dynamic shared memory so that its base can
+// be rounded up to 1024 bytes, where 128-byte-swizzled tiles must start
+constexpr int SMEM_SLACK = 1024;
+
+// The dynamic shared memory's base, rounded up to 1024 bytes
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  return smem_raw + ((SMEM_SLACK - (smem_u32(smem_raw) & (SMEM_SLACK - 1))) & (SMEM_SLACK - 1));
+}
+
+// A named barrier over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- mbarriers -------------------------------------------------------------
@@ -136,7 +152,9 @@ template <int J> __device__ __forceinline__ void fence_acc(float (&d)[J][4]) {
 }
 
 // d (64 x 64, f32) = A B + (accumulate ? d : 0) on the warpgroup, A [64, 16] and
-// B [16, 64] from shared memory through their descriptors; B is N-major
+// B [16, 64] from shared memory through their descriptors; B N-major (TRANS_B
+// 1) or K-major (TRANS_B 0: [64 n][k] rows, laid out as an A operand)
+template <int TRANS_B = 1>
 __device__ __forceinline__ void mma_m64n64(float (&d)[8][4], uint64_t da, uint64_t db,
                                          int accumulate) {
   asm volatile(
@@ -146,7 +164,7 @@ __device__ __forceinline__ void mma_m64n64(float (&d)[8][4], uint64_t da, uint64
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -155,11 +173,13 @@ __device__ __forceinline__ void mma_m64n64(float (&d)[8][4], uint64_t da, uint64
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d (64 x 128, f32) = A B + (accumulate ? d : 0) on the warpgroup, A [64, 16] and
-// B [16, 128] from shared memory through their descriptors; B is N-major
+// B [16, 128] from shared memory through their descriptors; B N-major or
+// K-major, as for mma_m64n64
+template <int TRANS_B = 1>
 __device__ __forceinline__ void mma_m64n128(float (&d)[16][4], uint64_t da, uint64_t db,
                                          int accumulate) {
   asm volatile(
@@ -173,7 +193,7 @@ __device__ __forceinline__ void mma_m64n128(float (&d)[16][4], uint64_t da, uint
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -190,7 +210,7 @@ __device__ __forceinline__ void mma_m64n128(float (&d)[16][4], uint64_t da, uint
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 
@@ -219,6 +239,45 @@ __device__ __forceinline__ void mma_m64n64_rs(float (&d)[8][4], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+
+// ---- host: tensor maps -----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA driver API, reached through the runtime's
+// entry-point query, so that a library links no -lcuda
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                             12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map: `rank` dims innermost first, the byte strides of dims
+// 1.., a box of `box`, 128-byte swizzle, zeros past the edges.
+inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace wg
 }  // namespace hd

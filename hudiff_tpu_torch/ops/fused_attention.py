@@ -14,9 +14,12 @@ Counterpart of hudiff_tpu/ops/pallas_attention.py:
   softmax attention without RoPE, forward only; K7 (``_attn_kernel``).
 
 The CUDA kernels are ``csrc/rope_attention.cu`` (K1, K5 and K7: one
-forward, three layouts) and ``csrc/rope_attention_bwd.cu`` (K3 and K6: one
-three-launch backward, two layouts); their headers say what bounds them on an
-H100 and how their designs answer that.
+forward, three layouts; bf16 K1 at L <= 384 on Hopper's TMA + wgmma, the
+rest on mma.sync or, in f32, FMA) and ``csrc/rope_attention_bwd.cu`` (K3 and
+K6: one three-launch backward, two layouts); their headers say what bounds
+them on an H100 and how their designs answer that. ``rope_attention_qkv_plan``
+is K1's launch, computed here from the shape alone and refused by the C
+entry unless it is the source's own.
 
 The backward works from the forward's residuals, which K1 and K5 write
 when asked (``residuals=True``): the output before rounding, ``out`` f32
@@ -46,6 +49,7 @@ them again at each replay, so the counters stay the kernels launched.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -64,6 +68,7 @@ COUNTERS = ('launches', 'bwd_launches', 'rope_launches', 'rope_bwd_launches',
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'hd_rope_attention_qkv': [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    'hd_rope_attention_qkv_tma': [_P] * 6 + [_I] * 3 + [_F, _P, _P],
     'hd_rope_attention': [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     'hd_attention': [_P] * 4 + [_I] * 10 + [_F, _I, _P],
 }
@@ -72,6 +77,69 @@ _BWD_SIGNATURES = {
     'hd_rope_attention_bwd': [_P] * 13 + [_I] * 4 + [_F, _I, _P, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K1's launch on the H100 (csrc/rope_attention.cu): the Hopper path's
+# block is two consumer warpgroups and a producer warp; a 64-row tile of 64
+# bf16 columns is 8 KB with 128-byte rows (TMA's 128-byte swizzle); K and V
+# stay in shared memory up to MAX_KV_TILES tiles (L = 384).
+MAX_SMEM = 232448        # dynamic shared memory an H100 block may use
+H100_SMS = 132
+TILE_BYTES = 64 * 128
+K1_TMA_THREADS = (4 * 2 + 1) * 32
+K1_MAX_KV_TILES = 6
+K1_TMA_MIN_HEADS = 64    # (b, h) pairs below which the mma.sync design's 5x blocks win
+K1_TMA_EXTRA = 128 + 1024   # the mbarriers, and the base rounded up to 1024 bytes
+K1_PATHS = ('wgmma', 'mma_sync', 'fma')
+_MMA_SYNC_SMEM = {torch.float32: 104448, torch.bfloat16: 5 * 9216}   # SmemF32, SmemBf16
+
+
+@functools.lru_cache(maxsize=None)
+def rope_attention_qkv_plan(B: int, L: int, heads: int, dtype, path: str = None,
+                            split: int = None) -> dict:
+    """K1's launch for qkv [B, L, heads*3*64] of ``dtype`` on an H100, from
+    the shape alone: ``path`` 'wgmma' (bf16, L <= 384 and B * heads >= 64:
+    TMA + wgmma, K and V held in shared memory), else 'mma_sync' (bf16, the
+    earlier design, which reads faster with fewer (b, h) pairs: it splits a
+    head into a block per 64 queries) or 'fma' (f32); ``grid``, ``threads``, ``smem_bytes``, and for 'wgmma' the K/V
+    tiles, the qkv tensor map (dims and box innermost first, byte strides,
+    128-byte swizzle) and ``array``, the 14 values the C entry takes (also
+    as a ctypes array, ``c_array``; plans are cached by shape). A
+    head's query tiles are split over ``split`` blocks (each loads and
+    rotates K and V itself): 2 where a head has 4 or more query tiles or
+    there are at most two (b, h) blocks an SM, else 1 (the split that read
+    fastest on an H100, PERF.md). ``path`` and ``split`` name
+    another launch for comparison, where it applies; what no kernel takes
+    raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f'rope_attention_qkv: dtype {dtype} not supported')
+    if not (0 < B <= 65535 and 0 < heads <= 65535 and L > 0):
+        raise ValueError(f'rope_attention_qkv: unsupported shape B={B} L={L} heads={heads}')
+    tiles = -(-L // 64)
+    bf16 = dtype is torch.bfloat16
+    takes = bf16 and tiles <= K1_MAX_KV_TILES
+    fits = takes and B * heads >= K1_TMA_MIN_HEADS
+    path = path or ('wgmma' if fits else 'mma_sync' if bf16 else 'fma')
+    if path not in K1_PATHS or (path == 'wgmma' and not takes) \
+            or (path == 'mma_sync' and not bf16) or (path == 'fma' and bf16):
+        raise ValueError(f'rope_attention_qkv: no {path!r} path for {dtype} at L={L}')
+    if path != 'wgmma':
+        return {'path': path, 'grid': (tiles, heads, B), 'threads': 128, 'cluster': (1, 1, 1),
+                'smem_bytes': _MMA_SYNC_SMEM[dtype]}
+    if split is None:   # two blocks a head where a head has 4+ query tiles or blocks are few
+        split = 2 if tiles >= 2 and (tiles >= 4 or B * heads <= 2 * H100_SMS) else 1
+    if not 1 <= split <= tiles:
+        raise ValueError(f'rope_attention_qkv: split {split} of {tiles} query tiles')
+    width = 3 * heads * HEAD_DIM
+    plan = {'path': 'wgmma', 'grid': (split, heads, B), 'threads': K1_TMA_THREADS,
+            'cluster': (1, 1, 1), 'kv_tiles': tiles,
+            'smem_bytes': (2 * tiles + -(-tiles // split)) * TILE_BYTES + K1_TMA_EXTRA,
+            'tensor_map': {'dims': (width, L, B), 'strides': (width * 2, L * width * 2),
+                           'box': (HEAD_DIM, 64, 1), 'elem_bytes': 2, 'swizzle': 128}}
+    tm = plan['tensor_map']
+    plan['array'] = (*plan['grid'], plan['threads'], plan['smem_bytes'], tiles, *tm['dims'],
+                     *tm['strides'], *tm['box'])
+    plan['c_array'] = (ctypes.c_longlong * len(plan['array']))(*plan['array'])
+    return plan
 
 
 def split_qkv_heads(qkv: torch.Tensor, heads: int):
@@ -255,25 +323,35 @@ def _pointers(residuals, lse, out_f32, out):
 
 
 def rope_attention_qkv_forward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                               scale: float, heads: int, residuals: bool = False):
+                               scale: float, heads: int, residuals: bool = False,
+                               plan: dict = None):
     """K1 on a CUDA tensor, or the plain version on a CPU one: [B, L,
     heads*64]; with ``residuals`` (out, out_f32, lse), the backward's
-    residuals written beside the output (see ``rope_attention_reference``)."""
+    residuals written beside the output (see ``rope_attention_reference``).
+    ``plan`` (``rope_attention_qkv_plan``) defaults to the shape's own; a
+    caller may pass another path's to compare the two."""
     global launches
     if qkv.device.type == 'cpu':
         return rope_attention_qkv_reference(qkv, cos, sin, scale, heads, residuals)
     _check_cuda(qkv, heads * 3 * HEAD_DIM, 'rope_attention_qkv')
     B, L, _ = qkv.shape
+    plan = plan or rope_attention_qkv_plan(B, L, heads, qkv.dtype)
     cos, sin = _tables(cos, sin, qkv, L, 'rope_attention_qkv')
     qkv = qkv.contiguous()
+    if plan['path'] == 'wgmma' and qkv.data_ptr() % 16:
+        qkv = qkv.clone()   # TMA reads from a 16-byte aligned address
     out = torch.empty(B, L, heads * HEAD_DIM, dtype=qkv.dtype, device=qkv.device)
     lse, out_f32 = _residual_buffers(out) if residuals else (None, None)
     lib = _build.load('rope_attention', _SIGNATURES)
+    ptrs = (qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+            *_pointers(residuals, lse, out_f32, out))
     with torch.cuda.device(qkv.device):
-        code = lib.hd_rope_attention_qkv(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-            *_pointers(residuals, lse, out_f32, out), B, L, heads, HEAD_DIM, float(scale),
-            _DTYPES[qkv.dtype], _stream(qkv))
+        if plan['path'] == 'wgmma':
+            code = lib.hd_rope_attention_qkv_tma(*ptrs, B, L, heads, float(scale),
+                                                 plan['c_array'], _stream(qkv))
+        else:
+            code = lib.hd_rope_attention_qkv(*ptrs, B, L, heads, HEAD_DIM, float(scale),
+                                             _DTYPES[qkv.dtype], _stream(qkv))
     _build.check(code, 'rope_attention_qkv')
     launches += 1
     return (out, out_f32, lse) if residuals else out

@@ -6,7 +6,9 @@ around them, :380-407). The CUDA kernels are ``csrc/bytenet_block.cu`` (K2:
 one call launches three GEMMs; the first applies LayerNorm 1 + activation
 to x's rows as they land, and the first two finish the next LayerNorm in
 their epilogues, as thread-block clusters spanning a row tile's columns,
-writing act(LN2 p) and act(LN3 q) for the next GEMM) and
+writing act(LN2 p) and act(LN3 q) for the next GEMM; in bf16 with widths
+that are multiples of 128 on Hopper's TMA + wgmma, otherwise on the
+earlier cp.async + mma.sync core, chosen by ``bytenet_block_plan`` from the shape) and
 ``csrc/bytenet_block_bwd.cu`` (K4: five launches, three data-gradient
 GEMMs with the LayerNorm backward in their epilogues, one grouped
 weight-gradient GEMM and one fixed-order reduction), both on the pipelined
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +51,8 @@ COUNTERS = ('launches', 'bwd_launches')
 _SIGNATURES = {
     'hd_bytenet_block_fwd': [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p, ctypes.c_void_p],
+    'hd_bytenet_block_fwd_tma': [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+                                + [ctypes.c_void_p] * 3,
 }
 _BWD_SIGNATURES = {
     'hd_bytenet_block_bwd': [ctypes.c_void_p] * 31 + [ctypes.c_int] * 8
@@ -57,6 +62,102 @@ _BWD_SIGNATURES = {
 _BWD_RESTYPES = {'hd_bytenet_block_bwd_workspace': ctypes.c_longlong}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {'relu': 0, 'gelu': 1}
+
+# K2's launches on the H100 (csrc/bytenet_block.cu). The Hopper path's
+# block is a 64 x 128 tile of the B*L x N output, two consumer warpgroups
+# that split the reduction's chunks, and a producer warp; a stage of its
+# ring is a 64 x 64 A box (8 KB) and 128 weight rows of 64 channels (16 KB),
+# then come the mbarriers, [4][64] float2 of row statistics, F1's LayerNorm
+# g and b (1024 f32 each), the tile's bias and next LayerNorm's g and b (128
+# f32 each) and 1 KB of alignment: with eight stages one block holds an SM,
+# with four two share one. The path takes bf16 with D and H multiples of
+# 128; the plan gives it the towers of H >= 256 up to K2_TMA_MAX_TILES of
+# the conv's tiles (B <= 64 at 768/384, <= 128 at 512/256), where it read
+# faster than the earlier cp.async + mma.sync core on an H100; that core
+# keeps the 256/128 tower, larger batches and the other widths (PERF.md).
+H100_SMS = 132
+MAX_SMEM = 232448
+MAX_CLUSTER = 8
+K2_TMA_BM, K2_TMA_BN = 64, 128
+K2_TMA_THREADS = 9 * 32
+K2_TMA_MAX_TILES = 5 * H100_SMS
+
+
+def k2_tma_smem(stages: int) -> int:
+    """Shared memory of a Hopper K2 block with a ring of ``stages``."""
+    return stages * (64 + 128) * 128 + 2 * stages * 8 + 4 * 64 * 8 + (2 * 1024 + 3 * 128) * 4 + 1024
+K2_PATHS = ('wgmma', 'mma_sync', 'fma')
+
+
+def _pr5_launch(M: int, N: int, cluster: bool, dtype) -> dict:
+    """One GEMM of the cp.async + mma.sync core (``big_tiles`` and ``FwdTile`` in
+    csrc/bytenet_block.cu), for the record: 128 x 128 tiles where they give
+    two blocks an SM or a 64-column cluster would pass 8 blocks, else 64 x 64."""
+    big = -(-M // 128) * -(-N // 128) >= 2 * H100_SMS or (cluster and N > 64 * MAX_CLUSTER)
+    bm = bn = 128 if big else 64
+    bk = 128 // (4 if dtype is torch.float32 else 2)
+    es = 4 if dtype is torch.float32 else 2
+    grid = (-(-M // bm), -(-N // bn), 1)
+    return {'grid': grid, 'cluster': (1, grid[1] if cluster else 1, 1), 'threads': 256,
+            'smem_bytes': 3 * (bm + bn) * bk * es + 6 * bm * 8, 'bn': bn}
+
+
+@functools.lru_cache(maxsize=None)
+def bytenet_block_plan(B: int, L: int, D: int, H: int, K: int, dilation: int, dtype,
+                       path: str = None) -> dict:
+    """K2's three launches (F1: p and act(LN2 p) from x; F2: the dilated
+    conv, q and act(LN3 q); F3: y) for x [B, L, D] of ``dtype``, hidden H,
+    K taps, on an H100, from the shape alone. ``path`` 'wgmma' (TMA +
+    wgmma: bf16, D and H multiples of 128, H >= 256, at most
+    K2_TMA_MAX_TILES 64 x 128 tiles of the conv) or else the earlier 'mma_sync'
+    (bf16) or 'fma' (f32). Each launch: ``grid``, ``cluster``, ``threads``,
+    ``smem_bytes`` and the column tile ``bn``; for 'wgmma' (grid: column
+    tiles, row tiles of 64 of the B*L rows, 1) also the ring's ``stages``,
+    the A rows' and the weights' tensor maps and ``array``, the 18 values
+    a launch the C entry takes (``c_array`` as ctypes; plans are cached by
+    shape).
+    ``path`` names another path for comparison, where the kernel takes the
+    shape ('wgmma': bf16, D and H multiples of 128); what no kernel takes
+    raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f'bytenet_block: dtype {dtype} not supported')
+    if (B <= 0 or L <= 0 or D <= 0 or H <= 0 or D % 32 or H % 32 or max(D, H) > 1024
+            or K <= 0 or K % 2 == 0 or dilation <= 0):
+        raise ValueError(f'bytenet_block: unsupported shape B={B} L={L} D={D} H={H} K={K} '
+                         f'dilation={dilation} (D, H multiples of 32 up to 1024, K odd)')
+    bf16 = dtype is torch.bfloat16
+    rows = -(-B * L // K2_TMA_BM)
+    takes = bf16 and D % K2_TMA_BN == 0 and H % K2_TMA_BN == 0 and B * L <= 1 << 30
+    fits = takes and H >= 256 and H // K2_TMA_BN * rows <= K2_TMA_MAX_TILES
+    path = path or ('wgmma' if fits else 'mma_sync' if bf16 else 'fma')
+    if path not in K2_PATHS or (path == 'wgmma' and not takes) \
+            or (path == 'mma_sync' and not bf16) or (path == 'fma' and bf16):
+        raise ValueError(f'bytenet_block: no {path!r} path for {dtype} at B={B} L={L} '
+                         f'D={D} H={H}')
+    gemms = ((D, H, 1, True), (H, H, K, True), (H, D, 1, False))   # (C, N, taps, next LN)
+    if path != 'wgmma':
+        return {'path': path, 'launches': [_pr5_launch(B * L, N, ln, dtype)
+                                           for _, N, _, ln in gemms]}
+    launches = []
+    for C, N, taps, ln in gemms:
+        grid = (N // K2_TMA_BN, rows, 1)
+        a_map = {'dims': (C, B * L), 'strides': (C * 2,), 'box': (64, K2_TMA_BM)}
+        w_map = {'dims': (taps * C, N), 'strides': (taps * C * 2,), 'box': (64, K2_TMA_BN)}
+        # eight stages where the blocks fit the SMs one each (and always for
+        # F1, whose registers allow one block an SM); else four, two blocks an SM
+        stages = 8 if taps == 1 and ln or grid[0] * grid[1] <= H100_SMS else 4
+        launch = {'grid': grid, 'cluster': (grid[0] if ln else 1, 1, 1),
+                  'threads': K2_TMA_THREADS, 'smem_bytes': k2_tma_smem(stages),
+                  'bn': K2_TMA_BN, 'stages': stages, 'chunks': taps * C // 64,
+                  'a_map': a_map, 'w_map': w_map}
+        launch['array'] = (*grid, launch['cluster'][0], launch['threads'],
+                           launch['smem_bytes'], K2_TMA_BN, stages, *a_map['dims'],
+                           *a_map['strides'], *a_map['box'], *w_map['dims'],
+                           *w_map['strides'], *w_map['box'])
+        launches.append(launch)
+    array = sum((ln['array'] for ln in launches), ())
+    return {'path': 'wgmma', 'launches': launches, 'array': array,
+            'c_array': (ctypes.c_longlong * len(array))(*array)}
 
 
 def _plain_p(x, g1, b1, w1, c1, activation_name: str):
@@ -246,11 +347,17 @@ def _prepared(params, dev, cd):
                  for i, t in enumerate(params))
 
 
-def _forward(x, params, dilation: int, activation_name: str, keep: bool):
+def _aligned(t):
+    """``t``, or a copy of it where its address is not 16-byte aligned (TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _forward(x, params, dilation: int, activation_name: str, keep: bool, plan: dict = None):
     """K2 on a CUDA tensor, the plain version on a CPU one: (y, p, q, stats)
     with p, q and K2's LayerNorm statistics of x, p, q rows ([3, B, L, 2]
     f32, the backward's residuals; None from the plain version) None unless
-    ``keep``."""
+    ``keep``. ``plan`` (``bytenet_block_plan``) defaults to the shape's own;
+    a caller may pass another path's to compare the two."""
     global launches
     if x.device.type == 'cpu':
         y, p, q = _reference_parts(x, *params, dilation=dilation,
@@ -258,9 +365,13 @@ def _forward(x, params, dilation: int, activation_name: str, keep: bool):
         return (y, p, q, None) if keep else (y, None, None, None)
     B, L, D, H, K = _check(x, params[2], params[6], params[10], activation_name,
                            'bytenet_block')
+    plan = plan or bytenet_block_plan(B, L, D, H, K, dilation, x.dtype)
     dev, cd = x.device, x.dtype
     params = _prepared(params, dev, cd)
     x = x.contiguous()
+    if plan['path'] == 'wgmma':
+        x = _aligned(x)
+        params = tuple(_aligned(t) if i in _WEIGHTS else t for i, t in enumerate(params))
     y = torch.empty_like(x)
     p = torch.empty(B, L, H, dtype=cd, device=dev) if keep else None
     q = torch.empty(B, L, H, dtype=cd, device=dev) if keep else None
@@ -270,14 +381,19 @@ def _forward(x, params, dilation: int, activation_name: str, keep: bool):
     scratch = torch.empty(2, B, L, H, dtype=cd, device=dev)
     lib = _build.load('bytenet_block', _SIGNATURES)
     launched = ctypes.c_int(0)
+    ptrs = (x.data_ptr(), *(t.data_ptr() for t in params),
+            *((t.data_ptr() if keep else None) for t in (p, q)), y.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), stats.data_ptr() if keep else None)
     with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.hd_bytenet_block_fwd(
-            x.data_ptr(), *(t.data_ptr() for t in params),
-            *((t.data_ptr() if keep else None) for t in (p, q)), y.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(), stats.data_ptr() if keep else None,
-            B, L, D, H, K, int(dilation), _ACTS[activation_name], _DTYPES[cd], stream,
-            ctypes.addressof(launched))
+        if plan['path'] == 'wgmma':
+            code = lib.hd_bytenet_block_fwd_tma(
+                *ptrs, B, L, D, H, K, int(dilation), _ACTS[activation_name], plan['c_array'],
+                stream, ctypes.addressof(launched))
+        else:
+            code = lib.hd_bytenet_block_fwd(
+                *ptrs, B, L, D, H, K, int(dilation), _ACTS[activation_name], _DTYPES[cd],
+                stream, ctypes.addressof(launched))
     launches += launched.value
     _build.check(code, 'bytenet_block')
     return y, p, q, stats

@@ -1,0 +1,309 @@
+"""The launch plans of K1 and K2 on an H100, and (on a card) the Hopper
+kernels against their plain versions.
+
+``rope_attention_qkv_plan`` and ``bytenet_block_plan`` compute each launch
+from the shape alone: the path (TMA + wgmma on Hopper, or the earlier
+mma.sync / FMA designs), grid, cluster, shared memory and the TMA tensor
+maps. The C entries refuse any plan but their own, so these CPU tests hold
+the numbers every launch on the paths would take: B in {1, 16, 64, 128,
+512}; L in {291, 152, 139}; 8, 4 and 2 heads; the towers 256/128, 768/384,
+512/256 and the demos' 64/32 and 192/96 at K = 13.
+
+The tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without a
+card; the file imports neither JAX nor ``hudiff_tpu``:
+
+    python -m pytest --noconftest tests/test_torch_hopper_plans.py -q -m cuda
+
+Their limits are chip_smoke.py's: f32 |err| <= 1e-5 (K1) / 2e-5 (K2); bf16
+|err| <= 2**-7 |ref| + 5e-3 (K1) / 2.5e-2 (K2).
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from hudiff_tpu_torch.ops import _build
+from hudiff_tpu_torch.ops import fused_attention as FA
+from hudiff_tpu_torch.ops import fused_bytenet as FB
+
+BATCHES = (1, 16, 64, 128, 512)
+LENGTHS = (291, 152, 139)
+HEADS = (8, 4, 2)
+TOWERS = ((256, 7), (768, 7), (512, 7), (64, 13), (192, 13))   # (D, K); H = D / 2
+DILATIONS = (1, 32)
+DTYPES = (torch.bfloat16, torch.float32)
+MAX_BOX = 256
+
+
+def _map_ok(tm, elem_bytes=2):
+    """A bf16 tensor map as TMA takes it with 128-byte swizzle: 16-byte
+    multiples for the inner box extent and the strides, the inner box
+    exactly one 128-byte row (64 bf16), no box dimension past 256."""
+    inner = tm['box'][0] * elem_bytes
+    return (inner % 16 == 0 and inner == 128 and all(0 < b <= MAX_BOX for b in tm['box'])
+            and all(s % 16 == 0 for s in tm['strides']) and len(tm['dims']) == len(tm['box']))
+
+
+# -- K1 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('heads', HEADS)
+@pytest.mark.parametrize('L', LENGTHS)
+@pytest.mark.parametrize('B', BATCHES)
+def test_k1_plan(B, L, heads, dtype):
+    plan = FA.rope_attention_qkv_plan(B, L, heads, dtype)
+    assert plan['smem_bytes'] <= FA.MAX_SMEM
+    gx, gy, gz = plan['grid']
+    assert (gy, gz) == (heads, B) and gy <= 65535 and gz <= 65535
+    if dtype is torch.float32:
+        assert plan['path'] == 'fma' and plan['grid'][0] == -(-L // 64)
+        return
+    if B * heads < 64:   # few (b, h) pairs: the mma.sync design's block per 64 queries
+        assert plan['path'] == 'mma_sync' and plan['grid'][0] == -(-L // 64)
+        plan = FA.rope_attention_qkv_plan(B, L, heads, dtype, path='wgmma')
+    assert plan['path'] == 'wgmma'   # every length the paths give fits K and V in shared memory
+    gx = plan['grid'][0]
+    tiles = plan['kv_tiles']
+    assert tiles == -(-L // 64) <= FA.K1_MAX_KV_TILES and 1 <= gx <= tiles
+    assert plan['smem_bytes'] == (2 * tiles + -(-tiles // gx)) * FA.TILE_BYTES + FA.K1_TMA_EXTRA
+    tm = plan['tensor_map']
+    assert _map_ok(tm) and tm['swizzle'] == 128
+    assert tm['dims'] == (heads * 3 * 64, L, B) and tm['box'] == (64, 64, 1)
+    assert plan['threads'] == FA.K1_TMA_THREADS == 288
+    assert plan['array'] == (*plan['grid'], 288, plan['smem_bytes'], tiles, *tm['dims'],
+                             *tm['strides'], *tm['box'])
+    assert list(plan['c_array']) == list(plan['array'])
+
+
+@pytest.mark.parametrize('B,L,heads,expected', [(16, 291, 8, 2), (64, 291, 8, 2),
+                                                (16, 152, 8, 2), (64, 152, 8, 1),
+                                                (512, 152, 8, 1), (16, 17, 8, 1)])
+def test_k1_split(B, L, heads, expected):
+    """A head's query tiles go to two blocks where it has four or more, or
+    where (b, h) blocks are few; a split can be asked for, up to the tiles."""
+    assert FA.rope_attention_qkv_plan(B, L, heads, torch.bfloat16)['grid'][0] == expected
+    tiles = -(-L // 64)
+    assert FA.rope_attention_qkv_plan(B, L, heads, torch.bfloat16, split=tiles)['grid'][0] == tiles
+    with pytest.raises(ValueError):
+        FA.rope_attention_qkv_plan(B, L, heads, torch.bfloat16, split=tiles + 1)
+
+
+@pytest.mark.parametrize('B,heads', [(1, 8), (4, 8), (7, 8), (16, 2), (1, 2)])
+def test_k1_few_heads(B, heads):
+    """Below 64 (b, h) pairs (the sequential reference's and a lone
+    request's B = 1) the mma.sync design is taken; the Hopper one is there
+    on request."""
+    assert FA.rope_attention_qkv_plan(B, 291, heads, torch.bfloat16)['path'] == 'mma_sync'
+    assert FA.rope_attention_qkv_plan(B, 291, heads, torch.bfloat16,
+                                      path='wgmma')['path'] == 'wgmma'
+    assert FA.rope_attention_qkv_plan(8, 291, 8, torch.bfloat16)['path'] == 'wgmma'
+
+
+def test_k1_other_paths():
+    """bf16 past L = 384 and on request keep the mma.sync design, f32 the
+    FMA path; what no kernel takes raises."""
+    assert FA.rope_attention_qkv_plan(16, 385, 8, torch.bfloat16)['path'] == 'mma_sync'
+    assert FA.rope_attention_qkv_plan(16, 384, 8, torch.bfloat16)['path'] == 'wgmma'
+    old = FA.rope_attention_qkv_plan(16, 291, 8, torch.bfloat16, path='mma_sync')
+    assert old['grid'] == (5, 8, 16) and old['smem_bytes'] <= FA.MAX_SMEM
+    for bad in [dict(dtype=torch.float16), dict(B=0), dict(L=0), dict(heads=0),
+                dict(B=65536), dict(dtype=torch.float32, path='wgmma'),
+                dict(L=400, path='wgmma'), dict(path='mma_sync', dtype=torch.float32),
+                dict(path='fma'), dict(path='tiles')]:
+        kw = {'B': 16, 'L': 291, 'heads': 8, 'dtype': torch.bfloat16, **bad}
+        with pytest.raises((TypeError, ValueError)):
+            FA.rope_attention_qkv_plan(**kw)
+
+
+# -- K2 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('D,K', TOWERS)
+@pytest.mark.parametrize('L', LENGTHS)
+@pytest.mark.parametrize('B', BATCHES)
+def test_k2_plan(B, L, D, K, dtype):
+    H = D // 2
+    for dil in DILATIONS:
+        plan = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype)
+        assert len(plan['launches']) == 3
+        for ln in plan['launches']:
+            assert ln['smem_bytes'] <= FB.MAX_SMEM
+            assert all(0 < g <= 2 ** 31 - 1 for g in ln['grid']) and max(ln['grid'][1:]) <= 65535
+        if dtype is torch.float32:
+            assert plan['path'] == 'fma'
+            continue
+        wide = D % 128 == 0 and H % 128 == 0
+        tiles = H // 128 * -(-B * L // 64)
+        chosen = wide and H >= 256 and tiles <= 5 * FB.H100_SMS
+        assert plan['path'] == ('wgmma' if chosen else 'mma_sync')
+        if not wide:
+            with pytest.raises(ValueError):
+                FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+            continue
+        plan = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+        gemms = ((D, H, 1, True), (H, H, K, True), (H, D, 1, False))
+        for i, (ln, (C, N, taps, next_ln)) in enumerate(zip(plan['launches'], gemms)):
+            assert ln['grid'] == (N // 128, -(-B * L // 64), 1) and ln['bn'] == 128
+            assert ln['cluster'] == ((N // 128 if next_ln else 1), 1, 1)
+            assert ln['cluster'][0] <= FB.MAX_CLUSTER
+            # eight stages for F1 and where the blocks fit the SMs, else four
+            assert ln['stages'] == (8 if i == 0 or ln['grid'][0] * ln['grid'][1] <= 132 else 4)
+            assert ln['threads'] == 288 and ln['smem_bytes'] == FB.k2_tma_smem(ln['stages'])
+            assert ln['smem_bytes'] <= FB.MAX_SMEM and (ln['stages'] == 8
+                                                        or 2 * (ln['smem_bytes'] + 1024) <= 233472)
+            assert ln['chunks'] == taps * C // 64
+            assert _map_ok(ln['a_map']) and _map_ok(ln['w_map'])
+            assert ln['a_map']['dims'] == (C, B * L) and ln['a_map']['box'] == (64, 64)
+            assert ln['w_map']['dims'] == (taps * C, N) and ln['w_map']['box'] == (64, 128)
+            assert len(ln['array']) == 18
+        assert plan['array'] == sum((ln['array'] for ln in plan['launches']), ())
+        assert list(plan['c_array']) == list(plan['array'])
+
+
+def test_k2_paths_on_the_main_shapes():
+    """The 768/384 and 512/256 towers take the Hopper path at the
+    sampler's, the service's and the bench's batches (B = 1-64; 512/256
+    also at 128); larger batches, the 256/128 tower and the demos' widths
+    the mma.sync design (where each read faster on an H100)."""
+    path = lambda *a: FB.bytenet_block_plan(*a)['path']  # noqa: E731
+    bf = torch.bfloat16
+    for B in (1, 16, 32, 64):
+        assert path(B, 152, 768, 384, 7, 1, bf) == 'wgmma'
+        assert path(B, 139, 768, 384, 7, 32, bf) == 'wgmma'
+        assert path(B, 152, 512, 256, 7, 2, bf) == 'wgmma'
+        assert path(B, 152, 256, 128, 7, 1, bf) == 'mma_sync'
+    assert path(128, 152, 768, 384, 7, 1, bf) == 'mma_sync'
+    assert path(128, 152, 512, 256, 7, 1, bf) == 'wgmma'
+    assert path(512, 152, 512, 256, 7, 1, bf) == 'mma_sync'
+    assert FB.bytenet_block_plan(16, 152, 256, 128, 7, 1, bf, path='wgmma')['path'] == 'wgmma'
+    for D in (64, 192, 128):
+        assert path(512, 152, D, D // 2, 13, 1, bf) == 'mma_sync'
+    assert path(64, 152, 768, 384, 7, 1, torch.float32) == 'fma'
+    # the mma.sync design's tiles: 64 x 64 (clusters of 6) at B = 64, 128 x 128 (of 3) at 128
+    for B, c in ((64, 6), (128, 3)):
+        pr5 = FB.bytenet_block_plan(B, 152, 768, 384, 7, 1, bf, path='mma_sync')
+        assert [ln['cluster'] for ln in pr5['launches']] == [(1, c, 1), (1, c, 1), (1, 1, 1)]
+
+
+def test_k2_refusals():
+    bf = torch.bfloat16
+    for args in [(16, 152, 768, 384, 6, 1, bf), (16, 152, 770, 385, 7, 1, bf),
+                 (16, 152, 2048, 1024, 7, 1, bf), (0, 152, 768, 384, 7, 1, bf),
+                 (16, 152, 768, 384, 7, 0, bf)]:
+        with pytest.raises(ValueError):
+            FB.bytenet_block_plan(*args)
+    with pytest.raises(TypeError):
+        FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, torch.float16)
+    for args, path in [((16, 152, 128, 64, 13, 1, bf), 'wgmma'),
+                       ((64, 152, 192, 96, 13, 1, bf), 'wgmma'),
+                       ((64, 152, 768, 384, 7, 1, torch.float32), 'mma_sync'),
+                       ((64, 152, 768, 384, 7, 1, bf), 'fma')]:
+        with pytest.raises(ValueError):
+            FB.bytenet_block_plan(*args, path=path)
+
+
+def test_plans_mirror_the_sources():
+    """The constants the plans use are the CUDA sources' own."""
+    src = {n: (_build.CSRC_DIR / n).read_text()
+           for n in ('attention_tiles.cuh', 'rope_attention.cu', 'bytenet_block.cu')}
+    num = lambda name, text: int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))  # noqa: E731
+    assert num('MAX_SMEM', src['attention_tiles.cuh']) == FA.MAX_SMEM == FB.MAX_SMEM
+    assert num('TMA_MAX_TILES', src['rope_attention.cu']) == FA.K1_MAX_KV_TILES
+    assert num('TMA_GROUPS', src['rope_attention.cu']) == 2
+    assert num('TMA_BM', src['bytenet_block.cu']) == FB.K2_TMA_BM
+    assert num('TMA_BN', src['bytenet_block.cu']) == FB.K2_TMA_BN
+    assert num('TMA_MAX_SMEM', src['bytenet_block.cu']) == FB.MAX_SMEM
+    assert num('MAX_CLUSTER', src['bytenet_block.cu']) == FB.MAX_CLUSTER
+    assert 'constexpr int TMA_STAGES[2] = {4, 8};' in src['bytenet_block.cu']
+    assert num('PLAN_LEN', src['bytenet_block.cu']) == 18
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU the wrappers run the plain versions, whatever the plan."""
+    rs = np.random.RandomState(0)
+    qkv = torch.from_numpy(rs.randn(2, 17, 8 * 192).astype(np.float32)).bfloat16()
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    cos, sin = rope_tables(64, 17)
+    assert torch.equal(FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, 8),
+                       FA.rope_attention_qkv_reference(qkv, cos, sin, 0.125, 8))
+
+
+# -- on a card -----------------------------------------------------------------
+
+BF16_RTOL = 2.0 ** -7
+TOL = {'K1': {torch.float32: 1e-5, torch.bfloat16: 5e-3},
+       'K2': {torch.float32: 2e-5, torch.bfloat16: 2.5e-2}}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU mode)')
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yield torch.device('cuda')
+
+
+def _held(kernel, out, ref):
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        return diff.max().item() <= TOL[kernel][out.dtype]
+    return (diff - BF16_RTOL * ref.float().abs()).max().item() <= TOL[kernel][out.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('heads', HEADS)
+@pytest.mark.parametrize('L', LENGTHS)
+def test_k1_on_the_card(dev, L, heads, dtype):
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    cos, sin = rope_tables(64, L, device=dev)
+    g = torch.Generator().manual_seed(L + heads)
+    for B in (1, 16, 64):
+        qkv = torch.randn(B, L, heads * 192, generator=g).to(dev, dtype)
+        out, out_f32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, heads,
+                                                          residuals=True)
+        ref, ref_f32, ref_lse = FA.rope_attention_qkv_reference(qkv, cos, sin, 0.125, heads,
+                                                                residuals=True)
+        assert _held('K1', out, ref)
+        assert torch.equal(out, FA.rope_attention_qkv(qkv, cos, sin, 0.125, heads))
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        assert ((out_f32 - ref_f32).abs().max() / ref_f32.abs().max()).item() <= 1e-4
+        if dtype is torch.bfloat16:   # the Hopper design: every split reads the same bits
+            tiles = -(-L // 64)
+            for split in range(1, tiles + 1):
+                plan = FA.rope_attention_qkv_plan(B, L, heads, dtype, path='wgmma', split=split)
+                assert torch.equal(out, FA.rope_attention_qkv_forward(
+                    qkv, cos, sin, 0.125, heads, plan=plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('D,K', TOWERS)
+def test_k2_on_the_card(dev, D, K, dtype):
+    from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
+    H = D // 2
+    g = torch.Generator().manual_seed(D + K)
+    for B, L, dil in ((16, 152, 1), (64, 139, 32), (128, 152, 2)):
+        torch.manual_seed(D + dil)   # the module's own initialisation, as chip_smoke.py's
+        blk = ByteNetBlock(D, H, K, dilation=dil, activation='gelu' if D != 768 else 'relu')
+        with torch.no_grad():
+            for ln in (blk.ln1, blk.ln2, blk.ln3):
+                ln.weight.add_(0.1 * torch.randn(ln.weight.shape, generator=g))
+                ln.bias.add_(0.1 * torch.randn(ln.bias.shape, generator=g))
+        params = [t.detach() for t in (blk.ln1.weight, blk.ln1.bias, blk.fc1.weight,
+                                       blk.fc1.bias, blk.ln2.weight, blk.ln2.bias,
+                                       blk.conv.weight, blk.conv.bias, blk.ln3.weight,
+                                       blk.ln3.bias, blk.fc2.weight, blk.fc2.bias)]
+        args = [t.to(dev, dtype) if t.dim() >= 2 else t.to(dev) for t in params]
+        x = torch.randn(B, L, D, generator=g).to(dev, dtype)
+        act = 'gelu' if D != 768 else 'relu'
+        ref = FB.bytenet_block_reference(x, *args, dilation=dil, activation_name=act)
+        y = FB.bytenet_block(x, *args, dilation=dil, activation_name=act)
+        assert _held('K2', y, ref)
+        if dtype is torch.bfloat16 and D % 128 == 0:   # the Hopper path, also where not chosen
+            plan = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+            y2, p, q, st = FB._forward(x, args, dil, act, keep=True, plan=plan)
+            assert _held('K2', y2, ref) and torch.equal(
+                y2, FB._forward(x, args, dil, act, keep=False, plan=plan)[0])
+            assert st.shape == (3, B, L, 2) and bool(torch.isfinite(st).all())
