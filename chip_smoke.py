@@ -469,6 +469,41 @@ def k2_paths(torch, x, args, dil, act):
     return rec
 
 
+def bwd_paths(torch, kernel, call, twin, shape, heads, sdpa_inputs):
+    """K3's (``kernel`` 'K3', layout 'qkv') or K6's ('K6', 'sep') launch at
+    ``shape`` (B, L) in ``twin``'s type (path, grid, consumer warpgroups)
+    and, in bf16 where the Hopper design takes the shape, the device ms
+    (graph_ms) of each design (``device_ms_wgmma``, ``device_ms_mma_sync``;
+    ``device_ms`` the plan's) and of SDPA's backward on the same inputs
+    (``library_device_ms``, ``sdpa_inputs`` = q, k, v, cos, sin, dO, scale),
+    each design's gradients held to the limits against ``twin``, the plain
+    version given the same residuals, and a repeat to the same bits.
+    ``call(plan)`` runs the backward from the forward's residuals."""
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.tools.attention_bwd_sweep import sdpa_backward_ms
+    B, L = shape
+    layout = 'qkv' if kernel == 'K3' else 'sep'
+    plan = FA.rope_attention_bwd_plan(B, L, heads, twin.dtype, layout=layout)
+    rec = {'path': plan['path'], 'grid': list(plan['grid']), 'groups': plan.get('groups'),
+           'smem_bytes': plan['smem_bytes']}
+    if twin.dtype != torch.bfloat16 or -(-L // 64) > FA.K3_MAX_TILES:
+        return rec
+    for path in ('wgmma', 'mma_sync'):
+        pl = FA.rope_attention_bwd_plan(B, L, heads, twin.dtype, path=path, layout=layout)
+        got, again = call(pl), call(pl)
+        torch.cuda.synchronize()
+        errs, ok = check_err(torch, kernel, got, twin)
+        rec[f'excess_{path}'] = errs['excess_over_rtol']
+        if not ok or not torch.equal(got, again):
+            emit({'phase': f'{kernel}_paths', 'B': B, 'L': L, 'H': heads, **rec})
+            fail(f'{kernel} ({path} design) disagrees with its plain version or repeats apart '
+                 f'at B={B} L={L} H={heads}')
+        del got, again
+        rec[f'device_ms_{path}'] = graph_ms(torch, lambda: call(pl))
+    rec['device_ms'] = rec[f"device_ms_{plan['path']}"]
+    rec['library_device_ms'] = sdpa_backward_ms(*sdpa_inputs[:6], sdpa_inputs[6], heads)
+    return rec
+
 def check_err(torch, kernel, out, ref):
     """A kernel's output against its plain version: the record's error keys,
     and whether the output is finite and within the limit."""
@@ -672,26 +707,35 @@ def sass_counts(library, opcodes=('HGMMA', 'UTMALDG'), symbols=False):
     return counts
 
 
+HOPPER_INSTANTIATIONS = 13   # K1 2, K2 3, K3 and K6 dq and dkv at 1 and 2 warpgroups
+
+
 def hopper_build_record(_build):
-    """The Hopper kernels of K1 and K2 as built, one record: registers and
-    spills of each instantiation (-Xptxas -v) and, from cuobjdump, its HGMMA
+    """The Hopper kernels of K1, K2, K3 and K6 as built, one record:
+    registers and spills of each instantiation (-Xptxas -v), ptxas's
+    warnings that it serialized wgmma, and, from cuobjdump, its HGMMA
     (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions. Fails
-    unless all five instantiations hold HGMMA and UTMALDG and no HMMA."""
-    libs = ('rope_attention', 'bytenet_block')
+    unless all HOPPER_INSTANTIATIONS hold HGMMA and UTMALDG and no HMMA."""
+    libs = ('rope_attention', 'bytenet_block', 'rope_attention_bwd')
     regs = ptxas_registers({k: v for k, v in _build.BUILD_LOGS.items() if k in libs})
     sass = {}
     for lib in libs:
         counts = sass_counts(_build.library_path(lib), ('HGMMA', 'UTMALDG', 'HMMA'), symbols=True)
         sass.update({k: v for k, v in counts.items() if 'wgmma_' in k})
+    serialized = [line.split(' in the function')[0].strip()[:120] + ' ' + src
+                  for src, log in _build.BUILD_LOGS.items() if src in libs
+                  for line in log.splitlines()
+                  if 'wgmma.mma_async instructions are serialized' in line]
     rec = {'phase': 'hopper_kernels',
            'registers': {src: [r for r in rows if 'wgmma_' in r[0]]
                          for src, rows in regs.items()} or 'not measured (built earlier)',
+           'wgmma_serialized': serialized if _build.BUILD_LOGS else 'not measured (built earlier)',
            'sass': sass}
     emit(rec)
     bad = {k: v for k, v in sass.items() if not v['HGMMA'] or not v['UTMALDG'] or v['HMMA']}
-    if len(sass) != 5 or bad:
-        fail(f'the Hopper K1/K2 kernels: want HGMMA and UTMALDG and no HMMA in all five, '
-             f'got {sass}')
+    if len(sass) != HOPPER_INSTANTIATIONS or bad:
+        fail(f'the Hopper K1/K2/K3/K6 kernels: want HGMMA and UTMALDG and no HMMA in all '
+             f'{HOPPER_INSTANTIATIONS}, got {sass}')
     return rec
 
 
@@ -1035,8 +1079,11 @@ def main():
          'plain_ms': k3['plain_ms'], 'bound_ms': k3['bound_ms'], 'bound_by': k3['bound_by'],
          'library_ms': k3['library_ms'],
          'shape': f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K1\'s residuals '
-                  '(three kernels); ms_standalone runs K1 for them first', **nk['K3'],
-         **tuned['K3'], **parallel['K3'], 'launches_bench': benched['K3']},
+                  '(three kernels); ms_standalone runs K1 for them first',
+         **{key: k3[key] for key in BWD_PATH_KEYS},
+         'short_lengths': {Ls: {key: results['K3'][('short', Ls)][key] for key in BWD_PATH_KEYS}
+                           for Ls in SHORT_LENGTHS},
+         **nk['K3'], **tuned['K3'], **parallel['K3'], 'launches_bench': benched['K3']},
         {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
                  'backward in their epilogues, one grouped weight-gradient GEMM, one '
                  'fixed-order sum)',
@@ -1060,6 +1107,11 @@ def main():
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
     return 0
+
+
+# the keys a K3 or K6 record gains from bwd_paths, carried on the kernels line
+BWD_PATH_KEYS = ('path', 'grid', 'groups', 'device_ms', 'device_ms_wgmma', 'device_ms_mma_sync',
+                 'library_device_ms')
 
 
 # CUDA kernel names by group, matched in this order (K3's and K6's prefixes
@@ -1287,7 +1339,8 @@ def k3_phase(torch, gen, dev):
     """K3 against its plain version at L = 291, B = 16 and 128, f32 and
     bf16, and at SHORT_LENGTHS (B = 128, bf16); times beside the plain
     version and the backward alone of scaled_dot_product_attention on
-    pre-rotated q/k/v with the same dO."""
+    pre-rotated q/k/v with the same dO; in bf16 each design's device ms
+    (``bwd_paths``), also at SHORT_LENGTHS."""
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
     from hudiff_tpu_torch.ops.rope import rope_tables
@@ -1320,14 +1373,21 @@ def k3_phase(torch, gen, dev):
         rounded = FA.rope_attention_qkv_backward(qkv, cs, sn, do, scale, heads,
                                                  out=o_bf.float(), lse=lse)
         ref = FA.rope_attention_qkv_backward_reference(qkv, cs, sn, do, scale, heads)
+        twin = FA.rope_attention_qkv_backward_reference(qkv, cs, sn, do, scale, heads, o32, lse)
         torch.cuda.synchronize()
         errs, ok = check_err(torch, 'K3', got, ref)
         rec = {'phase': 'K3_short', 'B': TRAIN_B, 'L': Ls, 'dtype': 'bfloat16', **errs,
                **delta_reading(torch, 'K3', rounded, ref)}
-        emit(rec)
         if not ok:
+            emit(rec)
             fail(f'K3 disagrees with its plain version (bfloat16, B={TRAIN_B}, L={Ls})')
-        del qkv, do, o_bf, o32, lse, got, rounded, ref
+        rec.update(bwd_paths(
+            torch, 'K3', lambda pl: FA.rope_attention_qkv_backward(
+                qkv, cs, sn, do, scale, heads, out=o32, lse=lse, plan=pl),
+            twin, (TRAIN_B, Ls), heads, (*FA.split_qkv_heads(qkv, heads), cs, sn, do, scale)))
+        emit(rec)
+        out[('short', Ls)] = rec
+        del qkv, do, o_bf, o32, lse, got, rounded, ref, twin
     return out
 
 
@@ -1746,10 +1806,11 @@ def k3_record(torch, qkv, do, cos, sin, heads, phase, plain_reps=1, delta=False,
     """K3 on ``qkv`` given K1's residuals, as autograd calls it, against both
     plain versions (the run fails past the K3 limits, or if a repeat or the
     standalone call gives other bits), timed beside the plain version and
-    SDPA's backward on the rotated inputs, with its bound: the record,
-    emitted. ``delta`` adds, in bf16, how far delta from the bf16 output
-    would move the gradients (``delta_reading``); ``standalone`` the time
-    of the call that runs K1 for its residuals first."""
+    SDPA's backward on the rotated inputs, with its bound, and each design's
+    device ms beside SDPA's backward (``bwd_paths``): the record, emitted.
+    ``delta`` adds, in bf16, how far delta from the bf16 output would move
+    the gradients (``delta_reading``); ``standalone`` the time of the call
+    that runs K1 for its residuals first."""
     import torch.nn.functional as F
     from hudiff_tpu_torch.ops import fused_attention as FA
     B, L, width = qkv.shape
@@ -1774,7 +1835,12 @@ def k3_record(torch, qkv, do, cos, sin, heads, phase, plain_reps=1, delta=False,
         emit(rec)
         fail(f'K3 disagrees with its plain versions or repeats apart at L = {L}, '
              f'H = {heads} ({name}, B={B})')
-    del got, again, alone, ref, twin, rounded, o_bf
+    del got, again, alone, ref, rounded, o_bf
+    rec.update(bwd_paths(
+        torch, 'K3', lambda pl: FA.rope_attention_qkv_backward(qkv, cos, sin, do, scale, heads,
+                                                               **res, plan=pl),
+        twin, (B, L), heads, (*FA.split_qkv_heads(qkv, heads), cos, sin, do, scale)))
+    del twin
     qr, kr, vr = (t.requires_grad_() for t in _rotated_bhld(
         torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads))
     o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
@@ -4185,6 +4251,8 @@ def parallel_phases(torch, gen, dev, ab_ckpt):
                 'max_abs_err', 'excess_over_rtol', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'library_ms')})
             keys[k][f'tp_H{heads}_max_abs_err_f32'] = rec32['max_abs_err']
+            if k == 'K3':
+                keys[k].update({f'tp_H{heads}_{key}': rec[key] for key in BWD_PATH_KEYS})
             keys[k][f'tp_H{heads}_shape'] = (f'B={TRAIN_B} L=291 H={heads} D=64 bf16'
                                              + (", given K1's residuals" if k == 'K3' else ''))
     return keys
@@ -4705,6 +4773,8 @@ def nano_entries(nano):
     out['K4'].update(nano_grad_rel_err=k4['grad_rel_err'],
                      nano_grad_rel_err_f32=k4_f32['grad_rel_err'],
                      nano_conv_ms_per_step=k4['ms'])
+    out['K3'].update({f'nano_{key}': k3[key] for key in BWD_PATH_KEYS})
+    out['K3']['nano_library_ms'] = k3['library_ms']
     return out
 
 
@@ -4782,7 +4852,8 @@ def k6_phase(torch, gen, dev):
     """K6 against its plain version at L = 291, B = 16 and 128, f32 and
     bf16, with a repeated call that must give the same bits (no atomics);
     times beside the plain version and the backward alone of
-    scaled_dot_product_attention on pre-rotated q/k/v with the same dO."""
+    scaled_dot_product_attention on pre-rotated q/k/v with the same dO; in
+    bf16 each design's device ms (``bwd_paths``)."""
     import torch.nn.functional as F
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
@@ -4815,7 +4886,12 @@ def k6_phase(torch, gen, dev):
             if not ok:
                 emit(rec)
                 fail(f'K6 disagrees with its plain versions or repeats apart ({name}, B={B})')
-            del got, again, alone, ref, twin, rounded, o_bf
+            del got, again, alone, ref, rounded, o_bf
+            rec.update(bwd_paths(
+                torch, 'K6', lambda pl: torch.stack(FA.rope_attention_backward(
+                    q, k, v, cos, sin, do, scale, heads, **res, plan=pl)),
+                torch.stack(twin), (B, L), heads, (q, k, v, cos, sin, do, scale)))
+            del twin
             qr, kr, vr = (t.requires_grad_()
                           for t in _rotated_bhld(torch, q, k, v, cos, sin, heads))
             o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
@@ -5177,7 +5253,7 @@ def later_kernels(results, api):
               route='cuda', source='hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
               replaces='hudiff_tpu/ops/pallas_attention.py:100',
               launches=api['launches']['K6'], launches_per_step=api['launches']['K6'] / api['steps'],
-              ms_standalone=k6['ms_standalone'],
+              ms_standalone=k6['ms_standalone'], **{key: k6[key] for key in BWD_PATH_KEYS},
               shape=f'B={TRAIN_B} L=291 H=8 D=64 bf16, one call given K5\'s residuals (three '
                     'kernels); ms_standalone runs K5 for them first'),
         entry(k7, k7_f32, name='K7 softmax attention without RoPE ([B, H, L, D])', route='cuda',

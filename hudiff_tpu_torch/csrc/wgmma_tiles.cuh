@@ -1,5 +1,6 @@
 // Hopper's asynchronous tile machinery for the bf16 kernels of
-// fused_layer.cu (K8), rope_attention.cu (K1) and bytenet_block.cu (K2): TMA
+// fused_layer.cu (K8), rope_attention.cu (K1), rope_attention_bwd.cu (K3,
+// K6) and bytenet_block.cu (K2): TMA
 // tensor maps and bulk copies into shared memory, mbarriers, and wgmma, as
 // raw PTX. Raw PTX and not CuTe's atoms: the kernels need four
 // instructions of each kind, nvcc builds a source that includes no CUTLASS
@@ -109,6 +110,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` into shared `dst`, both
+// 16-byte aligned, as one bulk copy; completes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

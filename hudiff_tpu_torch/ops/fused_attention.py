@@ -16,10 +16,13 @@ Counterpart of hudiff_tpu/ops/pallas_attention.py:
 The CUDA kernels are ``csrc/rope_attention.cu`` (K1, K5 and K7: one
 forward, three layouts; bf16 K1 at L <= 384 on Hopper's TMA + wgmma, the
 rest on mma.sync or, in f32, FMA) and ``csrc/rope_attention_bwd.cu`` (K3 and
-K6: one three-launch backward, two layouts); their headers say what bounds
-them on an H100 and how their designs answer that. ``rope_attention_qkv_plan``
-is K1's launch, computed here from the shape alone and refused by the C
-entry unless it is the source's own.
+K6: one three-launch backward, two layouts; bf16 at L <= 384 on TMA +
+wgmma, the rest on mma.sync or, in f32, FMA); their headers say what bounds
+them on an H100 and how their designs answer that.
+``rope_attention_qkv_plan`` (K1) and ``rope_attention_bwd_plan`` (K3, K6)
+compute each launch here from the shape alone; the C entries refuse any
+plan but their own, and ``plan=`` on the wrappers runs another design on
+the same inputs (chip_smoke.py's comparisons).
 
 The backward works from the forward's residuals, which K1 and K5 write
 when asked (``residuals=True``): the output before rounding, ``out`` f32
@@ -75,6 +78,8 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     'hd_rope_attention_qkv_bwd': [_P] * 9 + [_I] * 4 + [_F, _I, _P, _P],
     'hd_rope_attention_bwd': [_P] * 13 + [_I] * 4 + [_F, _I, _P, _P],
+    'hd_rope_attention_qkv_bwd_tma': [_P] * 8 + [_I] * 3 + [_F, _P, _P, _P],
+    'hd_rope_attention_bwd_tma': [_P] * 12 + [_I] * 3 + [_F, _P, _P, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -138,6 +143,96 @@ def rope_attention_qkv_plan(B: int, L: int, heads: int, dtype, path: str = None,
     tm = plan['tensor_map']
     plan['array'] = (*plan['grid'], plan['threads'], plan['smem_bytes'], tiles, *tm['dims'],
                      *tm['strides'], *tm['box'])
+    plan['c_array'] = (ctypes.c_longlong * len(plan['array']))(*plan['array'])
+    return plan
+
+
+# K3's and K6's launch (csrc/rope_attention_bwd.cu): the Hopper passes' block
+# is one or two warpgroups (no producer warp); a head's walked pair stays in
+# shared memory up to K3_MAX_TILES tiles (L = 384). The prologue (128
+# threads) comes first on every path.
+K3_MAX_TILES = 6
+K3_MIN_BLOCKS = 128      # a head's tiles are split over more blocks until the grid has this many
+K3_GROUPS = (1, 2)
+K3_LAYOUTS = ('qkv', 'sep')
+_BWD_MMA_SYNC_SMEM = {torch.float32: 139776, torch.bfloat16: 6 * 9216 + 4 * 64 * 4}
+
+
+def _bwd_tma_smem(tiles: int, split: int, L: int) -> int:
+    """A Hopper pass's shared memory: the walked pair's 2 T tiles, two per
+    resident tile, the head's lse and delta (T * 64 f32 each), the cos and
+    sin tables (L * 32 f32 each), the mbarriers and the base's rounding to
+    1024 bytes."""
+    resident = -(-tiles // split)
+    return ((2 * tiles + 2 * resident) * TILE_BYTES + 2 * tiles * 64 * 4
+            + 2 * L * HEAD_DIM // 2 * 4 + K1_TMA_EXTRA)
+
+
+def _bf16_map(dims) -> dict:
+    """A 3-D bf16 tensor map over [dims[2]][dims[1]][dims[0]] with 64 x 64
+    boxes and 128-byte swizzle."""
+    return {'dims': tuple(dims), 'strides': (dims[0] * 2, dims[1] * dims[0] * 2),
+            'box': (HEAD_DIM, 64, 1), 'elem_bytes': 2, 'swizzle': 128}
+
+
+@functools.lru_cache(maxsize=None)
+def rope_attention_bwd_plan(B: int, L: int, heads: int, dtype, path: str = None,
+                            split: int = None, groups: int = None,
+                            layout: str = 'qkv') -> dict:
+    """K3's (``layout`` 'qkv': q, k, v in the merged head-major qkv) or K6's
+    ('sep': separate q, k, v) backward launch on an H100, from the shape
+    alone: ``path`` 'wgmma' (bf16, L <= 384: TMA + wgmma, a head's walked
+    pair held in shared memory), else 'mma_sync' (bf16, the earlier design)
+    or 'fma' (f32); ``grid``, ``threads`` and ``smem_bytes`` of the two
+    passes (the prologue's are (tiles, heads, B) and 128 threads on every
+    path), and for 'wgmma' the tiles, ``groups``
+    (warpgroups a block), the tensor maps of q, k, v and dO (dims and box
+    innermost first, byte strides) and ``array``, the values the C entry
+    takes and checks (also as ``c_array``; plans are cached by shape). A
+    block takes every split-th of a head's 64-row tiles, each warpgroup one
+    at a time; ``split`` defaults to the fewest blocks a head whose shared
+    memory (the tiles, the statistics and the cos and sin tables) fits,
+    raised while the grid has fewer than K3_MIN_BLOCKS blocks, ``groups``
+    to 2 where a block has tiles to share and the head 3 or more (the
+    launches that read fastest on an H100 at the paths' shapes, PERF.md);
+    they and ``path`` name another launch for comparison; what no kernel
+    takes raises."""
+    what = 'rope_attention_bwd_plan'
+    if dtype not in _DTYPES:
+        raise TypeError(f'{what}: dtype {dtype} not supported')
+    if layout not in K3_LAYOUTS:
+        raise ValueError(f'{what}: layout {layout!r} is not one of {K3_LAYOUTS}')
+    if not (0 < B <= 65535 and 0 < heads <= 65535 and L > 0):
+        raise ValueError(f'{what}: unsupported shape B={B} L={L} heads={heads}')
+    tiles = -(-L // 64)
+    bf16 = dtype is torch.bfloat16
+    takes = bf16 and tiles <= K3_MAX_TILES
+    path = path or ('wgmma' if takes else 'mma_sync' if bf16 else 'fma')
+    if path not in K1_PATHS or (path == 'wgmma' and not takes) \
+            or (path == 'mma_sync' and not bf16) or (path == 'fma' and bf16):
+        raise ValueError(f'{what}: no {path!r} path for {dtype} at L={L}')
+    if path != 'wgmma':
+        return {'path': path, 'grid': (tiles, heads, B), 'threads': 128,
+                'smem_bytes': _BWD_MMA_SYNC_SMEM[dtype]}
+    fits = lambda x: _bwd_tma_smem(tiles, x, L) <= MAX_SMEM  # noqa: E731
+    if split is None:   # the fewest blocks a head that fit, more while the grid is small
+        split = next(x for x in range(1, tiles + 1) if fits(x))
+        while split < tiles and B * heads * split < K3_MIN_BLOCKS:
+            split += 1
+    if groups is None:  # two warpgroups where a block has 3 or more tiles to share
+        groups = 2 if 1 <= split < tiles and tiles > 2 else 1
+    if not 1 <= split <= tiles or groups not in K3_GROUPS or not fits(split):
+        raise ValueError(f'{what}: split {split} of {tiles} tiles, {groups} warpgroups')
+    A = heads * HEAD_DIM
+    width = 3 * A if layout == 'qkv' else A
+    maps = {'q': _bf16_map((width, L, B)), 'k': _bf16_map((width, L, B)),
+            'v': _bf16_map((width, L, B)), 'do': _bf16_map((A, L, B))}
+    plan = {'path': 'wgmma', 'grid': (split, heads, B), 'threads': 128 * groups,
+            'groups': groups, 'tiles': tiles, 'smem_bytes': _bwd_tma_smem(tiles, split, L),
+            'tensor_maps': maps}
+    plan['array'] = (*plan['grid'], plan['threads'], plan['smem_bytes'], tiles,
+                     *(v for m in maps.values() for k in ('dims', 'strides', 'box')
+                       for v in m[k]))
     plan['c_array'] = (ctypes.c_longlong * len(plan['array']))(*plan['array'])
     return plan
 
@@ -322,6 +417,26 @@ def _pointers(residuals, lse, out_f32, out):
     return lse.data_ptr(), None if out_f32 is out else out_f32.data_ptr()
 
 
+def _rotated_scratch(x: torch.Tensor, B: int, L: int, heads: int) -> torch.Tensor:
+    """The mma.sync and FMA backwards' scratch: rotated q and k, [2, B,
+    heads, L, 64] in x's type."""
+    return torch.empty(2, B, heads, L, HEAD_DIM, dtype=x.dtype, device=x.device)
+
+
+def _aligned(plan, *ts):
+    """The tensors TMA reads on the Hopper path, each at a 16-byte aligned
+    address (a misaligned one cloned); on the other paths as given."""
+    if plan['path'] != 'wgmma':
+        return ts
+    return tuple(t.clone() if t.data_ptr() % 16 else t for t in ts)
+
+
+def _bwd_tables(cos, sin, x, L, what, plan):
+    """The backward's cos and sin tables, each 16-byte aligned on the Hopper
+    path (one bulk copy each)."""
+    return _aligned(plan, *_tables(cos, sin, x, L, what))
+
+
 def rope_attention_qkv_forward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                                scale: float, heads: int, residuals: bool = False,
                                plan: dict = None):
@@ -359,8 +474,8 @@ def rope_attention_qkv_forward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.
 
 def rope_attention_qkv_backward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                                 do: torch.Tensor, scale: float, heads: int, *,
-                                out: torch.Tensor = None,
-                                lse: torch.Tensor = None) -> torch.Tensor:
+                                out: torch.Tensor = None, lse: torch.Tensor = None,
+                                plan: dict = None) -> torch.Tensor:
     """dqkv [B, L, heads*3*64] for the output gradient ``do`` [B, L,
     heads*64] (cast to qkv's type first, as ``_fused_qkv_bwd`` does): K3 on
     a CUDA tensor, the plain version on a CPU one. ``out`` (the forward's
@@ -368,7 +483,9 @@ def rope_attention_qkv_backward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch
     (``rope_attention_qkv_forward(..., residuals=True)``); when they are
     not given, this runs that forward first (K1, counted in ``launches``).
     On a CPU tensor the plain version recomputes the softmax as the TPU
-    kernel does and needs no residuals."""
+    kernel does and needs no residuals. ``plan``
+    (``rope_attention_bwd_plan``) defaults to the shape's own; a caller may
+    pass another path's to compare the two."""
     global bwd_launches
     what = 'rope_attention_qkv_backward'
     if (out is None) != (lse is None):
@@ -380,22 +497,28 @@ def rope_attention_qkv_backward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch
     B, L, _ = qkv.shape
     if do.shape != (B, L, heads * HEAD_DIM) or do.device != qkv.device:
         raise ValueError(f'{what}: do must be [{B}, {L}, {heads * HEAD_DIM}] on {qkv.device}')
-    cos, sin = _tables(cos, sin, qkv, L, what)
-    qkv, do = qkv.contiguous(), do.contiguous()
+    plan = plan or rope_attention_bwd_plan(B, L, heads, qkv.dtype)
+    cos, sin = _bwd_tables(cos, sin, qkv, L, what, plan)
+    qkv, do = _aligned(plan, qkv.contiguous(), do.contiguous())
     if out is None:
         _, out, lse = rope_attention_qkv_forward(qkv, cos, sin, scale, heads, residuals=True)
     out, lse = _check_residuals(out, lse, qkv, B, L, heads, what)
     dqkv = torch.empty_like(qkv)
-    rot = torch.empty(2, B, heads, L, HEAD_DIM, dtype=qkv.dtype, device=qkv.device)
     delta = torch.empty(B, heads, L, dtype=torch.float32, device=qkv.device)
     lib = _build.load('rope_attention_bwd', _BWD_SIGNATURES)
     launched = ctypes.c_int(0)
+    ptrs = (qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dqkv.data_ptr())
+    rot = None if plan['path'] == 'wgmma' else _rotated_scratch(qkv, B, L, heads)
     with torch.cuda.device(qkv.device):
-        code = lib.hd_rope_attention_qkv_bwd(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), do.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dqkv.data_ptr(), rot.data_ptr(), delta.data_ptr(), B, L, heads,
-            HEAD_DIM, float(scale), _DTYPES[qkv.dtype], _stream(qkv),
-            ctypes.addressof(launched))
+        if rot is None:   # the Hopper passes rotate q and k themselves
+            code = lib.hd_rope_attention_qkv_bwd_tma(
+                *ptrs, delta.data_ptr(), B, L, heads, float(scale), plan['c_array'],
+                _stream(qkv), ctypes.addressof(launched))
+        else:
+            code = lib.hd_rope_attention_qkv_bwd(
+                *ptrs, rot.data_ptr(), delta.data_ptr(), B, L, heads, HEAD_DIM, float(scale),
+                _DTYPES[qkv.dtype], _stream(qkv), ctypes.addressof(launched))
     bwd_launches += launched.value
     _build.check(code, what)
     return dqkv
@@ -485,14 +608,16 @@ def rope_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def rope_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             cos: torch.Tensor, sin: torch.Tensor, do: torch.Tensor,
                             scale: float, heads: int, *, out: torch.Tensor = None,
-                            lse: torch.Tensor = None):
+                            lse: torch.Tensor = None, plan: dict = None):
     """(dq, dk, dv), each [B, L, heads*64], for the output gradient ``do``
     (cast to q's type first, as ``_fused_bwd`` does): K6 on CUDA tensors,
     the plain version on CPU ones. ``out`` and ``lse`` are the forward's
     residuals (``rope_attention_forward(..., residuals=True)``); when they
     are not given, this runs that forward first (K5, counted in
     ``rope_launches``). On CPU tensors the plain version recomputes the
-    softmax as the TPU kernel does and needs no residuals."""
+    softmax as the TPU kernel does and needs no residuals. ``plan``
+    (``rope_attention_bwd_plan(..., layout='sep')``) defaults to the
+    shape's own."""
     global rope_bwd_launches
     what = 'rope_attention_backward'
     if (out is None) != (lse is None):
@@ -503,22 +628,29 @@ def rope_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_same((q, k, v, do), what)
     _check_cuda(q, heads * HEAD_DIM, what)
     B, L, _ = q.shape
-    cos, sin = _tables(cos, sin, q, L, what)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    plan = plan or rope_attention_bwd_plan(B, L, heads, q.dtype, layout='sep')
+    cos, sin = _bwd_tables(cos, sin, q, L, what, plan)
+    q, k, v, do = _aligned(plan, *(t.contiguous() for t in (q, k, v, do)))
     if out is None:
         _, out, lse = rope_attention_forward(q, k, v, cos, sin, scale, heads, residuals=True)
     out, lse = _check_residuals(out, lse, q, B, L, heads, what)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    rot = torch.empty(2, B, heads, L, HEAD_DIM, dtype=q.dtype, device=q.device)
     delta = torch.empty(B, heads, L, dtype=torch.float32, device=q.device)
     lib = _build.load('rope_attention_bwd', _BWD_SIGNATURES)
     launched = ctypes.c_int(0)
-    with torch.cuda.device(q.device):
-        code = lib.hd_rope_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             do.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), rot.data_ptr(), delta.data_ptr(), B, L, heads, HEAD_DIM,
-            float(scale), _DTYPES[q.dtype], _stream(q), ctypes.addressof(launched))
+            dv.data_ptr())
+    rot = None if plan['path'] == 'wgmma' else _rotated_scratch(q, B, L, heads)
+    with torch.cuda.device(q.device):
+        if rot is None:   # the Hopper passes rotate q and k themselves
+            code = lib.hd_rope_attention_bwd_tma(
+                *ptrs, delta.data_ptr(), B, L, heads, float(scale), plan['c_array'], _stream(q),
+                ctypes.addressof(launched))
+        else:
+            code = lib.hd_rope_attention_bwd(
+                *ptrs, rot.data_ptr(), delta.data_ptr(), B, L, heads,
+                HEAD_DIM, float(scale), _DTYPES[q.dtype], _stream(q), ctypes.addressof(launched))
     rope_bwd_launches += launched.value
     _build.check(code, what)
     return dq, dk, dv

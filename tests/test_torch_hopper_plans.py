@@ -1,21 +1,23 @@
-"""The launch plans of K1 and K2 on an H100, and (on a card) the Hopper
-kernels against their plain versions.
+"""The launch plans of K1, K2, K3 and K6 on an H100, and (on a card) the
+Hopper kernels against their plain versions.
 
-``rope_attention_qkv_plan`` and ``bytenet_block_plan`` compute each launch
-from the shape alone: the path (TMA + wgmma on Hopper, or the earlier
-mma.sync / FMA designs), grid, cluster, shared memory and the TMA tensor
-maps. The C entries refuse any plan but their own, so these CPU tests hold
-the numbers every launch on the paths would take: B in {1, 16, 64, 128,
-512}; L in {291, 152, 139}; 8, 4 and 2 heads; the towers 256/128, 768/384,
-512/256 and the demos' 64/32 and 192/96 at K = 13.
+``rope_attention_qkv_plan``, ``bytenet_block_plan`` and
+``rope_attention_bwd_plan`` compute each launch from the shape alone: the
+path (TMA + wgmma on Hopper, or the earlier mma.sync / FMA designs), grid,
+cluster, shared memory and the TMA tensor maps. The C entries refuse any
+plan but their own, so these CPU tests hold the numbers every launch on the
+paths would take: B in {1, 16, 64, 128, 512}; L in {291, 152, 139}; 8, 4
+and 2 heads; the towers 256/128, 768/384, 512/256 and the demos' 64/32 and
+192/96 at K = 13; for the backward B in {16, 32, 128, 512} and L in {291,
+152, 100, 37, 17}, both layouts.
 
 The tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without a
 card; the file imports neither JAX nor ``hudiff_tpu``:
 
     python -m pytest --noconftest tests/test_torch_hopper_plans.py -q -m cuda
 
-Their limits are chip_smoke.py's: f32 |err| <= 1e-5 (K1) / 2e-5 (K2); bf16
-|err| <= 2**-7 |ref| + 5e-3 (K1) / 2.5e-2 (K2).
+Their limits are chip_smoke.py's: f32 |err| <= 1e-5 (K1, K3, K6) / 2e-5
+(K2); bf16 |err| <= 2**-7 |ref| + 5e-3 (K1, K3, K6) / 2.5e-2 (K2).
 """
 import re
 
@@ -203,10 +205,106 @@ def test_k2_refusals():
             FB.bytenet_block_plan(*args, path=path)
 
 
+# -- K3 and K6 -----------------------------------------------------------------
+
+BWD_BATCHES = (16, 32, 128, 512)
+BWD_LENGTHS = (291, 152, 100, 37, 17)
+
+
+@pytest.mark.parametrize('layout', FA.K3_LAYOUTS)
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('heads', HEADS)
+@pytest.mark.parametrize('L', BWD_LENGTHS)
+@pytest.mark.parametrize('B', BWD_BATCHES)
+def test_k3_plan(B, L, heads, dtype, layout):
+    plan = FA.rope_attention_bwd_plan(B, L, heads, dtype, layout=layout)
+    tiles = -(-L // 64)
+    assert plan['smem_bytes'] <= FA.MAX_SMEM
+    if dtype is torch.float32:
+        assert plan['path'] == 'fma' and plan['grid'] == (tiles, heads, B)
+        return
+    assert plan['path'] == 'wgmma'   # every length the paths give holds a head's walked pair
+    old = FA.rope_attention_bwd_plan(B, L, heads, dtype, path='mma_sync', layout=layout)
+    assert old['grid'] == (tiles, heads, B) and old['threads'] == 128
+    split = plan['grid'][0]
+    assert plan['grid'] == (split, heads, B) and 1 <= split <= tiles <= FA.K3_MAX_TILES
+    # the fewest blocks a head that fit, raised while the grid is small
+    first = next(x for x in range(1, tiles + 1) if FA._bwd_tma_smem(tiles, x, L) <= FA.MAX_SMEM)
+    assert split == max(first, min(tiles, -(-FA.K3_MIN_BLOCKS // (B * heads))))
+    assert plan['groups'] == (2 if split < tiles and tiles > 2 else 1)
+    assert plan['tiles'] == tiles and plan['groups'] in FA.K3_GROUPS
+    assert plan['threads'] == 128 * plan['groups']
+    resident = -(-tiles // split)   # tiles, lse and delta, the cos and sin tables
+    assert plan['smem_bytes'] == ((2 * tiles + 2 * resident) * FA.TILE_BYTES + 2 * tiles * 64 * 4
+                                  + 2 * L * 32 * 4 + FA.K1_TMA_EXTRA) <= FA.MAX_SMEM
+    maps = plan['tensor_maps']
+    A = heads * 64
+    for m in 'qkv':   # K3's three maps are one, over the merged qkv
+        assert maps[m]['dims'] == ((3 * A if layout == 'qkv' else A), L, B)
+    assert maps['do']['dims'] == (A, L, B)
+    for tm in maps.values():
+        assert _map_ok(tm) and tm['swizzle'] == 128 and tm['box'] == (64, 64, 1)
+        assert tm['strides'] == (tm['dims'][0] * 2, tm['dims'][1] * tm['dims'][0] * 2)
+    assert plan['array'] == (*plan['grid'], plan['threads'], plan['smem_bytes'], tiles,
+                             *(v for m in ('q', 'k', 'v', 'do')
+                               for k in ('dims', 'strides', 'box') for v in maps[m][k]))
+    assert len(plan['array']) == 38 and list(plan['c_array']) == list(plan['array'])
+
+
+def test_k3_paths_and_splits():
+    """The Hopper design at the Ab and Nb training steps' shapes (B = 128,
+    L = 291 and B = 512, L = 152, 8 heads) and a tensor-parallel rank's 4
+    and 2 heads, with the splits and warpgroups that read fastest there;
+    every split whose shared memory fits can be asked for."""
+    bf = torch.bfloat16
+    for B, L, heads, grid, groups in ((128, 291, 8, 2, 2), (512, 152, 8, 1, 2),
+                                      (128, 291, 4, 2, 2), (128, 291, 2, 2, 2),
+                                      (16, 291, 2, 4, 2), (128, 100, 8, 1, 1),
+                                      (128, 37, 8, 1, 1)):
+        for layout in FA.K3_LAYOUTS:
+            plan = FA.rope_attention_bwd_plan(B, L, heads, bf, layout=layout)
+            assert plan['path'] == 'wgmma' and plan['grid'] == (grid, heads, B)
+            assert plan['groups'] == groups
+    for L in (384, 291, 152, 17):
+        tiles = -(-L // 64)
+        for split in range(1, tiles + 1):
+            fits = FA._bwd_tma_smem(tiles, split, L) <= FA.MAX_SMEM
+            for groups in FA.K3_GROUPS:
+                if not fits:   # the tiles and tables would not fit a block's shared memory
+                    with pytest.raises(ValueError):
+                        FA.rope_attention_bwd_plan(16, L, 8, bf, split=split, groups=groups)
+                    continue
+                plan = FA.rope_attention_bwd_plan(16, L, 8, bf, split=split, groups=groups)
+                assert plan['grid'] == (split, 8, 16) and plan['threads'] == 128 * groups
+        with pytest.raises(ValueError):
+            FA.rope_attention_bwd_plan(16, L, 8, bf, split=tiles + 1)
+    assert FA._bwd_tma_smem(5, 1, 291) > FA.MAX_SMEM   # L = 291 takes two blocks a head or more
+    old = FA.rope_attention_bwd_plan(128, 291, 8, bf, path='mma_sync')
+    assert old['grid'] == (5, 8, 128) and old['smem_bytes'] <= FA.MAX_SMEM
+
+
+def test_k3_refusals():
+    """What no kernel takes raises: another dtype, an empty or oversized
+    shape, a layout or path that does not exist, the Hopper design in f32
+    or past L = 384, mma.sync in f32, FMA in bf16, a split of no tile, a
+    number of warpgroups no kernel has."""
+    assert FA.rope_attention_bwd_plan(128, 385, 8, torch.bfloat16)['path'] == 'mma_sync'
+    assert FA.rope_attention_bwd_plan(128, 384, 8, torch.bfloat16)['path'] == 'wgmma'
+    for bad in [dict(dtype=torch.float16), dict(B=0), dict(L=0), dict(heads=0),
+                dict(B=65536), dict(layout='bhld'), dict(dtype=torch.float32, path='wgmma'),
+                dict(L=400, path='wgmma'), dict(path='mma_sync', dtype=torch.float32),
+                dict(path='fma'), dict(path='tiles'), dict(split=0), dict(split=6),
+                dict(groups=0), dict(groups=3)]:
+        kw = {'B': 128, 'L': 291, 'heads': 8, 'dtype': torch.bfloat16, **bad}
+        with pytest.raises((TypeError, ValueError)):
+            FA.rope_attention_bwd_plan(**kw)
+
+
 def test_plans_mirror_the_sources():
     """The constants the plans use are the CUDA sources' own."""
     src = {n: (_build.CSRC_DIR / n).read_text()
-           for n in ('attention_tiles.cuh', 'rope_attention.cu', 'bytenet_block.cu')}
+           for n in ('attention_tiles.cuh', 'rope_attention.cu', 'bytenet_block.cu',
+                     'rope_attention_bwd.cu', 'wgmma_tiles.cuh')}
     num = lambda name, text: int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))  # noqa: E731
     assert num('MAX_SMEM', src['attention_tiles.cuh']) == FA.MAX_SMEM == FB.MAX_SMEM
     assert num('TMA_MAX_TILES', src['rope_attention.cu']) == FA.K1_MAX_KV_TILES
@@ -217,6 +315,12 @@ def test_plans_mirror_the_sources():
     assert num('MAX_CLUSTER', src['bytenet_block.cu']) == FB.MAX_CLUSTER
     assert 'constexpr int TMA_STAGES[2] = {4, 8};' in src['bytenet_block.cu']
     assert num('PLAN_LEN', src['bytenet_block.cu']) == 18
+    bwd = src['rope_attention_bwd.cu']
+    assert num('TMA_MAX_TILES', bwd) == FA.K3_MAX_TILES
+    assert num('BT', bwd) == 64
+    assert num('PLAN_LEN', bwd) == len(FA.rope_attention_bwd_plan(128, 291, 8,
+                                                                   torch.bfloat16)['array'])
+    assert num('TMA_BARS', bwd) + num('SMEM_SLACK', src['wgmma_tiles.cuh']) == FA.K1_TMA_EXTRA
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -233,7 +337,8 @@ def test_cpu_tensors_take_the_plain_versions():
 
 BF16_RTOL = 2.0 ** -7
 TOL = {'K1': {torch.float32: 1e-5, torch.bfloat16: 5e-3},
-       'K2': {torch.float32: 2e-5, torch.bfloat16: 2.5e-2}}
+       'K2': {torch.float32: 2e-5, torch.bfloat16: 2.5e-2},
+       'K3': {torch.float32: 1e-5, torch.bfloat16: 5e-3}}
 
 
 @pytest.fixture
@@ -307,3 +412,60 @@ def test_k2_on_the_card(dev, D, K, dtype):
             assert _held('K2', y2, ref) and torch.equal(
                 y2, FB._forward(x, args, dil, act, keep=False, plan=plan)[0])
             assert st.shape == (3, B, L, 2) and bool(torch.isfinite(st).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('heads', HEADS)
+@pytest.mark.parametrize('L', (291, 152, 100, 17))
+def test_k3_k6_on_the_card(dev, L, heads, dtype):
+    """K3 and K6 from K1's residuals on every design that takes the shape,
+    against both plain versions (the TPU kernel's arithmetic and the
+    kernels' own from the residuals); a repeat and every split and number
+    of warpgroups of the Hopper design give the same bits, and K6 gives
+    K3's bits on the split q, k, v."""
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    cos, sin = rope_tables(64, L, device=dev)
+    g = torch.Generator().manual_seed(3 * L + heads)
+    for B in (2, 16, 64):
+        qkv = torch.randn(B, L, heads * 192, generator=g).to(dev, dtype)
+        do = torch.randn(B, L, heads * 64, generator=g).to(dev, dtype)
+        _, o32, lse = FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, heads, residuals=True)
+        q, k, v = (t.contiguous() for t in FA.split_qkv_heads(qkv, heads))
+        ref = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, 0.125, heads)
+        twin = FA.rope_attention_qkv_backward_reference(qkv, cos, sin, do, 0.125, heads, o32, lse)
+        chosen = FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, heads, out=o32, lse=lse)
+        for path in (('wgmma', 'mma_sync') if dtype is torch.bfloat16 else ('fma',)):
+            plan = FA.rope_attention_bwd_plan(B, L, heads, dtype, path=path)
+            got = FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, heads, out=o32,
+                                                 lse=lse, plan=plan)
+            again = FA.rope_attention_qkv_backward(qkv, cos, sin, do, 0.125, heads, out=o32,
+                                                   lse=lse, plan=plan)
+            sep = FA.rope_attention_backward(
+                q, k, v, cos, sin, do, 0.125, heads, out=o32, lse=lse,
+                plan=FA.rope_attention_bwd_plan(B, L, heads, dtype, path=path, layout='sep'))
+            assert _held('K3', got, ref) and _held('K3', got, twin), path
+            assert torch.equal(got, again) and torch.equal(FA.merge_qkv_heads(*sep, heads), got)
+            if path == FA.rope_attention_bwd_plan(B, L, heads, dtype)['path']:
+                assert torch.equal(chosen, got)
+            if path == 'wgmma':
+                tiles = -(-L // 64)
+                for split in (x for x in range(1, tiles + 1)
+                              if FA._bwd_tma_smem(tiles, x, L) <= FA.MAX_SMEM):
+                    for groups in FA.K3_GROUPS:
+                        other = FA.rope_attention_bwd_plan(B, L, heads, dtype, split=split,
+                                                           groups=groups)
+                        assert torch.equal(got, FA.rope_attention_qkv_backward(
+                            qkv, cos, sin, do, 0.125, heads, out=o32, lse=lse, plan=other))
+
+
+def test_bwd_sweep_shapes_and_refusal_without_a_card(monkeypatch):
+    """The backward's timing tool covers every shape the paths give K3 (B
+    in 16, 32, 128, 512; L = 291, 152 and the short lengths; 8, 4 and 2
+    heads) and, without a card, refuses with exit code 2."""
+    from hudiff_tpu_torch.tools import attention_bwd_sweep as S
+    assert set(S.PATH_SHAPES) == {(B, L, H) for B in BWD_BATCHES for L in BWD_LENGTHS
+                                  for H in HEADS}
+    assert set(S.MAIN_SHAPES) <= set(S.PATH_SHAPES)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert S.main(['--shapes', 'main']) == 2
