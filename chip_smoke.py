@@ -165,6 +165,15 @@ version on the card. Then:
   (``device_ms_wgmma``, ``device_ms_mma_sync``), each design's output held
   to the kernel's limits; the kernels line carries them for B = 16 and 64
   with the Hopper kernels' SASS counts.
+- K5 and K7 on K1's Hopper body: bf16 K5 and K7 at L
+  <= 384 with 64 or more (b, h) pairs take TMA + wgmma
+  (``rope_attention_qkv_plan(..., layout='sep' | 'blhd' | 'bhld')``). The
+  K5 and K7 records carry ``fwd_paths``'s keys at B = 16 and 64 (each
+  design's device ms and SDPA's, K5 also K1's beside it), ``K5`` holds
+  ``identical_to_K1`` where both plans take the Hopper design, and
+  ``hopper_kernels`` expects HOPPER_INSTANTIATIONS and no serialized wgmma
+  in nvcc's output, this process's or the log kept beside a library built
+  earlier (``_build.log_path``; a library without its log fails).
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -403,45 +412,99 @@ def graph_ms(torch, fn, n=20, windows=5):
     return statistics.median(out)
 
 
+def fwd_paths(torch, kernel, layout, call, ref, shape, heads, dtype, scale, sdpa_inputs):
+    """The attention forward's launch for K1 (``layout`` 'qkv'), K5 ('sep')
+    or K7 ('blhd', 'bhld') at ``shape`` (B, L) in ``dtype`` (path, grid)
+    and, in bf16 where the Hopper design takes the shape, the device ms of
+    each design (``device_ms_wgmma``, ``device_ms_mma_sync``; ``device_ms``
+    the plan's) and of SDPA on the same inputs (``library_device_ms``),
+    each design's output held to the kernel's limits before it is timed
+    (``attention_fwd_sweep.time_designs``). ``call(plan)`` runs the kernel,
+    ``ref()`` gives its plain version's output and ``sdpa_inputs()`` q, k, v
+    as SDPA takes them ([B, H, L, 64], rotated where the kernel rotates)."""
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    from hudiff_tpu_torch.tools.attention_fwd_sweep import time_designs
+    B, L = shape
+    plan = FA.rope_attention_qkv_plan(B, L, heads, dtype, layout=layout)
+    rec = {'path': plan['path'], 'grid': list(plan['grid']), 'smem_bytes': plan['smem_bytes']}
+    if dtype != torch.bfloat16 or -(-L // 64) > FA.K1_MAX_KV_TILES:
+        return rec
+    want = ref()
+
+    def held(path, out):
+        if not check_err(torch, kernel, out, want)[1]:
+            fail(f'{kernel} ({path} design) disagrees with its plain version at B={B} L={L}')
+
+    rec.update(time_designs(lambda pl, res: call(pl), held, shape, heads, layout, sdpa_inputs,
+                            scale))
+    return rec
+
+
+# the keys a K1, K5 or K7 record gains from fwd_paths, carried on the kernels line
+FWD_PATH_KEYS = ('path', 'grid', 'device_ms', 'device_ms_wgmma', 'device_ms_mma_sync',
+                 'library_device_ms')
+
+
 def k1_paths(torch, qkv, cos, sin, scale, heads, splits=False):
-    """K1's launch at this shape (path, grid) and, in bf16, the device ms
-    (graph_ms) of each design that takes the shape (``device_ms_wgmma``,
-    ``device_ms_mma_sync``; ``device_ms`` the plan's) and of SDPA on the
-    same inputs, each design's output held to the K1 limits; with
-    ``splits`` also the Hopper design's device ms at every split of a
-    head's query tiles (all the same bits)."""
-    import torch.nn.functional as F
+    """K1's ``fwd_paths`` (SDPA on q and k rotated); with ``splits`` also
+    the Hopper design's device ms at every split of a head's query tiles
+    (all the same bits)."""
     from hudiff_tpu_torch.ops import fused_attention as FA
     B, L, _ = qkv.shape
-    plan = FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype)
-    rec = {'path': plan['path'], 'grid': list(plan['grid']), 'smem_bytes': plan['smem_bytes']}
-    if qkv.dtype != torch.bfloat16 or -(-L // 64) > FA.K1_MAX_KV_TILES:
-        return rec
-    ref = FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads)
-    plans = {p: FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype, path=p)
-             for p in ('wgmma', 'mma_sync')}
-    for path, pl in plans.items():
-        if not check_err(torch, 'K1', FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
-                                                                    plan=pl), ref)[1]:
-            fail(f'K1 ({path} design) disagrees with its plain version at B={B} L={L}')
-        rec[f'device_ms_{path}'] = graph_ms(torch, lambda: FA.rope_attention_qkv_forward(
-            qkv, cos, sin, scale, heads, plan=pl))
-    rec['device_ms'] = rec[f"device_ms_{plan['path']}"]
-    qr, kr, vr = _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads)
-    rec['library_device_ms'] = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-        qr, kr, vr, scale=scale))
-    if splits:
-        out = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, plan=plans['wgmma'])
+    rec = fwd_paths(
+        torch, 'K1', 'qkv',
+        lambda pl: FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, plan=pl),
+        lambda: FA.rope_attention_qkv_reference(qkv, cos, sin, scale, heads), (B, L), heads,
+        qkv.dtype, scale,
+        lambda: _rotated_bhld(torch, *FA.split_qkv_heads(qkv, heads), cos, sin, heads))
+    if splits and 'device_ms' in rec:
+        first = FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype, path='wgmma')
+        out = FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads, plan=first)
         rec['device_ms_by_split'] = {}
-        for split in range(1, plans['wgmma']['kv_tiles'] + 1):
+        for split in range(1, first['kv_tiles'] + 1):
             other = FA.rope_attention_qkv_plan(B, L, heads, qkv.dtype, split=split)
             if not torch.equal(out, FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
                                                                   plan=other)):
-                fail(f'K1 split {split} gives other bits than split '
-                     f'{plans["wgmma"]["grid"][0]}')
+                fail(f'K1 split {split} gives other bits than split {first["grid"][0]}')
             rec['device_ms_by_split'][split] = graph_ms(
                 torch, lambda: FA.rope_attention_qkv_forward(qkv, cos, sin, scale, heads,
                                                              plan=other))
+    return rec
+
+
+def k5_paths(torch, q, k, v, cos, sin, scale, heads):
+    """K5's ``fwd_paths`` (SDPA on q and k rotated), and beside it K1's
+    device ms on the merged input (``K1_device_ms``, its plan's design)."""
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    B, L, _ = q.shape
+    rec = fwd_paths(
+        torch, 'K5', 'sep',
+        lambda pl: FA.rope_attention_forward(q, k, v, cos, sin, scale, heads, plan=pl),
+        lambda: FA.rope_attention_reference(q, k, v, cos, sin, scale, heads), (B, L), heads,
+        q.dtype, scale, lambda: _rotated_bhld(torch, q, k, v, cos, sin, heads))
+    if 'device_ms' in rec:
+        qkv = FA.merge_qkv_heads(q, k, v, heads)
+        rec['K1_device_ms'] = graph_ms(torch, lambda: FA.rope_attention_qkv_forward(
+            qkv, cos, sin, scale, heads))
+    return rec
+
+
+def k7_paths(torch, q, k, v, scale):
+    """K7's ``fwd_paths`` through ``fused_attention`` (q, k, v [B, H, L,
+    64]: SDPA on the same tensors), and through ``attention`` on the same
+    values in [B, L, H, 64] (``blhd_device_ms_*``)."""
+    from hudiff_tpu_torch.ops import fused_attention as FA
+    B, H, L, _ = q.shape
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    ref = lambda: t(FA.attention_reference(t(q), t(k), t(v), scale))  # noqa: E731
+    rec = fwd_paths(torch, 'K7', 'bhld', lambda pl: FA.fused_attention(q, k, v, scale, plan=pl),
+                    ref, (B, L), H, q.dtype, scale, lambda: (q, k, v))
+    if 'device_ms' in rec:
+        ql, kl, vl = (t(x).contiguous() for x in (q, k, v))
+        blhd = fwd_paths(torch, 'K7', 'blhd',
+                         lambda pl: t(FA.attention(ql, kl, vl, scale, plan=pl)), ref, (B, L), H,
+                         q.dtype, scale, lambda: (q, k, v))
+        rec.update({f'blhd_{key}': blhd[key] for key in FWD_PATH_KEYS if key in blhd})
     return rec
 
 
@@ -707,15 +770,18 @@ def sass_counts(library, opcodes=('HGMMA', 'UTMALDG'), symbols=False):
     return counts
 
 
-HOPPER_INSTANTIATIONS = 13   # K1 2, K2 3, K3 and K6 dq and dkv at 1 and 2 warpgroups
+HOPPER_INSTANTIATIONS = 16   # K1 2, K5 2, K7 1, K2 3, K3 and K6 dq and dkv at 1 and 2 warpgroups
 
 
 def hopper_build_record(_build):
-    """The Hopper kernels of K1, K2, K3 and K6 as built, one record:
-    registers and spills of each instantiation (-Xptxas -v), ptxas's
-    warnings that it serialized wgmma, and, from cuobjdump, its HGMMA
-    (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions. Fails
-    unless all HOPPER_INSTANTIATIONS hold HGMMA and UTMALDG and no HMMA."""
+    """The Hopper kernels of K1-K3, K5-K7 as built, one record: registers
+    and spills of each instantiation (-Xptxas -v), ptxas's warnings that it
+    serialized wgmma, and, from cuobjdump, its HGMMA (wgmma), UTMALDG (TMA
+    load) and HMMA (mma.sync) instructions. nvcc's output is this process's
+    or the one kept beside the library (``_build.log_path``). Fails unless
+    all HOPPER_INSTANTIATIONS hold HGMMA and UTMALDG and no HMMA, and ptxas
+    serialized no wgmma in any of the three libraries (a library without
+    its log fails too: remove ``build/`` to rebuild it)."""
     libs = ('rope_attention', 'bytenet_block', 'rope_attention_bwd')
     regs = ptxas_registers({k: v for k, v in _build.BUILD_LOGS.items() if k in libs})
     sass = {}
@@ -726,16 +792,17 @@ def hopper_build_record(_build):
                   for src, log in _build.BUILD_LOGS.items() if src in libs
                   for line in log.splitlines()
                   if 'wgmma.mma_async instructions are serialized' in line]
+    unlogged = [lib for lib in libs if lib not in _build.BUILD_LOGS]
     rec = {'phase': 'hopper_kernels',
            'registers': {src: [r for r in rows if 'wgmma_' in r[0]]
-                         for src, rows in regs.items()} or 'not measured (built earlier)',
-           'wgmma_serialized': serialized if _build.BUILD_LOGS else 'not measured (built earlier)',
-           'sass': sass}
+                         for src, rows in regs.items()},
+           'wgmma_serialized': serialized, 'no_build_log': unlogged, 'sass': sass}
     emit(rec)
     bad = {k: v for k, v in sass.items() if not v['HGMMA'] or not v['UTMALDG'] or v['HMMA']}
-    if len(sass) != HOPPER_INSTANTIATIONS or bad:
-        fail(f'the Hopper K1/K2/K3/K6 kernels: want HGMMA and UTMALDG and no HMMA in all '
-             f'{HOPPER_INSTANTIATIONS}, got {sass}')
+    if len(sass) != HOPPER_INSTANTIATIONS or bad or serialized or unlogged:
+        fail(f'the Hopper K1-K3, K5-K7 kernels: want HGMMA and UTMALDG and no HMMA in all '
+             f'{HOPPER_INSTANTIATIONS} and no serialized wgmma in a logged build, got {sass}, '
+             f'{serialized}, no log for {unlogged}')
     return rec
 
 
@@ -1031,10 +1098,7 @@ def main():
          'max_abs_err_f32': k1_f32['max_abs_err'], 'ms': k1['ms'],
          'plain_ms': k1['plain_ms'], 'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
          'library_ms': k1['library_ms'], 'shape': f'B={MAIN_B} L=291 H=8 D=64 bf16',
-         'path': k1['path'], 'grid': k1['grid'], 'device_ms': k1['device_ms'],
-         'device_ms_mma_sync': k1['device_ms_mma_sync'], 'device_ms_wgmma': k1['device_ms_wgmma'],
-         'library_device_ms': k1['library_device_ms'],
-         'device_ms_by_split': k1['device_ms_by_split'],
+         **{key: k1[key] for key in FWD_PATH_KEYS}, 'device_ms_by_split': k1['device_ms_by_split'],
          'device_ms_B64': results['K1'][(BIG_B, 'bfloat16')]['device_ms'],
          'library_device_ms_B64': results['K1'][(BIG_B, 'bfloat16')]['library_device_ms'],
          'device_ms_mma_sync_B64': results['K1'][(BIG_B, 'bfloat16')]['device_ms_mma_sync'],
@@ -4794,9 +4858,11 @@ def _rotated_bhld(torch, q, k, v, cos, sin, heads):
 
 def k5_phase(torch, gen, dev):
     """K5 against its plain version and against K1 on the merged input
-    (one body: the same bits expected) at L = 291, B = 16 and 64, f32 and
-    bf16; times beside the plain version and scaled_dot_product_attention
-    on pre-rotated q/k/v."""
+    (one body: where both plans take the Hopper design the same bits are
+    held, elsewhere recorded) at L = 291, B = 16 and 64, f32 and bf16;
+    times beside the plain version and scaled_dot_product_attention on
+    pre-rotated q/k/v, and in bf16 each design's device ms
+    (``k5_paths``)."""
     import torch.nn.functional as F
     from hudiff_tpu_torch import constants as C
     from hudiff_tpu_torch.ops import fused_attention as FA
@@ -4819,9 +4885,11 @@ def k5_phase(torch, gen, dev):
             torch.cuda.synchronize()
             errs, ok = check_err(torch, 'K5', got, ref)
             vs_k1, ok_k1 = check_err(torch, 'K5', got, k1)
+            both_hopper = all(FA.rope_attention_qkv_plan(B, L, heads, dtype, layout=lay)['path']
+                              == 'wgmma' for lay in ('qkv', 'sep'))
             rec = {'phase': 'K5', 'B': B, 'L': L, 'dtype': name, **errs,
                    'max_abs_diff_vs_K1': vs_k1['max_abs_err'],
-                   'identical_to_K1': torch.equal(got, k1),
+                   'identical_to_K1': torch.equal(got, k1), 'both_hopper': both_hopper,
                    **residual_check(
                        torch, name, got,
                        FA.rope_attention_forward(q, k, v, cos, sin, scale, heads,
@@ -4829,9 +4897,11 @@ def k5_phase(torch, gen, dev):
                        res_ref, out_f32_controls(torch, q, k, v, cos, sin, scale, heads,
                                                  res_ref[0]))}
             del res_ref
-            if not (ok and ok_k1 and rec['residuals_ok']):
+            if not (ok and ok_k1 and rec['residuals_ok']
+                    and (rec['identical_to_K1'] or not both_hopper)):
                 emit(rec)
                 fail(f'K5 disagrees with its plain version or with K1 ({name}, B={B})')
+            rec.update(k5_paths(torch, q, k, v, cos, sin, scale, heads))
             qr, kr, vr = _rotated_bhld(torch, q, k, v, cos, sin, heads)
             # read q, k, v and the tables once, write out once; QK^T and PV
             nbytes = 4 * q.numel() * q.element_size() + 2 * cos.numel() * 4
@@ -4997,7 +5067,8 @@ def k7_phase(torch, gen, dev):
     version and through ``attention`` ([B, L, H, D], the same bits
     expected) at L = 291, 8 heads x 64, B = 16 and 64, f32 and bf16; times
     beside the plain version and scaled_dot_product_attention, which
-    computes the same function on the same inputs. Then both entry points
+    computes the same function on the same inputs, and in bf16 each
+    design's device ms in both layouts (``k7_paths``). Then both entry points
     once with the counters set to 0, and the refusal of a CUDA input that
     needs a gradient (K7 has no backward)."""
     import torch.nn.functional as F
@@ -5025,6 +5096,7 @@ def k7_phase(torch, gen, dev):
             if not (ok and rec['blhd_identical']):
                 emit(rec)
                 fail(f'K7 disagrees with its plain version or across layouts ({name}, B={B})')
+            rec.update(k7_paths(torch, q, k, v, scale))
             nbytes = 4 * q.numel() * q.element_size()
             flops = 4.0 * B * heads * L * L * hd
             rec.update(
@@ -5217,7 +5289,7 @@ def k8_build_records(torch, probe, L):
     emit({'phase': 'K8_registers',
           'kernels': [{'kernel': k, 'registers': r, 'spill_store_bytes': st,
                        'spill_load_bytes': ld} for k, r, st, ld in regs.get('fused_layer', [])]
-          or 'not measured (library built by an earlier process)'})
+          or 'not measured (no build log)'})
     sass = sass_counts(_build.library_path('fused_layer'))
     bf16 = {k: sass.get(k) for k in FL.KERNEL_NAMES[torch.bfloat16]}
     emit({'phase': 'K8_sass', 'kernels': sass})
@@ -5234,6 +5306,16 @@ def later_kernels(results, api):
     k8, k8_f32 = results['K8']['bfloat16'], results['K8']['float32']
     probe = results['K8']['probe']
 
+    k5_64 = results['K5'][(BIG_B, 'bfloat16')]
+    k7_64 = results['K7']['records'][(BIG_B, 'bfloat16')]
+
+    def paths(rec, big, *extra):
+        """A K5 or K7 record's fwd_paths keys at B = 16, and at B = 64 with
+        the suffix _B64."""
+        keys = FWD_PATH_KEYS + extra
+        return {**{key: rec[key] for key in keys},
+                **{f'{key}_B{BIG_B}': big[key] for key in keys}}
+
     def entry(rec, rec_f32, timed=None, **kw):
         timed = timed or rec
         return {**kw, 'max_abs_err': rec['max_abs_err'],
@@ -5248,6 +5330,7 @@ def later_kernels(results, api):
               replaces='hudiff_tpu/ops/pallas_attention.py:76',
               launches=api['launches']['K5'], launches_per_step=api['launches']['K5'] / api['steps'],
               max_abs_diff_vs_K1=k5['max_abs_diff_vs_K1'],
+              identical_to_K1=k5['identical_to_K1'], **paths(k5, k5_64, 'K1_device_ms'),
               shape=f'B={MAIN_B} L=291 H=8 D=64 bf16'),
         entry(k6, k6_f32, name='K6 fused RoPE attention backward (separate dq, dk, dv)',
               route='cuda', source='hudiff_tpu_torch/csrc/rope_attention_bwd.cu',
@@ -5259,7 +5342,9 @@ def later_kernels(results, api):
         entry(k7, k7_f32, name='K7 softmax attention without RoPE ([B, H, L, D])', route='cuda',
               source='hudiff_tpu_torch/csrc/rope_attention.cu',
               replaces='hudiff_tpu/ops/pallas_attention.py:443',
-              launches=results['K7']['launches'], shape=f'B={MAIN_B} H=8 L=291 D=64 bf16'),
+              launches=results['K7']['launches'],
+              **paths(k7, k7_64, *(f'blhd_{key}' for key in FWD_PATH_KEYS)),
+              shape=f'B={MAIN_B} H=8 L=291 D=64 bf16'),
         entry(k8, k8_f32, probe, name='K8 fused attention layer (qkv projection, RoPE '
                                       'attention, out projection)', route='cuda',
               source='hudiff_tpu_torch/csrc/fused_layer.cu',

@@ -1,5 +1,5 @@
-// K1, K5 and K7: one hand-written attention forward, instantiated three
-// times for three layouts, and K1's Hopper design.
+// K1, K5 and K7: one hand-written attention forward, instantiated for each
+// layout, in two designs: Hopper's TMA + wgmma and sm_80's mma.sync.
 //
 // Replaces, in hudiff_tpu/ops/pallas_attention.py:
 //   K1 _rope_fwd_kernel_qkv (via _pallas_fwd_qkv / rope_attention_qkv):
@@ -28,9 +28,11 @@
 // bf16 values is exact in f32, so bf16 products with f32 accumulation compute
 // the same sums.
 //
-// Layout: each operand is reached through a base pointer and a Layout
-// (batch stride, row stride, per-head offset); q, k and v share one, out has
-// its own. K1 points q, k, v at columns 0, 64, 128 of the merged qkv.
+// Layout: on the mma.sync and FMA paths each operand is reached through a
+// base pointer and a Layout (batch stride, row stride, per-head offset); q,
+// k and v share one, out has its own. K1 points q, k, v at columns 0, 64,
+// 128 of the merged qkv. The Hopper path reads q, k and v through tensor
+// maps (below) and writes out through a Layout.
 //
 // What bounds it on an H100 (data-sheet peaks of the NVIDIA H100 80GB HBM3 at
 // 700 W): bytes. At B=64, L=291, bf16 one K1 call reads the 57 MB qkv block
@@ -40,30 +42,39 @@
 // dependent steps a block runs: load, rotate, then per key tile a product,
 // the softmax and a second product.
 //
-// K1 in bf16 at L <= 384 with 64 or more (b, h) pairs, on Hopper
-// (wgmma_rope_attention_qkv_kernel; wgmma_tiles.cuh), in place of the
-// mma.sync design below for it: a block takes (head h, row b) and every
-// split-th of the head's query tiles (ops/fused_attention.py::
-// rope_attention_qkv_plan: 2 blocks a head at L = 291, 1 or 2 at 152). A producer warp TMA-loads the block's q tiles and
-// the head's whole K and V (a 3-D tensor map over qkv [B][L][H*192], boxes
-// of 64 rows at columns 192h, +64, +128; rows past L come back as TMA's
-// zeros) into 128-byte-swizzled shared memory at once, each tile on its own
-// mbarrier: at L = 291 K and V are 80 KB, and nothing waits on a copy but
-// its first use. The two consumer warpgroups rotate K in place together,
-// once for the block (the mma.sync design rotates every K tile again in
-// each of a head's five blocks), then take the q tiles in turn: a q tile is rotated in
-// place, and the online softmax runs on wgmma, S = q k^T from shared memory
-// (both operands K-major), S and P in registers, O += P V with P as
-// register A fragments (V the N-major operand), keys >= L at P = 0. The
-// output is staged in the q tile and written 16 bytes a lane. Without the
-// residuals a block uses at most 113 registers, so two share an SM. Why no
-// cluster multicast of K and V: a head's blocks each read its 80 KB of K
-// and V from L2 (qkv is in L2 on the main path, written by the projection
-// just before) once, against a chain of dependent steps many times longer;
-// splitting a head's query tiles over two blocks halves the chain a block
-// waits on and puts 256 blocks on the 132 SMs at B = 16, and a second block
-// on an SM hides the rest. chip_smoke.py times every split (K1's
-// device_ms_by_split); two read fastest at L = 291 on an H100 (PERF.md).
+// K1, K5 and K7 in bf16 at L <= 384 with 64 or more (b, h) pairs, on
+// Hopper (wgmma_tiles.cuh): one body, wgmma_attention_fwd<ROPE, RES>, as
+// wgmma_rope_attention_qkv_kernel (K1), wgmma_rope_attention_sep_fwd_kernel
+// (K5) and wgmma_plain_attention_kernel (K7, no rotation, no residuals), in
+// place of the mma.sync design below for them. A block takes (head h, row b)
+// and every split-th of the head's query tiles (ops/fused_attention.py::
+// rope_attention_qkv_plan, one plan for the four layouts: 2 blocks a head at
+// L = 291, 1 or 2 at 152). Thread 0 TMA-loads the block's q tiles and the
+// head's whole K and V at once, each tile on its own mbarrier (K on one),
+// into 128-byte-swizzled shared memory: at L = 291 K and V are 80 KB, and
+// nothing waits on a copy but its first use. q, k and v come through three
+// 3-D tensor maps, boxes of 64 rows by 64 columns, rows past L as TMA's
+// zeros: K1 one map over qkv [B][L][H*192] at columns 192h, +64, +128; K5
+// and K7's [B, L, H, 64] maps over q, k, v [B][L][H*64] at column 64h; K7's
+// [B, H, L, 64] maps over [B*H][L][64] at row b*H + h. With the rotation
+// (K1, K5) the two warpgroups rotate K in place together, once for the
+// block (the mma.sync design rotates every K tile again in each of a head's
+// five blocks), and each q tile in place on arrival; K7's tiles go to wgmma
+// as TMA wrote them. Then the warpgroups take the q tiles in turn and run
+// the online softmax on wgmma, S = q k^T from shared memory (both operands
+// K-major), S and P in registers, O += P V with P as register A fragments
+// (V the N-major operand), keys >= L at P = 0. The output is staged in the
+// q tile and written 16 bytes a lane at the layout's strides. A block is
+// the two warpgroups alone: a ninth (producer) warp made ptxas allot
+// registers as for ten warps, 96 a thread at two blocks an SM, where it
+// spilled and serialized wgmma; without it a block uses at most 128
+// registers (140 with the residuals, one block an SM). Why no cluster
+// multicast of K and V: a head's blocks each read its 80 KB of K and V from
+// L2 once, against a chain of dependent steps many times longer; splitting
+// a head's query tiles over two blocks halves the chain a block waits on
+// and puts 256 blocks on the 132 SMs at B = 16, and a second block on an SM
+// hides the rest. chip_smoke.py times every split (K1's device_ms_by_split);
+// two read fastest at L = 291 on an H100 (PERF.md).
 //
 // The other instantiations keep the mma.sync design (bf16 FlashAttention-2 on
 // mma.sync; csrc/mma_tiles.cuh): the [291, 291] f32 score block (339 KB)
@@ -77,7 +88,7 @@
 // scaled log2 scores), P re-packed as bf16 A fragments for O += P V, O
 // rescaled in registers. Keys >= L get P = 0 explicitly; rows >= L are
 // never stored. Each query tile reads its head's K/V again; the repeats hit
-// L2. K5, K7 and K1 past L = 384 take it.
+// L2. K1, K5 and K7 past L = 384 or below 64 (b, h) pairs take it.
 // The residual instantiations (both designs) split P into bf16(P) and the
 // rest, which rounding dropped, and accumulate (P - bf16(P)) V as a second
 // product, so that out_f32 = (P v)/l carries P to ~2^-16; one more product
@@ -377,13 +388,14 @@ __device__ __forceinline__ void attention_fwd_bf16(const Args& a) {
   }
 }
 
-// ---- bf16 K1 on Hopper: TMA + wgmma ------------------------------------------
+// ---- bf16 K1, K5 and K7 on Hopper: TMA + wgmma -------------------------------
 
 constexpr int TMA_GROUPS = 2;                          // consumer warpgroups a block
-constexpr int TMA_THREADS = (4 * TMA_GROUPS + 1) * 32;  // and one producer warp
+constexpr int TMA_THREADS = 4 * TMA_GROUPS * 32;        // thread 0 issues every copy
 constexpr int TMA_TILE = BKV * 128;                    // 64 rows of 128 bytes: 8 KB
 constexpr int TMA_MAX_TILES = 6;                       // K and V held up to L = 384
 constexpr int TMA_BARS = 128;                          // the mbarriers' bytes
+constexpr int TMA_PLAN_LEN = 14;                       // the values of a plan
 
 // Shared memory from the aligned base: K tiles, V tiles, the block's q tiles
 // (every split-th of the head's), the mbarriers (K, one per q tile, one per
@@ -395,39 +407,48 @@ __host__ __device__ constexpr int tma_smem_bytes(int kv_tiles, int split) {
   return (2 * kv_tiles + tma_q_tiles(kv_tiles, split)) * TMA_TILE + TMA_BARS + wg::SMEM_SLACK;
 }
 
+// Where the operands lie. q, k and v are read through three tensor maps (K1:
+// one map over qkv, three times): head h of batch row b at column col[m] +
+// head * h of map m, at outer coordinate b (zh 0: maps over [B][L][width])
+// or b H + h (zh 1: K7's [B H][L][64]). out and out_f32 at o.at(b, h) +
+// row * o.row.
 struct TmaArgs {
-  tc::bf16* out;               // [B, L, H*64]
+  tc::bf16* out;
   float* lse;                  // [B, H, L] f32, or nullptr (then out_f32 too)
-  float* out_f32;              // [B, L, H*64] f32
-  const float *cos_t, *sin_t;  // [L, 32] f32
+  float* out_f32;              // f32, out's layout
+  Layout o;
+  const float *cos_t, *sin_t;  // [L, 32] f32 (ROPE only)
   int L, H, kv_tiles;
+  int col[3], head, zh;
   float scale;
 };
 
 // One consumer warpgroup's query tile (rows row0 + [0, 64), landed at tq on
-// qbar) over the held, rotated K and V: the output rows (and with RES the
-// residuals) written
-template <bool RES>
+// qbar) over the held K (rotated when ROPE) and V: the output rows (and with
+// RES the residuals) written
+template <bool ROPE, bool RES>
 __device__ __forceinline__ void attend_tile(const TmaArgs& a, const unsigned char* sK,
                                             const unsigned char* sV, unsigned char* tq,
                                             uint64_t* qbar, uint64_t* vbar, int row0, int b,
-                                            int h, int grp, int wq, int lane, float sl2, int A) {
+                                            int h, int grp, int wq, int lane, float sl2) {
   using tc::bf16;
   const int T = a.kv_tiles, L = a.L, g = lane >> 2, t4 = lane & 3;
-  // q rotated in place, as K was: the warpgroup's 128 threads take 8 pairs
-  // of a row each, twice; then wgmma reads it
   wg::mbar_wait(qbar, 0);
-  const int gt = threadIdx.x % 128;
+  if constexpr (ROPE) {
+    // q rotated in place, as K was: the warpgroup's 128 threads take 8
+    // pairs of a row each, twice; then wgmma reads it
+    const int gt = threadIdx.x % 128;
 #pragma unroll
-  for (int idx = gt; idx < BKV * 4; idx += 128) {
-    const int r = idx >> 2, c0 = (idx & 3) * 8, l = row0 + r;
-    if (l >= L) continue;
-    tc::rotate8(reinterpret_cast<bf16*>(tq + wg::swizzle128(r, c0)),
-                reinterpret_cast<bf16*>(tq + wg::swizzle128(r, c0 + D2)), a.cos_t + l * D2 + c0,
-                a.sin_t + l * D2 + c0);
+    for (int idx = gt; idx < BKV * 4; idx += 128) {
+      const int r = idx >> 2, c0 = (idx & 3) * 8, l = row0 + r;
+      if (l >= L) continue;
+      tc::rotate8(reinterpret_cast<bf16*>(tq + wg::swizzle128(r, c0)),
+                  reinterpret_cast<bf16*>(tq + wg::swizzle128(r, c0 + D2)), a.cos_t + l * D2 + c0,
+                  a.sin_t + l * D2 + c0);
+    }
+    wg::fence_proxy();
+    wg::bar_sync(2 + grp, 128);
   }
-  wg::fence_proxy();
-  wg::bar_sync(2 + grp, 128);
 
   // K1's online softmax over the held K and V, on wgmma: S = q k^T from
   // shared memory (q and K both K-major), O += P V with P from registers (V
@@ -494,23 +515,24 @@ __device__ __forceinline__ void attend_tile(const TmaArgs& a, const unsigned cha
       *reinterpret_cast<uint32_t*>(tq + wg::swizzle128(16 * wq + g + 8 * hh, 8 * j + 2 * t4)) =
           tc::pack(o[j][2 * hh] * inv[hh], o[j][2 * hh + 1] * inv[hh]);
   __syncwarp();
-  bf16* out = a.out + (size_t)b * L * A + h * HD;
+  const size_t at = a.o.at(b, h);
+  bf16* out = a.out + at;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int idx = lane + 32 * i, r = idx >> 3, ch = idx & 7, row = row0 + 16 * wq + r;
     if (row < L)
-      *reinterpret_cast<uint4*>(out + (size_t)row * A + ch * 8) =
+      *reinterpret_cast<uint4*>(out + (size_t)row * a.o.row + ch * 8) =
           *reinterpret_cast<const uint4*>(tq + wg::swizzle128(16 * wq + r, ch * 8));
   }
   if (!RES) return;
   float* lse = a.lse + ((size_t)b * a.H + h) * L;
-  float* of = a.out_f32 + (size_t)b * L * A + h * HD;
+  float* of = a.out_f32 + at;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 16 * wq + g + 8 * r;
     if (row >= L) continue;
     if (t4 == 0) lse[row] = (m[r] + log2f(l[r])) * tc::LN2;
-    float* dst = of + (size_t)row * A + 2 * t4;
+    float* dst = of + (size_t)row * a.o.row + 2 * t4;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) =
@@ -520,15 +542,17 @@ __device__ __forceinline__ void attend_tile(const TmaArgs& a, const unsigned cha
 }
 
 // Block x of a head's `split` blocks takes (head h, row b) and the query
-// tiles x, x + split, ...: a producer warp TMA-loads those q tiles and
-// every K and V tile of the head at once, each landing on its own
-// mbarrier; the two consumer warpgroups rotate K in shared memory together
-// (once for the block), then take the q tiles in turn and run the online
-// softmax of each tile's 64 queries over the held K and V on wgmma, q
-// rotated in registers and packed as A fragments, S and P in registers.
-template <bool RES>
-__global__ void __launch_bounds__(TMA_THREADS, RES ? 1 : 2)
-    wgmma_rope_attention_qkv_kernel(const __grid_constant__ CUtensorMap map, TmaArgs a) {
+// tiles x, x + split, ...: thread 0 TMA-loads those q tiles and every K and
+// V tile of the head at once, each landing on its own mbarrier (K on one);
+// with ROPE the two warpgroups rotate K in shared memory together (once for
+// the block). They then take the q tiles
+// in turn and run the online softmax of each tile's 64 queries over the
+// held K and V on wgmma, S and P in registers. Without ROPE (K7) the
+// landed tiles go to wgmma as TMA wrote them.
+template <bool ROPE, bool RES>
+__device__ __forceinline__ void wgmma_attention_fwd(const CUtensorMap* qmap,
+                                                    const CUtensorMap* kmap,
+                                                    const CUtensorMap* vmap, const TmaArgs& a) {
   using tc::bf16;
   unsigned char* smem = wg::aligned_smem();
   const int T = a.kv_tiles, L = a.L, h = blockIdx.y, b = blockIdx.z;
@@ -541,52 +565,133 @@ __global__ void __launch_bounds__(TMA_THREADS, RES ? 1 : 2)
   uint64_t* qbar = kbar + 1;
   uint64_t* vbar = qbar + nq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0) {  // the barriers, then every copy at once
     wg::mbar_init(kbar, 1);
     for (int i = 0; i < nq; ++i) wg::mbar_init(&qbar[i], 1);
     for (int j = 0; j < T; ++j) wg::mbar_init(&vbar[j], 1);
     wg::mbar_fence_init();
+    wg::tma_prefetch(qmap);
+    wg::tma_prefetch(kmap);
+    wg::tma_prefetch(vmap);
+    const int qc = a.col[0] + a.head * h, kc = a.col[1] + a.head * h;
+    const int vc = a.col[2] + a.head * h, z = a.zh ? b * a.H + h : b;
+    for (int i = 0; i < nq; ++i) {
+      wg::mbar_arrive_expect(&qbar[i], TMA_TILE);
+      wg::tma_load_3d(sQ + i * TMA_TILE, qmap, &qbar[i], qc, BKV * (x + split * i), z);
+    }
+    wg::mbar_arrive_expect(kbar, T * TMA_TILE);
+    for (int j = 0; j < T; ++j) wg::tma_load_3d(sK + j * TMA_TILE, kmap, kbar, kc, BKV * j, z);
+    for (int j = 0; j < T; ++j) {
+      wg::mbar_arrive_expect(&vbar[j], TMA_TILE);
+      wg::tma_load_3d(sV + j * TMA_TILE, vmap, &vbar[j], vc, BKV * j, z);
+    }
   }
   __syncthreads();
 
-  if (warp == 4 * TMA_GROUPS) {  // the producer: lane 0 issues every copy
-    if (lane != 0) return;
-    wg::tma_prefetch(&map);
-    const int col = 3 * HD * h;  // q, k, v of head h at col, col + 64, col + 128
-    for (int i = 0; i < nq; ++i) {
-      wg::mbar_arrive_expect(&qbar[i], TMA_TILE);
-      wg::tma_load_3d(sQ + i * TMA_TILE, &map, &qbar[i], col, BKV * (x + split * i), b);
-    }
-    wg::mbar_arrive_expect(kbar, T * TMA_TILE);
-    for (int j = 0; j < T; ++j)
-      wg::tma_load_3d(sK + j * TMA_TILE, &map, kbar, col + HD, BKV * j, b);
-    for (int j = 0; j < T; ++j) {
-      wg::mbar_arrive_expect(&vbar[j], TMA_TILE);
-      wg::tma_load_3d(sV + j * TMA_TILE, &map, &vbar[j], col + 2 * HD, BKV * j, b);
-    }
-    return;
-  }
-
-  // K rotated in place once, rows [0, L): a thread takes 8 pairs of a row;
-  // rows >= L stay TMA's zeros (their keys get P = 0)
   wg::mbar_wait(kbar, 0);
-  for (int idx = threadIdx.x; idx < T * BKV * 4; idx += 128 * TMA_GROUPS) {
-    const int r = idx >> 2, c0 = (idx & 3) * 8;
-    if (r >= L) continue;
-    unsigned char* tile = sK + (r / BKV) * TMA_TILE;
-    tc::rotate8(reinterpret_cast<bf16*>(tile + wg::swizzle128(r % BKV, c0)),
-                reinterpret_cast<bf16*>(tile + wg::swizzle128(r % BKV, c0 + D2)),
-                a.cos_t + r * D2 + c0, a.sin_t + r * D2 + c0);
+  if constexpr (ROPE) {
+    // K rotated in place once, rows [0, L): a thread takes 8 pairs of a
+    // row; rows >= L stay TMA's zeros (their keys get P = 0)
+    for (int idx = threadIdx.x; idx < T * BKV * 4; idx += 128 * TMA_GROUPS) {
+      const int r = idx >> 2, c0 = (idx & 3) * 8;
+      if (r >= L) continue;
+      unsigned char* tile = sK + (r / BKV) * TMA_TILE;
+      tc::rotate8(reinterpret_cast<bf16*>(tile + wg::swizzle128(r % BKV, c0)),
+                  reinterpret_cast<bf16*>(tile + wg::swizzle128(r % BKV, c0 + D2)),
+                  a.cos_t + r * D2 + c0, a.sin_t + r * D2 + c0);
+    }
+    wg::fence_proxy();                  // K, rewritten by threads, is read by wgmma
+    wg::bar_sync(1, 128 * TMA_GROUPS);
   }
-  wg::fence_proxy();                  // K, rewritten by threads, is read by wgmma
-  wg::bar_sync(1, 128 * TMA_GROUPS);
 
   const int grp = warp / 4, wq = warp % 4;
   const float sl2 = a.scale * tc::LOG2E;
-  const int A = a.H * HD;
   for (int i = grp; i < nq; i += TMA_GROUPS)
-    attend_tile<RES>(a, sK, sV, sQ + i * TMA_TILE, &qbar[i], vbar, BKV * (x + split * i), b, h,
-                     grp, wq, lane, sl2, A);
+    attend_tile<ROPE, RES>(a, sK, sV, sQ + i * TMA_TILE, &qbar[i], vbar, BKV * (x + split * i),
+                           b, h, grp, wq, lane, sl2);
+}
+
+// The Hopper forward's three kernels: K1 (qkv) and K5 (separate q, k, v)
+// with the rotation, each with and without the residuals; K7 without
+#define HD_TMA_MAPS                                                               \
+  const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap, \
+      const __grid_constant__ CUtensorMap vmap, TmaArgs a
+template <bool RES>
+__global__ void __launch_bounds__(TMA_THREADS, RES ? 1 : 2)
+    wgmma_rope_attention_qkv_kernel(HD_TMA_MAPS) {
+  wgmma_attention_fwd<true, RES>(&qmap, &kmap, &vmap, a);
+}
+template <bool RES>
+__global__ void __launch_bounds__(TMA_THREADS, RES ? 1 : 2)
+    wgmma_rope_attention_sep_fwd_kernel(HD_TMA_MAPS) {
+  wgmma_attention_fwd<true, RES>(&qmap, &kmap, &vmap, a);
+}
+__global__ void __launch_bounds__(TMA_THREADS, 2) wgmma_plain_attention_kernel(HD_TMA_MAPS) {
+  wgmma_attention_fwd<false, false>(&qmap, &kmap, &vmap, a);
+}
+#undef HD_TMA_MAPS
+
+enum TmaKind { K1_QKV, K5_SEP, K7_PLAIN };
+
+// The Hopper forward's launch, for `a` over maps of dims (d0, L, d2) whose
+// bases are q, k, v (K1: qkv three times). The plan must be this one's own
+// for the shape (the caller's ops/fused_attention.py::rope_attention_qkv_plan,
+// TMA_PLAN_LEN values): grid (split, H, B), threads, shared-memory bytes,
+// K/V tiles, then the maps' dims (3, innermost first), byte strides (2) and
+// box (3), one description for the three maps. Returns a cudaError_t code.
+template <int KIND, bool RES>
+int launch_tma(const void* const (&qkv)[3], const TmaArgs& a, long long d0, long long d2, int B,
+               const long long* plan, cudaStream_t stream) {
+  const int L = a.L, tiles = a.kv_tiles;
+  const long long split = plan[0];
+  if (split < 1 || split > tiles || tiles > TMA_MAX_TILES) return (int)cudaErrorInvalidValue;
+  const long long want[TMA_PLAN_LEN] = {split, a.H, B, TMA_THREADS,
+                                        tma_smem_bytes(tiles, (int)split), tiles, d0, L, d2,
+                                        d0 * 2, L * d0 * 2, HD, BKV, 1};
+  for (int i = 0; i < TMA_PLAN_LEN; ++i)
+    if (plan[i] != want[i]) return (int)cudaErrorInvalidValue;
+  if (want[4] > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  for (int m = 0; m < 3; ++m)
+    if (reinterpret_cast<uintptr_t>(qkv[m]) % 16) return (int)cudaErrorInvalidValue;
+  // the limit, set once for the instantiation: the port drives one card per process
+  static const cudaError_t attr = [] {
+    const void* kernel = KIND == K1_QKV   ? (const void*)wgmma_rope_attention_qkv_kernel<RES>
+                         : KIND == K5_SEP ? (const void*)wgmma_rope_attention_sep_fwd_kernel<RES>
+                                          : (const void*)wgmma_plain_attention_kernel;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap maps[3];
+  const cuuint64_t dims[3] = {(cuuint64_t)plan[6], (cuuint64_t)plan[7], (cuuint64_t)plan[8]};
+  const cuuint64_t strides[2] = {(cuuint64_t)plan[9], (cuuint64_t)plan[10]};
+  const cuuint32_t box[3] = {(cuuint32_t)plan[11], (cuuint32_t)plan[12], (cuuint32_t)plan[13]};
+  for (int m = 0; m < 3; ++m)
+    if (!wg::encode(&maps[m], qkv[m], 3, dims, strides, box)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)plan[0], (unsigned)plan[1], (unsigned)plan[2]);
+  const int bytes = (int)plan[4];
+  if (KIND == K1_QKV)
+    wgmma_rope_attention_qkv_kernel<RES><<<grid, TMA_THREADS, bytes, stream>>>(maps[0], maps[1],
+                                                                            maps[2], a);
+  else if (KIND == K5_SEP)
+    wgmma_rope_attention_sep_fwd_kernel<RES><<<grid, TMA_THREADS, bytes, stream>>>(
+        maps[0], maps[1], maps[2], a);
+  else
+    wgmma_plain_attention_kernel<<<grid, TMA_THREADS, bytes, stream>>>(maps[0], maps[1], maps[2],
+                                                                      a);
+  return (int)cudaGetLastError();
+}
+
+// launch_tma with the residuals (lse and out_f32 both given) or without
+template <int KIND>
+int launch_tma_res(const void* const (&qkv)[3], const TmaArgs& a, long long d0, long long d2,
+                   int B, const long long* plan, cudaStream_t stream) {
+  if ((a.lse == nullptr) != (a.out_f32 == nullptr)) return (int)cudaErrorInvalidValue;
+  return a.lse != nullptr ? launch_tma<KIND, true>(qkv, a, d0, d2, B, plan, stream)
+                          : launch_tma<KIND, false>(qkv, a, d0, d2, B, plan, stream);
+}
+
+bool bad_tma_shape(int B, int L, int H) {
+  return B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535;
 }
 
 // RES: also write the backward's residuals, lse and (bf16) the unrounded
@@ -701,54 +806,65 @@ extern "C" int hd_attention(const void* q, const void* k, const void* v, void* o
   return (int)cudaErrorInvalidValue;
 }
 
-// K1 on Hopper (bf16, L <= 384): qkv [B, L, H*3*64] head-major at a 16-byte
-// aligned address, cos/sin [L, 32] f32, out [B, L, H*64]; the residuals
-// lse [B, H, L] f32 and out_f32 [B, L, H*64] f32, both or neither (null: not
-// written). `plan` is the launch the caller computed
-// (ops/fused_attention.py::rope_attention_qkv_plan), 14 values: grid x (the
-// blocks a head's query tiles are split over), y, z, threads, shared-memory bytes, K/V tiles, the qkv tensor map's dims (3,
-// innermost first), byte strides (2) and box (3); a plan other than this
-// entry's own for the shape is refused. Returns a cudaError_t code (0 =
-// launched).
+// The Hopper forward (bf16, L <= 384) of K1, K5 and K7. `plan` is the
+// launch the caller computed (ops/fused_attention.py::rope_attention_qkv_plan
+// with the entry's layout), TMA_PLAN_LEN values: grid x (the blocks a head's
+// query tiles are split over), y, z, threads, shared-memory bytes, K/V
+// tiles, then the q, k and v maps' dims (3, innermost first), byte strides
+// (2) and box (3); a plan other than the entry's own for the shape is
+// refused. Every tensor TMA reads lies at a 16-byte aligned address. Each
+// returns a cudaError_t code (0 = launched).
+//
+// K1: qkv [B, L, H*3*64] head-major, cos/sin [L, 32] f32, out [B, L, H*64];
+// the residuals lse [B, H, L] f32 and out_f32 [B, L, H*64] f32, both or
+// neither (null: not written).
 extern "C" int hd_rope_attention_qkv_tma(const void* qkv, const void* cos_t, const void* sin_t,
                                          void* out, void* lse, void* out_f32, int B, int L,
                                          int H, float scale, const long long* plan,
                                          void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535 ||
-      (lse == nullptr) != (out_f32 == nullptr) || reinterpret_cast<uintptr_t>(qkv) % 16)
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (L + BKV - 1) / BKV;
-  const long long split = plan[0], width = 3LL * H * HD;
-  if (split < 1 || split > tiles || tiles > TMA_MAX_TILES) return (int)cudaErrorInvalidValue;
-  const long long want[14] = {split, H, B, TMA_THREADS, tma_smem_bytes(tiles, (int)split), tiles,
-                              width, L, B, width * 2, (long long)L * width * 2, HD, BKV, 1};
-  for (int i = 0; i < 14; ++i)
-    if (plan[i] != want[i]) return (int)cudaErrorInvalidValue;
-  if (want[4] > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  // the limit, set once for both instantiations: the port drives one card per process
-  static const cudaError_t attr = [] {
-    const cudaError_t e = cudaFuncSetAttribute(wgmma_rope_attention_qkv_kernel<false>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               MAX_SMEM);
-    return e != cudaSuccess ? e
-                            : cudaFuncSetAttribute(wgmma_rope_attention_qkv_kernel<true>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   MAX_SMEM);
-  }();
-  if (attr != cudaSuccess) return (int)attr;
-  CUtensorMap map;
-  const cuuint64_t dims[3] = {(cuuint64_t)plan[6], (cuuint64_t)plan[7], (cuuint64_t)plan[8]};
-  const cuuint64_t strides[2] = {(cuuint64_t)plan[9], (cuuint64_t)plan[10]};
-  const cuuint32_t box[3] = {(cuuint32_t)plan[11], (cuuint32_t)plan[12], (cuuint32_t)plan[13]};
-  if (!wg::encode(&map, qkv, 3, dims, strides, box)) return (int)cudaErrorInvalidValue;
+  if (bad_tma_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+  const int A = H * HD;
   const TmaArgs a{static_cast<tc::bf16*>(out), static_cast<float*>(lse),
-                  static_cast<float*>(out_f32), static_cast<const float*>(cos_t),
-                  static_cast<const float*>(sin_t), L, H, tiles, scale};
-  const dim3 grid((unsigned)plan[0], (unsigned)plan[1], (unsigned)plan[2]);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr)
-    wgmma_rope_attention_qkv_kernel<true><<<grid, TMA_THREADS, (int)plan[4], s>>>(map, a);
-  else
-    wgmma_rope_attention_qkv_kernel<false><<<grid, TMA_THREADS, (int)plan[4], s>>>(map, a);
-  return (int)cudaGetLastError();
+                  static_cast<float*>(out_f32), Layout{L * A, A, HD},
+                  static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), L, H,
+                  (L + BKV - 1) / BKV, {0, HD, 2 * HD}, 3 * HD, 0, scale};
+  const void* const bases[3] = {qkv, qkv, qkv};
+  return launch_tma_res<K1_QKV>(bases, a, 3LL * A, B, B, plan, static_cast<cudaStream_t>(stream));
+}
+
+// K5: q, k, v, out [B, L, H*64], the tables and residuals as K1's.
+extern "C" int hd_rope_attention_tma(const void* q, const void* k, const void* v,
+                                     const void* cos_t, const void* sin_t, void* out, void* lse,
+                                     void* out_f32, int B, int L, int H, float scale,
+                                     const long long* plan, void* stream) {
+  if (bad_tma_shape(B, L, H)) return (int)cudaErrorInvalidValue;
+  const int A = H * HD;
+  const TmaArgs a{static_cast<tc::bf16*>(out), static_cast<float*>(lse),
+                  static_cast<float*>(out_f32), Layout{L * A, A, HD},
+                  static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), L, H,
+                  (L + BKV - 1) / BKV, {0, 0, 0}, HD, 0, scale};
+  const void* const bases[3] = {q, k, v};
+  return launch_tma_res<K5_SEP>(bases, a, A, B, B, plan, static_cast<cudaStream_t>(stream));
+}
+
+// K7: q, k, v and out [B, L, H, 64] (layout 0) or [B, H, L, 64] (layout 1,
+// read through maps over [B H][L][64]); no RoPE, no residuals.
+extern "C" int hd_attention_tma(const void* q, const void* k, const void* v, void* out, int B,
+                                int L, int H, int layout, float scale, const long long* plan,
+                                void* stream) {
+  if (bad_tma_shape(B, L, H) || (layout != 0 && layout != 1)) return (int)cudaErrorInvalidValue;
+  const int A = H * HD;
+  TmaArgs a{static_cast<tc::bf16*>(out), nullptr, nullptr, Layout{L * A, A, HD}, nullptr,
+            nullptr, L, H, (L + BKV - 1) / BKV, {0, 0, 0}, HD, 0, scale};
+  long long d0 = A, d2 = B;
+  if (layout == 1) {  // maps over [B H][L][64]: no column per head, a row of them per head
+    a.o = Layout{A * L, HD, L * HD};
+    a.head = 0;
+    a.zh = 1;
+    d0 = HD;
+    d2 = (long long)B * H;
+  }
+  const void* const bases[3] = {q, k, v};
+  return launch_tma<K7_PLAIN, false>(bases, a, d0, d2, B, plan,
+                                     static_cast<cudaStream_t>(stream));
 }

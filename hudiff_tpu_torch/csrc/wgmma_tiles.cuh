@@ -280,8 +280,18 @@ inline EncodeTiled encoder() {
 
 // A bf16 tensor map: `rank` dims innermost first, the byte strides of dims
 // 1.., a box of `box`, 128-byte swizzle, zeros past the edges.
+// cuTensorMapEncodeTiled needs a current context in the calling thread,
+// which a thread that has made no runtime call yet lacks (autograd's
+// backward thread, when a backward's first CUDA work is a kernel that
+// encodes maps before it launches): the device's primary context is made
+// current there first.
 inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                    const cuuint64_t* strides, const cuuint32_t* box) {
+  thread_local bool bound = false;
+  int device = 0;
+  if (!bound && (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess))
+    return false;
+  bound = true;
   const EncodeTiled fn = encoder();
   const cuuint32_t ones[3] = {1, 1, 1};
   return fn != nullptr &&

@@ -9,6 +9,8 @@ machines without ``nvcc``.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` builds one source if needed and returns the library.
+nvcc's output is kept beside each library (``lib<name>-<hash>.log``), so
+that a later process reads ptxas's report of a library it did not build.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# nvcc's output for each source built in this process: ptxas's registers,
-# shared memory and spills per kernel (-Xptxas -v)
+# nvcc's output for each source built or loaded through build_all, read back
+# from the log beside the library where an earlier process built it:
+# ptxas's registers, shared memory, spills and warnings per kernel (-Xptxas -v)
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -52,9 +55,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:12]}.so'
 
 
+def log_path(name: str) -> Path:
+    """Where nvcc's output for the library ``library_path(name)`` is kept."""
+    return library_path(name).with_suffix('.log')
+
+
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path]]:
-    """Start nvcc for one source into a temporary file; None if built."""
+    """Start nvcc for one source into a temporary file; None if built (its
+    kept log, where there is one, goes into BUILD_LOGS)."""
     if library_path(name).exists():
+        if log_path(name).exists():
+            BUILD_LOGS[name] = log_path(name).read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = library_path(name).with_suffix(f'.{os.getpid()}.tmp')
@@ -80,6 +91,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f'nvcc failed for {n}.cu (exit {proc.returncode}):\n{log}')
             continue
+        kept = tmp.with_suffix('.log')
+        kept.write_text(log)
+        os.replace(kept, log_path(n))      # the log first: a library implies its log
         os.replace(tmp, library_path(n))  # atomic: concurrent builders agree
         took[n] = time.perf_counter() - t0
     if failed:

@@ -14,15 +14,16 @@ Counterpart of hudiff_tpu/ops/pallas_attention.py:
   softmax attention without RoPE, forward only; K7 (``_attn_kernel``).
 
 The CUDA kernels are ``csrc/rope_attention.cu`` (K1, K5 and K7: one
-forward, three layouts; bf16 K1 at L <= 384 on Hopper's TMA + wgmma, the
-rest on mma.sync or, in f32, FMA) and ``csrc/rope_attention_bwd.cu`` (K3 and
-K6: one three-launch backward, two layouts; bf16 at L <= 384 on TMA +
-wgmma, the rest on mma.sync or, in f32, FMA); their headers say what bounds
-them on an H100 and how their designs answer that.
-``rope_attention_qkv_plan`` (K1) and ``rope_attention_bwd_plan`` (K3, K6)
-compute each launch here from the shape alone; the C entries refuse any
-plan but their own, and ``plan=`` on the wrappers runs another design on
-the same inputs (chip_smoke.py's comparisons).
+forward, four layouts; bf16 at L <= 384 with 64 or more (b, h) pairs on
+Hopper's TMA + wgmma, the rest on mma.sync or, in f32, FMA) and
+``csrc/rope_attention_bwd.cu`` (K3 and K6: one three-launch backward, two
+layouts; bf16 at L <= 384 on TMA + wgmma, the rest on mma.sync or, in f32,
+FMA); their headers say what bounds them on an H100 and how their designs
+answer that. ``rope_attention_qkv_plan`` (K1, K5 and K7, by ``layout``) and
+``rope_attention_bwd_plan`` (K3, K6) compute each launch here from the
+shape alone; the C entries refuse any plan but their own, and ``plan=`` on
+the wrappers runs another design on the same inputs (chip_smoke.py's
+comparisons).
 
 The backward works from the forward's residuals, which K1 and K5 write
 when asked (``residuals=True``): the output before rounding, ``out`` f32
@@ -74,6 +75,8 @@ _SIGNATURES = {
     'hd_rope_attention_qkv_tma': [_P] * 6 + [_I] * 3 + [_F, _P, _P],
     'hd_rope_attention': [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     'hd_attention': [_P] * 4 + [_I] * 10 + [_F, _I, _P],
+    'hd_rope_attention_tma': [_P] * 8 + [_I] * 3 + [_F, _P, _P],
+    'hd_attention_tma': [_P] * 4 + [_I] * 4 + [_F, _P, _P],
 }
 _BWD_SIGNATURES = {
     'hd_rope_attention_qkv_bwd': [_P] * 9 + [_I] * 4 + [_F, _I, _P, _P],
@@ -83,42 +86,64 @@ _BWD_SIGNATURES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# K1's launch on the H100 (csrc/rope_attention.cu): the Hopper path's
-# block is two consumer warpgroups and a producer warp; a 64-row tile of 64
-# bf16 columns is 8 KB with 128-byte rows (TMA's 128-byte swizzle); K and V
-# stay in shared memory up to MAX_KV_TILES tiles (L = 384).
+# K1's, K5's and K7's launch on the H100 (csrc/rope_attention.cu): the Hopper
+# path's block is two warpgroups (thread 0 issues every copy); a 64-row tile
+# of 64 bf16 columns is 8 KB with 128-byte rows (TMA's 128-byte swizzle); K
+# and V stay in shared memory up to MAX_KV_TILES tiles (L = 384).
 MAX_SMEM = 232448        # dynamic shared memory an H100 block may use
 H100_SMS = 132
 TILE_BYTES = 64 * 128
-K1_TMA_THREADS = (4 * 2 + 1) * 32
+K1_TMA_THREADS = 4 * 2 * 32
 K1_MAX_KV_TILES = 6
 K1_TMA_MIN_HEADS = 64    # (b, h) pairs below which the mma.sync design's 5x blocks win
 K1_TMA_EXTRA = 128 + 1024   # the mbarriers, and the base rounded up to 1024 bytes
 K1_PATHS = ('wgmma', 'mma_sync', 'fma')
+# The forward's layouts: K1's merged head-major qkv, K5's separate q, k, v
+# [B, L, H*64], K7's [B, L, H, 64] (``attention``) and [B, H, L, 64]
+# (``fused_attention``); K1 and K5 rotate q and k, K7 does not.
+FWD_LAYOUTS = {'qkv': ('rope_attention_qkv', True), 'sep': ('rope_attention', True),
+               'blhd': ('attention', False), 'bhld': ('fused_attention', False)}
 _MMA_SYNC_SMEM = {torch.float32: 104448, torch.bfloat16: 5 * 9216}   # SmemF32, SmemBf16
+
+
+def _bf16_map(dims) -> dict:
+    """A 3-D bf16 tensor map over [dims[2]][dims[1]][dims[0]] with 64 x 64
+    boxes and 128-byte swizzle."""
+    return {'dims': tuple(dims), 'strides': (dims[0] * 2, dims[1] * dims[0] * 2),
+            'box': (HEAD_DIM, 64, 1), 'elem_bytes': 2, 'swizzle': 128}
 
 
 @functools.lru_cache(maxsize=None)
 def rope_attention_qkv_plan(B: int, L: int, heads: int, dtype, path: str = None,
-                            split: int = None) -> dict:
-    """K1's launch for qkv [B, L, heads*3*64] of ``dtype`` on an H100, from
-    the shape alone: ``path`` 'wgmma' (bf16, L <= 384 and B * heads >= 64:
-    TMA + wgmma, K and V held in shared memory), else 'mma_sync' (bf16, the
-    earlier design, which reads faster with fewer (b, h) pairs: it splits a
-    head into a block per 64 queries) or 'fma' (f32); ``grid``, ``threads``, ``smem_bytes``, and for 'wgmma' the K/V
-    tiles, the qkv tensor map (dims and box innermost first, byte strides,
-    128-byte swizzle) and ``array``, the 14 values the C entry takes (also
-    as a ctypes array, ``c_array``; plans are cached by shape). A
-    head's query tiles are split over ``split`` blocks (each loads and
-    rotates K and V itself): 2 where a head has 4 or more query tiles or
-    there are at most two (b, h) blocks an SM, else 1 (the split that read
-    fastest on an H100, PERF.md). ``path`` and ``split`` name
-    another launch for comparison, where it applies; what no kernel takes
-    raises."""
+                            split: int = None, layout: str = 'qkv') -> dict:
+    """The attention forward's launch on an H100, from the shape alone, for
+    ``layout`` (``FWD_LAYOUTS``): 'qkv' (K1, qkv [B, L, heads*3*64]), 'sep'
+    (K5, q, k, v [B, L, heads*64]), 'blhd' (K7 through ``attention``) or
+    'bhld' (K7 through ``fused_attention``) of ``dtype``; the plan's
+    ``rope`` (K1 and K5 rotate q and k, K7 does not) follows the layout.
+    ``path`` 'wgmma' (bf16, L <= 384 and B * heads >= 64: TMA + wgmma, K
+    and V held in shared memory), else 'mma_sync' (bf16, the earlier
+    design, which reads faster with fewer (b, h) pairs: it splits a head
+    into a block per 64 queries) or 'fma' (f32); ``grid``,
+    ``threads``, ``smem_bytes``, and for 'wgmma' the K/V tiles, the tensor
+    map q, k and v are each read through (dims and box innermost first,
+    byte strides, 128-byte swizzle: over qkv [B][L][heads*192], over q, k,
+    v [B][L][heads*64], or for 'bhld' over [B*heads][L][64]) and ``array``,
+    the 14 values the C entry takes (also as a ctypes array, ``c_array``;
+    plans are cached by shape). A head's query tiles are split over
+    ``split`` blocks (each loads and rotates K and V itself): 2 where a head
+    has 4 or more query tiles or there are at most two (b, h) blocks an SM,
+    else 1 (the split that read fastest on an H100, PERF.md). ``path`` and
+    ``split`` name another launch for comparison, where it applies; what no
+    kernel takes raises."""
+    if layout not in FWD_LAYOUTS:
+        raise ValueError(f'rope_attention_qkv_plan: layout {layout!r} is not one of '
+                         f'{tuple(FWD_LAYOUTS)}')
+    what, rotates = FWD_LAYOUTS[layout]
     if dtype not in _DTYPES:
-        raise TypeError(f'rope_attention_qkv: dtype {dtype} not supported')
+        raise TypeError(f'{what}: dtype {dtype} not supported')
     if not (0 < B <= 65535 and 0 < heads <= 65535 and L > 0):
-        raise ValueError(f'rope_attention_qkv: unsupported shape B={B} L={L} heads={heads}')
+        raise ValueError(f'{what}: unsupported shape B={B} L={L} heads={heads}')
     tiles = -(-L // 64)
     bf16 = dtype is torch.bfloat16
     takes = bf16 and tiles <= K1_MAX_KV_TILES
@@ -126,20 +151,21 @@ def rope_attention_qkv_plan(B: int, L: int, heads: int, dtype, path: str = None,
     path = path or ('wgmma' if fits else 'mma_sync' if bf16 else 'fma')
     if path not in K1_PATHS or (path == 'wgmma' and not takes) \
             or (path == 'mma_sync' and not bf16) or (path == 'fma' and bf16):
-        raise ValueError(f'rope_attention_qkv: no {path!r} path for {dtype} at L={L}')
+        raise ValueError(f'{what}: no {path!r} path for {dtype} at L={L}')
     if path != 'wgmma':
-        return {'path': path, 'grid': (tiles, heads, B), 'threads': 128, 'cluster': (1, 1, 1),
-                'smem_bytes': _MMA_SYNC_SMEM[dtype]}
+        return {'path': path, 'layout': layout, 'rope': rotates, 'grid': (tiles, heads, B),
+                'threads': 128, 'cluster': (1, 1, 1), 'smem_bytes': _MMA_SYNC_SMEM[dtype]}
     if split is None:   # two blocks a head where a head has 4+ query tiles or blocks are few
         split = 2 if tiles >= 2 and (tiles >= 4 or B * heads <= 2 * H100_SMS) else 1
     if not 1 <= split <= tiles:
-        raise ValueError(f'rope_attention_qkv: split {split} of {tiles} query tiles')
-    width = 3 * heads * HEAD_DIM
-    plan = {'path': 'wgmma', 'grid': (split, heads, B), 'threads': K1_TMA_THREADS,
-            'cluster': (1, 1, 1), 'kv_tiles': tiles,
+        raise ValueError(f'{what}: split {split} of {tiles} query tiles')
+    A = heads * HEAD_DIM
+    dims = {'qkv': (3 * A, L, B), 'sep': (A, L, B), 'blhd': (A, L, B),
+            'bhld': (HEAD_DIM, L, B * heads)}[layout]
+    plan = {'path': 'wgmma', 'layout': layout, 'rope': rotates, 'grid': (split, heads, B),
+            'threads': K1_TMA_THREADS, 'cluster': (1, 1, 1), 'kv_tiles': tiles,
             'smem_bytes': (2 * tiles + -(-tiles // split)) * TILE_BYTES + K1_TMA_EXTRA,
-            'tensor_map': {'dims': (width, L, B), 'strides': (width * 2, L * width * 2),
-                           'box': (HEAD_DIM, 64, 1), 'elem_bytes': 2, 'swizzle': 128}}
+            'tensor_map': _bf16_map(dims)}
     tm = plan['tensor_map']
     plan['array'] = (*plan['grid'], plan['threads'], plan['smem_bytes'], tiles, *tm['dims'],
                      *tm['strides'], *tm['box'])
@@ -166,13 +192,6 @@ def _bwd_tma_smem(tiles: int, split: int, L: int) -> int:
     resident = -(-tiles // split)
     return ((2 * tiles + 2 * resident) * TILE_BYTES + 2 * tiles * 64 * 4
             + 2 * L * HEAD_DIM // 2 * 4 + K1_TMA_EXTRA)
-
-
-def _bf16_map(dims) -> dict:
-    """A 3-D bf16 tensor map over [dims[2]][dims[1]][dims[0]] with 64 x 64
-    boxes and 128-byte swizzle."""
-    return {'dims': tuple(dims), 'strides': (dims[0] * 2, dims[1] * dims[0] * 2),
-            'box': (HEAD_DIM, 64, 1), 'elem_bytes': 2, 'swizzle': 128}
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,9 +471,7 @@ def rope_attention_qkv_forward(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.
     B, L, _ = qkv.shape
     plan = plan or rope_attention_qkv_plan(B, L, heads, qkv.dtype)
     cos, sin = _tables(cos, sin, qkv, L, 'rope_attention_qkv')
-    qkv = qkv.contiguous()
-    if plan['path'] == 'wgmma' and qkv.data_ptr() % 16:
-        qkv = qkv.clone()   # TMA reads from a 16-byte aligned address
+    qkv, = _aligned(plan, qkv.contiguous())
     out = torch.empty(B, L, heads * HEAD_DIM, dtype=qkv.dtype, device=qkv.device)
     lse, out_f32 = _residual_buffers(out) if residuals else (None, None)
     lib = _build.load('rope_attention', _SIGNATURES)
@@ -581,26 +598,34 @@ def rope_attention_qkv_tp(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tenso
 
 def rope_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            cos: torch.Tensor, sin: torch.Tensor, scale: float, heads: int,
-                           residuals: bool = False):
+                           residuals: bool = False, plan: dict = None):
     """K5 on CUDA tensors, or the plain version on CPU ones: [B, L,
-    heads*64]; with ``residuals`` (out, out_f32, lse), as K1's."""
+    heads*64]; with ``residuals`` (out, out_f32, lse), as K1's. ``plan``
+    (``rope_attention_qkv_plan(..., layout='sep')``) defaults to the
+    shape's own; a caller may pass another path's to compare the two."""
     global rope_launches
+    what = 'rope_attention'
     if q.device.type == 'cpu':
         return rope_attention_reference(q, k, v, cos, sin, scale, heads, residuals)
-    _check_same((q, k, v), 'rope_attention')
-    _check_cuda(q, heads * HEAD_DIM, 'rope_attention')
+    _check_same((q, k, v), what)
+    _check_cuda(q, heads * HEAD_DIM, what)
     B, L, _ = q.shape
-    cos, sin = _tables(cos, sin, q, L, 'rope_attention')
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    plan = plan or rope_attention_qkv_plan(B, L, heads, q.dtype, layout='sep')
+    cos, sin = _tables(cos, sin, q, L, what)
+    q, k, v = _aligned(plan, q.contiguous(), k.contiguous(), v.contiguous())
     out = torch.empty_like(q)
     lse, out_f32 = _residual_buffers(out) if residuals else (None, None)
     lib = _build.load('rope_attention', _SIGNATURES)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            out.data_ptr(), *_pointers(residuals, lse, out_f32, out))
     with torch.cuda.device(q.device):
-        code = lib.hd_rope_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            out.data_ptr(), *_pointers(residuals, lse, out_f32, out), B, L, heads, HEAD_DIM,
-            float(scale), _DTYPES[q.dtype], _stream(q))
-    _build.check(code, 'rope_attention')
+        if plan['path'] == 'wgmma':
+            code = lib.hd_rope_attention_tma(*ptrs, B, L, heads, float(scale), plan['c_array'],
+                                             _stream(q))
+        else:
+            code = lib.hd_rope_attention(*ptrs, B, L, heads, HEAD_DIM, float(scale),
+                                         _DTYPES[q.dtype], _stream(q))
+    _build.check(code, what)
     rope_launches += 1
     return (out, out_f32, lse) if residuals else out
 
@@ -687,48 +712,64 @@ def rope_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch
     return rope_attention_forward(q, k, v, cos, sin, scale, heads)
 
 
-def _attention_kernel(q, k, v, scale, heads, L, strides, what):
-    """K7 on q, k, v of one shape, made contiguous; ``strides`` (batch,
-    row, head) in elements, the same for the output."""
+def _attention_kernel(q, k, v, scale, layout, plan):
+    """K7 on q, k, v of one shape in ``layout`` ('blhd' [B, L, H, 64] or
+    'bhld' [B, H, L, 64]), made contiguous; the output in the same layout.
+    ``plan`` (``rope_attention_qkv_plan(..., layout=layout)``) defaults to
+    the shape's own."""
     global attention_launches
+    what = FWD_LAYOUTS[layout][0]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(f'{what}: forward only (no VJP, as in the JAX package); '
                            'use rope_attention in differentiated code')
     _check_same((q, k, v), what)
     _check_cuda(q, HEAD_DIM, what)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if layout == 'blhd':
+        B, L, H, D = q.shape
+        strides = (L * H * D, H * D, D)
+    else:
+        B, H, L, D = q.shape
+        strides = (H * L * D, D, L * D)
+    plan = plan or rope_attention_qkv_plan(B, L, H, q.dtype, layout=layout)
+    q, k, v = _aligned(plan, q.contiguous(), k.contiguous(), v.contiguous())
     out = torch.empty_like(q)
     lib = _build.load('rope_attention', _SIGNATURES)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        code = lib.hd_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                q.shape[0], L, heads, HEAD_DIM, *strides, *strides,
-                                float(scale), _DTYPES[q.dtype], _stream(q))
+        if plan['path'] == 'wgmma':
+            code = lib.hd_attention_tma(*ptrs, B, L, H, int(layout == 'bhld'), float(scale),
+                                        plan['c_array'], _stream(q))
+        else:
+            code = lib.hd_attention(*ptrs, B, L, H, HEAD_DIM, *strides, *strides, float(scale),
+                                    _DTYPES[q.dtype], _stream(q))
     _build.check(code, what)
     attention_launches += 1
     return out
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    plan: dict = None) -> torch.Tensor:
     """softmax(q k^T * scale) v over q, k, v [B, H, L, 64]; returns
     [B, H, L, 64] in v's type. Forward only: K7 on CUDA tensors, the plain
-    version on CPU ones."""
+    version on CPU ones. ``plan`` (``rope_attention_qkv_plan(...,
+    layout='bhld')``) defaults to the shape's own; a caller may pass another
+    path's to compare the two."""
     if q.device.type == 'cpu':
         t = lambda x: x.transpose(1, 2)  # noqa: E731
         return t(attention_reference(t(q), t(k), t(v), scale))
-    _, H, L, D = q.shape
-    return _attention_kernel(q, k, v, scale, H, L, (H * L * D, D, L * D), 'fused_attention')
+    return _attention_kernel(q, k, v, scale, 'bhld', plan)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              plan: dict = None) -> torch.Tensor:
     """Attention over [B, L, H, 64] inputs (RoPE applied by the caller) ->
     [B, L, H, 64]. Forward only: K7 on CUDA tensors, reading this layout
     through its strides (the JAX package transposes to [B, H, L, D]; the
-    result is the same), the plain version on CPU ones."""
+    result is the same), the plain version on CPU ones. ``plan`` as for
+    ``fused_attention``, with layout 'blhd'."""
     if q.device.type == 'cpu':
         return attention_reference(q, k, v, scale)
-    _, L, H, D = q.shape
-    return _attention_kernel(q, k, v, scale, H, L, (L * H * D, H * D, D), 'attention')
+    return _attention_kernel(q, k, v, scale, 'blhd', plan)
 
 
 def attention_matmul_flops(B: int, L: int, heads: int, head_dim: int,

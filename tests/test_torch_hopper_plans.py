@@ -1,4 +1,4 @@
-"""The launch plans of K1, K2, K3 and K6 on an H100, and (on a card) the
+"""The launch plans of K1, K2, K3 and K5-K7 on an H100, and (on a card) the
 Hopper kernels against their plain versions.
 
 ``rope_attention_qkv_plan``, ``bytenet_block_plan`` and
@@ -72,8 +72,8 @@ def test_k1_plan(B, L, heads, dtype):
     tm = plan['tensor_map']
     assert _map_ok(tm) and tm['swizzle'] == 128
     assert tm['dims'] == (heads * 3 * 64, L, B) and tm['box'] == (64, 64, 1)
-    assert plan['threads'] == FA.K1_TMA_THREADS == 288
-    assert plan['array'] == (*plan['grid'], 288, plan['smem_bytes'], tiles, *tm['dims'],
+    assert plan['threads'] == FA.K1_TMA_THREADS == 256
+    assert plan['array'] == (*plan['grid'], 256, plan['smem_bytes'], tiles, *tm['dims'],
                              *tm['strides'], *tm['box'])
     assert list(plan['c_array']) == list(plan['array'])
 
@@ -116,6 +116,86 @@ def test_k1_other_paths():
         kw = {'B': 16, 'L': 291, 'heads': 8, 'dtype': torch.bfloat16, **bad}
         with pytest.raises((TypeError, ValueError)):
             FA.rope_attention_qkv_plan(**kw)
+
+
+# -- K5 and K7: K1's Hopper body in other layouts ---------------------------------
+
+FWD_LAYOUTS = ('qkv', 'sep', 'blhd', 'bhld')
+
+
+@pytest.mark.parametrize('layout', FWD_LAYOUTS)
+@pytest.mark.parametrize('heads', HEADS)
+@pytest.mark.parametrize('L', LENGTHS)
+@pytest.mark.parametrize('B', BATCHES)
+def test_fwd_plan_layouts(B, L, heads, layout):
+    """Every layout takes K1's gate, split and shared memory; only the tensor
+    map differs: over qkv [B][L][H 192] (K1), over q, k, v [B][L][H 64] (K5
+    and K7's [B, L, H, 64]) or over [B H][L][64] (K7's [B, H, L, 64])."""
+    bf = torch.bfloat16
+    plan = FA.rope_attention_qkv_plan(B, L, heads, bf, layout=layout)
+    k1 = FA.rope_attention_qkv_plan(B, L, heads, bf)
+    assert plan['layout'] == layout and plan['rope'] == (layout in ('qkv', 'sep'))
+    assert plan['path'] == k1['path'] == ('wgmma' if B * heads >= 64 else 'mma_sync')
+    f32 = FA.rope_attention_qkv_plan(B, L, heads, torch.float32, layout=layout)
+    assert f32['path'] == 'fma' and f32['grid'] == (-(-L // 64), heads, B)
+    plan = FA.rope_attention_qkv_plan(B, L, heads, bf, path='wgmma', layout=layout)
+    k1 = FA.rope_attention_qkv_plan(B, L, heads, bf, path='wgmma')
+    for key in ('grid', 'threads', 'cluster', 'kv_tiles', 'smem_bytes'):
+        assert plan[key] == k1[key], key
+    tiles = plan['kv_tiles']
+    assert plan['smem_bytes'] == (2 * tiles + -(-tiles // plan['grid'][0])) * FA.TILE_BYTES \
+        + FA.K1_TMA_EXTRA <= FA.MAX_SMEM
+    A = heads * 64
+    dims = {'qkv': (3 * A, L, B), 'sep': (A, L, B), 'blhd': (A, L, B),
+            'bhld': (64, L, B * heads)}[layout]
+    tm = plan['tensor_map']
+    assert _map_ok(tm) and tm['dims'] == dims and tm['box'] == (64, 64, 1)
+    assert tm['strides'] == (dims[0] * 2, L * dims[0] * 2) and tm['swizzle'] == 128
+    assert plan['array'] == (*plan['grid'], 256, plan['smem_bytes'], tiles, *dims,
+                             *tm['strides'], 64, 64, 1)
+    assert len(plan['array']) == 14 and list(plan['c_array']) == list(plan['array'])
+
+
+def test_k1_plan_is_the_qkv_layouts():
+    """K1's plan is the 'qkv' layout's (with the rotation), 14 values: the
+    grid, 256 threads (two warpgroups, no producer warp), shared memory, K/V
+    tiles and the map over qkv (here at B = 16, L = 291 and B = 64, L =
+    152, 8 heads)."""
+    bf = torch.bfloat16
+    assert FA.rope_attention_qkv_plan(16, 291, 8, bf)['array'] == (
+        2, 8, 16, 256, 107648, 5, 1536, 291, 16, 3072, 893952, 64, 64, 1)
+    assert FA.rope_attention_qkv_plan(64, 152, 8, bf)['array'] == (
+        1, 8, 64, 256, 74880, 3, 1536, 152, 64, 3072, 466944, 64, 64, 1)
+    for B, L, heads in ((16, 291, 8), (64, 152, 8), (1, 291, 8), (128, 291, 4)):
+        a = FA.rope_attention_qkv_plan(B, L, heads, bf)
+        b = FA.rope_attention_qkv_plan(B, L, heads, bf, layout='qkv')
+        assert {k: v for k, v in a.items() if k != 'c_array'} == \
+            {k: v for k, v in b.items() if k != 'c_array'}
+        assert a['layout'] == 'qkv' and a['rope'] is True
+
+
+@pytest.mark.parametrize('layout', FWD_LAYOUTS)
+def test_fwd_plan_refusals(layout):
+    """What no kernel takes raises in every layout: the Hopper design in
+    f32 or past L = 384, mma.sync in f32, an unknown layout; below 64 (b, h)
+    pairs the mma.sync design is taken and the Hopper one is there on
+    request; the plan rotates q and k in the layouts that do."""
+    bf = torch.bfloat16
+    rotates = layout in ('qkv', 'sep')
+    for bad in [dict(dtype=torch.float32, path='wgmma'), dict(L=400, path='wgmma'),
+                dict(dtype=torch.float32, path='mma_sync'), dict(path='fma'),
+                dict(dtype=torch.float16), dict(B=0), dict(split=6)]:
+        kw = {'B': 16, 'L': 291, 'heads': 8, 'dtype': bf, 'layout': layout, **bad}
+        with pytest.raises((TypeError, ValueError)):
+            FA.rope_attention_qkv_plan(**kw)
+    assert FA.rope_attention_qkv_plan(16, 400, 8, bf, layout=layout)['path'] == 'mma_sync'
+    assert FA.rope_attention_qkv_plan(7, 291, 8, bf, layout=layout)['path'] == 'mma_sync'
+    assert FA.rope_attention_qkv_plan(7, 291, 8, bf, layout=layout,
+                                      path='wgmma')['path'] == 'wgmma'
+    assert FA.rope_attention_qkv_plan(16, 291, 8, bf, layout=layout)['rope'] == rotates
+    for other in ('bshd', 'BLHD', None):
+        with pytest.raises(ValueError):
+            FA.rope_attention_qkv_plan(16, 291, 8, bf, layout=other)
 
 
 # -- K2 ------------------------------------------------------------------------
@@ -321,6 +401,14 @@ def test_plans_mirror_the_sources():
     assert num('PLAN_LEN', bwd) == len(FA.rope_attention_bwd_plan(128, 291, 8,
                                                                    torch.bfloat16)['array'])
     assert num('TMA_BARS', bwd) + num('SMEM_SLACK', src['wgmma_tiles.cuh']) == FA.K1_TMA_EXTRA
+    fwd = src['rope_attention.cu']
+    assert num('TMA_BARS', fwd) + num('SMEM_SLACK', src['wgmma_tiles.cuh']) == FA.K1_TMA_EXTRA
+    assert num('TMA_PLAN_LEN', fwd) == len(FA.rope_attention_qkv_plan(16, 291, 8,
+                                                                       torch.bfloat16)['array'])
+    assert 4 * num('TMA_GROUPS', fwd) * 32 == FA.K1_TMA_THREADS
+    for name in ('wgmma_rope_attention_qkv_kernel', 'wgmma_rope_attention_sep_fwd_kernel',
+                 'wgmma_plain_attention_kernel', 'hd_rope_attention_tma', 'hd_attention_tma'):
+        assert name in fwd, name
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -329,8 +417,24 @@ def test_cpu_tensors_take_the_plain_versions():
     qkv = torch.from_numpy(rs.randn(2, 17, 8 * 192).astype(np.float32)).bfloat16()
     from hudiff_tpu_torch.ops.rope import rope_tables
     cos, sin = rope_tables(64, 17)
-    assert torch.equal(FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, 8),
-                       FA.rope_attention_qkv_reference(qkv, cos, sin, 0.125, 8))
+    for path in ('wgmma', 'mma_sync'):
+        plan = FA.rope_attention_qkv_plan(2, 17, 8, torch.bfloat16, path=path)
+        assert torch.equal(FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, 8, plan=plan),
+                           FA.rope_attention_qkv_reference(qkv, cos, sin, 0.125, 8))
+        q, k, v = FA.split_qkv_heads(qkv, 8)
+        plan = FA.rope_attention_qkv_plan(2, 17, 8, torch.bfloat16, path=path, layout='sep')
+        for got, want in zip(
+                FA.rope_attention_forward(q, k, v, cos, sin, 0.125, 8, True, plan=plan),
+                FA.rope_attention_reference(q, k, v, cos, sin, 0.125, 8, True)):
+            assert torch.equal(got, want)
+        q4, k4, v4 = (t.reshape(2, 17, 8, 64) for t in (q, k, v))
+        plan = FA.rope_attention_qkv_plan(2, 17, 8, torch.bfloat16, path=path, layout='blhd')
+        assert torch.equal(FA.attention(q4, k4, v4, 0.125, plan=plan),
+                           FA.attention_reference(q4, k4, v4, 0.125))
+        t = lambda x: x.transpose(1, 2)  # noqa: E731
+        plan = FA.rope_attention_qkv_plan(2, 17, 8, torch.bfloat16, path=path, layout='bhld')
+        assert torch.equal(FA.fused_attention(t(q4), t(k4), t(v4), 0.125, plan=plan),
+                           t(FA.attention_reference(q4, k4, v4, 0.125)))
 
 
 # -- on a card -----------------------------------------------------------------
@@ -338,7 +442,9 @@ def test_cpu_tensors_take_the_plain_versions():
 BF16_RTOL = 2.0 ** -7
 TOL = {'K1': {torch.float32: 1e-5, torch.bfloat16: 5e-3},
        'K2': {torch.float32: 2e-5, torch.bfloat16: 2.5e-2},
-       'K3': {torch.float32: 1e-5, torch.bfloat16: 5e-3}}
+       'K3': {torch.float32: 1e-5, torch.bfloat16: 5e-3},
+       'K5': {torch.float32: 1e-5, torch.bfloat16: 5e-3},
+       'K7': {torch.float32: 1e-5, torch.bfloat16: 5e-3}}
 
 
 @pytest.fixture
@@ -380,6 +486,111 @@ def test_k1_on_the_card(dev, L, heads, dtype):
                 plan = FA.rope_attention_qkv_plan(B, L, heads, dtype, path='wgmma', split=split)
                 assert torch.equal(out, FA.rope_attention_qkv_forward(
                     qkv, cos, sin, 0.125, heads, plan=plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,L', [(16, 17), (16, 152), (16, 291), (8, 384), (64, 291)])
+def test_k5_k7_on_the_card(dev, B, L):
+    """K5 and K7 in bf16 on both designs against their plain versions (with
+    K5's residuals, as K1's are held); on each design K5 gives K1's bits on
+    the merged input, residuals included, K7's two layouts give the same
+    bits, and a call without the residuals or a repeat the same bits."""
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    bf, heads = torch.bfloat16, 8
+    cos, sin = rope_tables(64, L, device=dev)
+    g = torch.Generator().manual_seed(5 * L + B)
+    q, k, v = (torch.randn(B, L, heads * 64, generator=g).to(dev, bf) for _ in range(3))
+    qkv = FA.merge_qkv_heads(q, k, v, heads)
+    ref, ref_f32, ref_lse = FA.rope_attention_reference(q, k, v, cos, sin, 0.125, heads, True)
+    q4, k4, v4 = (t.reshape(B, L, heads, 64) for t in (q, k, v))
+    want = FA.attention_reference(q4, k4, v4, 0.125)
+    bhld_in = [t.transpose(1, 2).contiguous() for t in (q4, k4, v4)]
+    assert FA.rope_attention_qkv_plan(B, L, heads, bf, layout='sep')['path'] == 'wgmma'
+    for path in ('wgmma', 'mma_sync'):
+        plan = lambda layout: FA.rope_attention_qkv_plan(  # noqa: E731
+            B, L, heads, bf, path=path, layout=layout)
+        out, out_f32, lse = FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads, True,
+                                                      plan=plan('sep'))
+        assert _held('K5', out, ref), path
+        assert ((out_f32 - ref_f32).abs().max() / ref_f32.abs().max()).item() <= 1e-4, path
+        assert (lse - ref_lse).abs().max().item() <= 1e-3, path
+        assert torch.equal(out, FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads,
+                                                          plan=plan('sep')))
+        k1 = FA.rope_attention_qkv_forward(qkv, cos, sin, 0.125, heads, True, plan=plan('qkv'))
+        assert all(torch.equal(a, b) for a, b in zip((out, out_f32, lse), k1)), path
+        blhd = FA.attention(q4, k4, v4, 0.125, plan=plan('blhd'))
+        bhld = FA.fused_attention(*bhld_in, 0.125, plan=plan('bhld'))
+        assert _held('K7', blhd, want), path
+        assert torch.equal(bhld.transpose(1, 2), blhd), path
+        assert torch.equal(blhd, FA.attention(q4, k4, v4, 0.125, plan=plan('blhd')))
+    if B * heads >= 64:   # the defaults take the Hopper design: every split the same bits
+        out = FA.rope_attention(q, k, v, cos, sin, 0.125, heads)
+        blhd = FA.attention(q4, k4, v4, 0.125)
+        for split in range(1, -(-L // 64) + 1):
+            plan = lambda layout: FA.rope_attention_qkv_plan(  # noqa: E731
+                B, L, heads, bf, split=split, layout=layout)
+            assert torch.equal(out, FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads,
+                                                              plan=plan('sep')))
+            assert torch.equal(blhd, FA.attention(q4, k4, v4, 0.125, plan=plan('blhd')))
+            assert torch.equal(blhd, FA.fused_attention(*bhld_in, 0.125,
+                                                        plan=plan('bhld')).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,L', [(16, 291), (64, 152), (8, 37)])
+def test_hopper_k5_residuals_feed_k6(dev, B, L):
+    """The Hopper K5 writing the residuals under autograd, K6 from them:
+    the leaves' gradients are K6's given those residuals, within the limits
+    of both plain backwards (the TPU kernel's arithmetic, and the kernels'
+    own from the residuals)."""
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    bf, heads = torch.bfloat16, 8
+    assert FA.rope_attention_qkv_plan(B, L, heads, bf, layout='sep')['path'] == 'wgmma'
+    cos, sin = rope_tables(64, L, device=dev)
+    g = torch.Generator().manual_seed(7 * L + B)
+    q, k, v, do = (torch.randn(B, L, heads * 64, generator=g).to(dev, bf) for _ in range(4))
+    _, o32, lse = FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads, True)
+    grads = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, heads, out=o32, lse=lse)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.rope_attention(*leaves, cos, sin, 0.125, heads).backward(do)
+    ref = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, 0.125, heads)
+    twin = FA.rope_attention_backward_reference(q, k, v, cos, sin, do, 0.125, heads, o32, lse)
+    for name, got, leaf, r, t in zip('qkv', grads, leaves, ref, twin):
+        assert torch.equal(leaf.grad, got), name
+        assert _held('K3', got, r) and _held('K3', got, t), name
+
+
+@pytest.mark.cuda
+def test_hopper_entries_from_a_fresh_thread(dev):
+    """The Hopper K5 and K6 launch where their tensor maps are the first CUDA
+    work of a thread (autograd's backward thread, the first time its first
+    kernel is one of them), with the bits of the same calls on the main
+    thread."""
+    import threading
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    bf, heads, B, L = torch.bfloat16, 8, 16, 152
+    cos, sin = rope_tables(64, L, device=dev)
+    g = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(B, L, heads * 64, generator=g).to(dev, bf) for _ in range(4))
+    _, o32, lse = FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads, True)
+    want = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, heads, out=o32, lse=lse)
+    got = {}
+
+    def work():
+        try:
+            got['bwd'] = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, heads,
+                                                    out=o32, lse=lse)
+            got['fwd'] = FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads, True)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            got['error'] = str(e)
+
+    thread = threading.Thread(target=work)
+    thread.start()
+    thread.join()
+    assert 'error' not in got, got.get('error')
+    assert all(torch.equal(a, b) for a, b in zip(got['bwd'], want))
+    assert all(torch.equal(a, b) for a, b in zip(got['fwd'][1:], (o32, lse)))
 
 
 @pytest.mark.cuda
@@ -469,3 +680,136 @@ def test_bwd_sweep_shapes_and_refusal_without_a_card(monkeypatch):
     assert set(S.MAIN_SHAPES) <= set(S.PATH_SHAPES)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert S.main(['--shapes', 'main']) == 2
+
+
+@pytest.mark.parametrize('layout', ('qkv', 'sep', 'blhd', 'bhld'))
+def test_fwd_sweep_calls_on_the_cpu(layout):
+    """The forward sweep's call for each layout gives the plain version's
+    output on CPU tensors, and its SDPA inputs compute the same function."""
+    import torch.nn.functional as F
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    from hudiff_tpu_torch.tools import attention_fwd_sweep as S
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 17, 8 * 64, generator=g).bfloat16() for _ in range(3))
+    cos, sin = rope_tables(64, 17)
+    call, ref, sdpa = S._calls(layout, q, k, v, cos, sin, 0.125, 8)
+    for path in ('wgmma', 'mma_sync'):
+        assert torch.equal(call(FA.rope_attention_qkv_plan(2, 17, 8, torch.bfloat16, path=path,
+                                                           layout=layout), False), ref)
+    assert all(t.shape == (2, 8, 17, 64) for t in sdpa)
+    got = F.scaled_dot_product_attention(*(t.float() for t in sdpa), scale=0.125)
+    want = ref.float().reshape(2, 17, 8, 64).transpose(1, 2)
+    assert (got - want).abs().max().item() <= 2e-2
+
+
+def test_fwd_sweep_shapes_and_refusal_without_a_card(monkeypatch):
+    """The forward's timing tool covers the batches, lengths and heads the
+    paths and entry points give K1, K5 and K7, in every layout the plan
+    has, and, without a card, refuses with exit code 2."""
+    from hudiff_tpu_torch.tools import attention_fwd_sweep as S
+    assert set(S.PATH_SHAPES) == {(B, L, H) for B in BATCHES for L in (291, 152)
+                                  for H in HEADS}
+    assert set(S.MAIN_SHAPES) <= set(S.PATH_SHAPES)
+    assert S.LAYOUTS == tuple(FA.FWD_LAYOUTS)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert S.main(['--shapes', 'main']) == 2
+
+
+@pytest.mark.parametrize('layout', ('qkv', 'sep', 'blhd', 'bhld'))
+def test_fwd_sweep_time_designs_on_the_cpu(monkeypatch, layout):
+    """The timing that the tool and chip_smoke.py's K1, K5 and K7 records
+    share: each design's output is held before it is timed, each design is
+    timed (with the residuals where asked), ``device_ms`` is the plan's
+    design's and SDPA is timed on the inputs given; an output that is not
+    held stops it before its design is timed (graph_ms stubbed: no card)."""
+    from hudiff_tpu_torch.ops.rope import rope_tables
+    from hudiff_tpu_torch.tools import attention_fwd_sweep as S
+    timed = []
+
+    def graph_ms(fn):
+        fn()
+        timed.append(fn)
+        return float(len(timed))
+
+    monkeypatch.setattr(S, 'graph_ms', graph_ms)
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(2, 17, 8 * 64, generator=g).bfloat16() for _ in range(3))
+    cos, sin = rope_tables(64, 17)
+    call, ref, sdpa = S._calls(layout, q, k, v, cos, sin, 0.125, 8)
+    seen = []
+
+    def held(path, out):
+        seen.append(path)
+        assert torch.equal(out, ref)
+
+    res = layout in ('qkv', 'sep')
+    rec = S.time_designs(call, held, (2, 17), 8, layout, lambda: sdpa, 0.125, residuals=res)
+    assert seen == ['wgmma', 'mma_sync'] and rec['path'] == 'mma_sync'   # 16 (b, h) pairs
+    keys = {f'device_ms_{p}{r}' for p in ('wgmma', 'mma_sync') for r in ('', '_res')[:1 + res]}
+    assert keys | {'path', 'device_ms', 'library_device_ms'} == set(rec)
+    assert rec['device_ms'] == rec['device_ms_mma_sync'] and len(timed) == len(keys) + 1
+
+    def off(path, out):
+        raise RuntimeError(f'{path} off')
+
+    timed.clear()
+    with pytest.raises(RuntimeError, match='wgmma off'):
+        S.time_designs(call, off, (2, 17), 8, layout, lambda: sdpa, 0.125)
+    assert not timed
+
+
+def test_build_keeps_nvcc_output_beside_the_library(monkeypatch, tmp_path):
+    """nvcc's output is kept beside the library it built, and a later
+    process that finds the library built reads ptxas's report from there
+    (a stand-in compiler: no nvcc here)."""
+    import sys
+    nvcc = tmp_path / 'nvcc'
+    calls = tmp_path / 'calls'
+    nvcc.write_text(f'#!{sys.executable}\n'
+                    'import sys\n'
+                    f'open({str(calls)!r}, "a").write("x")\n'
+                    'open(sys.argv[sys.argv.index("-o") + 1], "w").write("lib")\n'
+                    'print("ptxas info    : Used 128 registers")\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(_build, 'nvcc_path', lambda: str(nvcc))
+    monkeypatch.setattr(_build, 'BUILD_LOGS', {})
+    _build.build_all(['rope_attention'])
+    assert _build.library_path('rope_attention').read_text() == 'lib'
+    assert 'Used 128 registers' in _build.log_path('rope_attention').read_text()
+    assert _build.log_path('rope_attention').parent == _build.library_path('rope_attention').parent
+    assert sorted(p.name for p in (tmp_path / 'build').iterdir()) == sorted(
+        [_build.library_path('rope_attention').name, _build.log_path('rope_attention').name])
+    monkeypatch.setattr(_build, 'BUILD_LOGS', {})   # a later process: built, not rebuilt
+    assert _build.build_all(['rope_attention']) == {'rope_attention': 0.0}
+    assert 'Used 128 registers' in _build.BUILD_LOGS['rope_attention']
+    assert calls.read_text() == 'x'
+
+
+def test_hopper_gate_reads_every_librarys_log(monkeypatch):
+    """chip_smoke.py's hopper_kernels gate holds HOPPER_INSTANTIATIONS
+    instantiations with HGMMA and UTMALDG and no HMMA, and fails on a
+    serialized wgmma in any kept log or on a library without one, whether
+    or not this process built it (cuobjdump stubbed: no card)."""
+    import types
+    import chip_smoke
+    libs = ('rope_attention', 'bytenet_block', 'rope_attention_bwd')
+    counts = {f'wgmma_kernel_{i}': {'HGMMA': 4, 'UTMALDG': 2, 'HMMA': 0}
+              for i in range(chip_smoke.HOPPER_INSTANTIATIONS)}
+    monkeypatch.setattr(chip_smoke, 'sass_counts',
+                        lambda path, ops, symbols: counts if 'rope_attention-' in path.name
+                        else {})
+    clean = 'ptxas info    : Used 128 registers\n'
+    fake = lambda logs: types.SimpleNamespace(  # noqa: E731
+        BUILD_LOGS=logs, library_path=lambda lib: _build.BUILD_DIR / f'{lib}-0.so')
+    rec = chip_smoke.hopper_build_record(fake({lib: clean for lib in libs}))
+    assert rec['wgmma_serialized'] == [] and rec['no_build_log'] == []
+    warn = ("ptxas warning : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
+            "are serialized due to ... in the function 'x'\n")
+    for logs in ({lib: clean for lib in libs[:2]},
+                 {**{lib: clean for lib in libs}, 'bytenet_block': clean + warn}):
+        with pytest.raises(SystemExit):
+            chip_smoke.hopper_build_record(fake(logs))
+    counts['wgmma_kernel_0']['HMMA'] = 1
+    with pytest.raises(SystemExit):
+        chip_smoke.hopper_build_record(fake({lib: clean for lib in libs}))

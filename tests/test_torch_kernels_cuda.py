@@ -570,7 +570,7 @@ def _qkvd(B, L, dtype, dev, seed, n=4):
 
 @pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
                                              (torch.bfloat16, BF16_RTOL, 5e-3)])
-@pytest.mark.parametrize('B,L', [(3, 17), (2, 291)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 291), (8, 291)])
 def test_k5_matches_plain_and_k1(dev, dtype, rtol, atol, B, L):
     q, k, v = _qkvd(B, L, dtype, dev, B * L, 3)
     cos, sin = rope_tables(64, L, device=dev)
@@ -622,7 +622,7 @@ OUT_F32_RTOL = 1e-4   # chip_smoke.py's limit for out_f32, of max |ref|
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('B,L', [(3, 17), (2, 100), (2, 291)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 100), (2, 291), (8, 291), (16, 152)])
 def test_k1_k5_residuals_and_the_same_bits_without_them(dev, dtype, B, L):
     """K1 and K5 give the same output bits with and without the residuals,
     K1's residuals are K5's bits, and they agree with the plain forward's.
@@ -712,7 +712,7 @@ def test_k6_through_autograd(dev, dtype):
 
 @pytest.mark.parametrize('dtype,rtol,atol', [(torch.float32, 0.0, 1e-5),
                                              (torch.bfloat16, BF16_RTOL, 5e-3)])
-@pytest.mark.parametrize('B,L', [(3, 17), (2, 291)])
+@pytest.mark.parametrize('B,L', [(3, 17), (2, 291), (8, 291)])
 def test_k7_matches_plain(dev, dtype, rtol, atol, B, L):
     q, k, v = (t.reshape(B, L, 8, 64) for t in _qkvd(B, L, dtype, dev, B * L + 2, 3))
     before = FA.attention_launches
