@@ -174,6 +174,17 @@ version on the card. Then:
   ``hopper_kernels`` expects HOPPER_INSTANTIATIONS and no serialized wgmma
   in nvcc's output, this process's or the log kept beside a library built
   earlier (``_build.log_path``; a library without its log fails).
+- K4 on Hopper: bf16 K4 with D and H multiples of 128 (every training
+  tower) takes TMA + wgmma (``ops/fused_bytenet.py::
+  bytenet_block_backward_plan``): its data GEMMs on 128 x 128 tiles in
+  clusters over a row tile's columns, its weight gradients on wgmma's
+  transpose-A bit. Every K4 record (``K4``, ``K4_nano``) carries ``path``
+  and, in bf16, the graph-replayed device ms of each design that takes
+  the shape (``device_ms_wgmma``, ``device_ms_mma_sync``; ``device_ms``
+  the plan's), each design's output held to K4's limits and repeating to
+  the same bits (``k4_paths``, sharing ``tools/bytenet_bwd_sweep.py``'s
+  ``time_designs``); ``hopper_kernels`` holds HOPPER_LIBRARIES, K4's two
+  kernels among the HOPPER_INSTANTIATIONS.
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -770,19 +781,21 @@ def sass_counts(library, opcodes=('HGMMA', 'UTMALDG'), symbols=False):
     return counts
 
 
-HOPPER_INSTANTIATIONS = 16   # K1 2, K5 2, K7 1, K2 3, K3 and K6 dq and dkv at 1 and 2 warpgroups
+HOPPER_INSTANTIATIONS = 18   # K1 2, K5 2, K7 1, K2 3, K3 and K6 dq and dkv at 1 and 2
+#                              warpgroups, K4's data GEMM and weight gradients
+HOPPER_LIBRARIES = ('rope_attention', 'bytenet_block', 'rope_attention_bwd', 'bytenet_block_bwd')
 
 
 def hopper_build_record(_build):
-    """The Hopper kernels of K1-K3, K5-K7 as built, one record: registers
+    """The Hopper kernels of K1-K7 as built, one record: registers
     and spills of each instantiation (-Xptxas -v), ptxas's warnings that it
     serialized wgmma, and, from cuobjdump, its HGMMA (wgmma), UTMALDG (TMA
     load) and HMMA (mma.sync) instructions. nvcc's output is this process's
     or the one kept beside the library (``_build.log_path``). Fails unless
     all HOPPER_INSTANTIATIONS hold HGMMA and UTMALDG and no HMMA, and ptxas
-    serialized no wgmma in any of the three libraries (a library without
-    its log fails too: remove ``build/`` to rebuild it)."""
-    libs = ('rope_attention', 'bytenet_block', 'rope_attention_bwd')
+    serialized no wgmma in any of HOPPER_LIBRARIES (a library without its
+    log fails too: remove ``build/`` to rebuild it)."""
+    libs = HOPPER_LIBRARIES
     regs = ptxas_registers({k: v for k, v in _build.BUILD_LOGS.items() if k in libs})
     sass = {}
     for lib in libs:
@@ -800,7 +813,7 @@ def hopper_build_record(_build):
     emit(rec)
     bad = {k: v for k, v in sass.items() if not v['HGMMA'] or not v['UTMALDG'] or v['HMMA']}
     if len(sass) != HOPPER_INSTANTIATIONS or bad or serialized or unlogged:
-        fail(f'the Hopper K1-K3, K5-K7 kernels: want HGMMA and UTMALDG and no HMMA in all '
+        fail(f'the Hopper K1-K7 kernels: want HGMMA and UTMALDG and no HMMA in all '
              f'{HOPPER_INSTANTIATIONS} and no serialized wgmma in a logged build, got {sass}, '
              f'{serialized}, no log for {unlogged}')
     return rec
@@ -1150,7 +1163,9 @@ def main():
          **nk['K3'], **tuned['K3'], **parallel['K3'], 'launches_bench': benched['K3']},
         {'name': 'K4 ByteNet block backward (three data GEMMs with the LayerNorm '
                  'backward in their epilogues, one grouped weight-gradient GEMM, one '
-                 'fixed-order sum)',
+                 'fixed-order sum; bf16 at widths that are multiples of 128 on TMA + wgmma: '
+                 '128 x 128 data tiles in clusters over a row tile, transposed-A weight '
+                 'gradients)',
          'route': 'cuda', 'source': 'hudiff_tpu_torch/csrc/bytenet_block_bwd.cu',
          'replaces': 'hudiff_tpu/ops/pallas_bytenet.py:192',
          'launches': trained['K4'], 'launches_per_step': per_step['K4'],
@@ -1160,6 +1175,9 @@ def main():
          'bound_ms': k4['bound_ms'] / n4, 'bound_by': k4['bound_by'],
          'library_ms': k4['library_ms'] / n4,
          'library': LIBRARY_COMPOSITION + ', its autograd backward',
+         'paths': k4['paths'], **{key: k4[key] / n4 for key in K4_PATH_MS if key in k4},
+         'device_ms_per_step': k4['device_ms'],
+         'device_ms_B16': results['K4'][(MAIN_B, 'bfloat16')]['device_ms'] / n4,
          'ms_per_step': k4['ms'], 'bound_ms_per_step': k4['bound_ms'],
          'library_ms_per_step': k4['library_ms'],
          'launch_ms_one_dual_tower_call': k4['launch_ms'],
@@ -1473,7 +1491,10 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
     elementwise, each parameter gradient by max |err| / max |ref|; per-call
     times summed over the blocks in ``<phase>_step_total``. The parameters
     are f32, as training holds them. At ``launch_shape`` (B, D, L,
-    dilation) each launch's device ms is read."""
+    dilation) each launch's device ms is read. Every record carries
+    ``k4_paths``'s keys: the plan's design and, in bf16, the graph-replayed
+    device ms of each design that takes the shape, summed over the blocks
+    in ``<phase>_step_total``."""
     from hudiff_tpu_torch.ops import fused_bytenet as FB
     from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
     out = {}
@@ -1483,6 +1504,7 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
             tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0, 'max_abs_err': 0.0,
                    'excess_over_rtol': 0.0, 'grad_rel_err': 0.0, 'bytes_ms': 0.0,
                    'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
+            paths = set()
             for d, act, n_layers in towers:
                 h = d // 2
                 for Lc in lengths:
@@ -1540,6 +1562,10 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                         rec['plain_ms'] = time_ms(
                             torch, lambda: FB.bytenet_block_backward_reference(
                                 x, p, q, *params, dy, **kw, stats=st), reps=1, windows=3)
+                        rec.update(k4_paths(torch, x, p, q, params, dy, st, dil, act))
+                        for key in K4_PATH_MS:
+                            if key in rec:
+                                tot[key] = tot.get(key, 0.0) + rec[key]
                         if dtype == torch.bfloat16:
                             rec['library_ms'] = composition_backward_ms(torch, x, params, dy,
                                                                         dil, act)
@@ -1548,6 +1574,7 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                                 rec['launch_ms'] = tot['launch_ms'] = launch_times(
                                     torch, call, lambda: FB.bwd_launches)
                         emit(rec)
+                        paths.add(rec['path'])
                         for key in ('ms', 'plain_ms', 'bound_ms'):
                             tot[key] += rec[key]
                         tot['calls'] += 1
@@ -1556,6 +1583,7 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                             tot[key] = max(tot.get(key, 0.0), rec.get(key, 0.0))
                         del x, dy, p, q, st
             tot['bound_by'] = 'bytes' if tot['bytes_ms'] >= tot['ops_ms'] else 'operations'
+            tot['paths'] = sorted(paths)
             emit({'phase': f'{phase}_step_total', 'B': B, 'dtype': name, **tot})
             out[(B, name)] = tot
             torch.cuda.empty_cache()
@@ -1565,6 +1593,37 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
 def grad_rel_err(got, ref):
     """The largest of the 12 parameter gradients' max |err| / max |ref|."""
     return max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got[1:], ref[1:]))
+
+
+# the device ms keys of a K4 record (k4_paths), summed over a step's blocks
+K4_PATH_MS = ('device_ms', 'device_ms_wgmma', 'device_ms_mma_sync')
+
+
+def k4_paths(torch, x, p, q, params, dy, st, dil, act):
+    """K4's design at this shape (``path``) and, in bf16, the device ms
+    (graph_ms, on the forward's copies of the weights in bf16, given K2's
+    statistics, as autograd calls it) of each design that takes the shape
+    (``device_ms_wgmma``, ``device_ms_mma_sync``; ``device_ms`` the
+    plan's), each held to K4's limits against the plain version given the
+    same statistics and repeating to the same bits
+    (``bytenet_bwd_sweep.time_designs``)."""
+    from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.tools import bytenet_bwd_sweep as S
+    B, L, D = x.shape
+    H, K = params[2].shape[0], params[6].shape[1]
+    if x.dtype != torch.bfloat16:
+        return {'path': FB.bytenet_block_backward_plan(B, L, D, H, K, dil, x.dtype)['path']}
+    assert (S.DX_ATOL, S.GRAD_RTOL) == (TOL_BF16['K4'], K4_GRAD_RTOL['bfloat16'])
+    kw = dict(dilation=dil, activation_name=act)
+    cd = FB._prepared(params, x.device, x.dtype)
+    ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw, stats=st)
+    try:
+        rec = S.time_designs(
+            lambda plan: FB.bytenet_block_backward(x, p, q, *cd, dy, **kw, stats=st, plan=plan),
+            ref, (B, L, D, H, dil), launches=False)
+    except RuntimeError as e:
+        fail(str(e))
+    return {k: v for k, v in rec.items() if not k.startswith('held_')}
 
 
 def composition_backward_ms(torch, x, params, dy, dil, act):
@@ -4836,7 +4895,9 @@ def nano_entries(nano):
                      nano_conv_ms_per_forward=k2['ms'])
     out['K4'].update(nano_grad_rel_err=k4['grad_rel_err'],
                      nano_grad_rel_err_f32=k4_f32['grad_rel_err'],
-                     nano_conv_ms_per_step=k4['ms'])
+                     nano_conv_ms_per_step=k4['ms'], nano_paths=k4['paths'],
+                     **{f'nano_{key}': k4[key] / k4['calls'] for key in K4_PATH_MS
+                        if key in k4})
     out['K3'].update({f'nano_{key}': k3[key] for key in BWD_PATH_KEYS})
     out['K3']['nano_library_ms'] = k3['library_ms']
     return out

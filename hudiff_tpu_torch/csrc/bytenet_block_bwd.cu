@@ -1,4 +1,5 @@
-// K4: backward of the ByteNet residual block (K2), as five launches.
+// K4: backward of the ByteNet residual block (K2), as five launches, in two
+// designs.
 //
 // Replaces hudiff_tpu/ops/pallas_bytenet.py::_bwd_kernel (called through
 // _pallas_bwd, the backward of the custom VJP around K2).
@@ -27,42 +28,72 @@
 // B=128, L=152, about 126 GFLOP, 0.128 ms at 989 TFLOP/s bf16, against
 // about 100 MB of inputs and outputs (0.03 ms at 3.35 TB/s).
 //
-// Design (gemm_tiles.cuh's pipelined core). The TPU kernel accumulated the 12
-// parameter gradients across its sequential batch-tile grid; on Hopper they
-// are reductions over the B*L rows (19,456 at B=128) across blocks that run
-// in no order, done as fixed-order two-step sums with no atomics, so a call
-// repeats to the same bits:
-//   1-3. bytenet_bwd_data_kernel: de = dy W2, dbb = conv^T(dq) Wc, da = dp W1.
-//        A block owns whole rows (up to 1024 columns: 8 warps side by side,
-//        BM = 64, 32 or 16 rows by width), so the LayerNorm backward runs in
-//        its epilogue: once the ring is drained, the block puts its rows of
-//        the LayerNorm's input z (q, p or x, one cp.async batch) and its
-//        accumulator in shared memory, and loops over them: a warp a row
-//        takes the row's LN statistics (or reads the forward's, which K2
-//        writes as residuals, so that both passes make the same ReLU
-//        decisions), writes act(LN z) (e, bb or a: the
-//        other operand of step 4, so that step forms nothing) and dq, dp or
-//        dx; a thread a column sums the block's partials of the LN parameter
-//        and bias gradients. de, dbb and da never reach device memory. The
-//        conv-transposed operand gathers row m - shift_t of the chain.
-//   4.   bytenet_bwd_wgrad_kernel: the three weight gradients in one grouped
-//        launch, 128 x 128 tiles, the rows split into chunks with an f32
-//        partial each; bb is gathered per tap, zero outside the chain.
-//   5.   bytenet_bwd_sum_kernel: every partial summed in a fixed order (a
-//        warp a value where there are many partials).
+// The TPU kernel accumulated the 12 parameter gradients across its
+// sequential batch-tile grid; on the card they are reductions over the B*L
+// rows (19,456 at B=128) across blocks that run in no order, done as
+// fixed-order two-step sums with no atomics, so a call repeats to the same
+// bits. Both designs launch:
+//   1-3. the data GEMMs de = dy W2, dbb = conv^T(dq) Wc, da = dp W1, each
+//        with the LayerNorm backward in its epilogue: act(LN z) (e, bb or a,
+//        the other operand of step 4) and dq, dp or dx written, the tile's
+//        column partials of the LN parameter and bias gradients kept; de,
+//        dbb and da never reach device memory. The row statistics of z that
+//        K2 writes are read when given (so that both passes make the same
+//        ReLU decisions), else taken here;
+//   4.   the three weight gradients in one grouped launch, the rows split
+//        into chunks with an f32 partial each;
+//   5.   bytenet_bwd_sum_kernel: every partial summed in a fixed order.
+//
+// Hopper design (bf16, D and H multiples of 128 up to 1024; TMA +
+// mbarriers + wgmma on wgmma_tiles.cuh). The data GEMMs
+// (wgmma_bytenet_bwd_data_kernel) take 128 x 128 tiles of the B*L rows and
+// N columns: a producer warp keeps a ring of four 32 KB stages full (the A
+// rows, with the transposed conv's tap box started -(t - (K - 1) / 2) dil
+// rows on; the weights' 64 rows as they lie, [C, taps N], the N-major B
+// operand); each of two consumer warpgroups takes 64 rows over every chunk
+// in a chain of wgmma m64n128k16 and zeroes its A rows whose tap row lies in
+// another chain (the conv's padding). A block does not own whole rows: the
+// launch is a cluster over the row tile's N / 128 column tiles, which
+// exchange the rows' sums (of z where the statistics are not given, of dn
+// and dn n) through distributed shared memory in rank order, so every block
+// holds the same means. The epilogue runs over the products put in shared
+// memory in small loops, a warp a row (an unrolled epilogue, per
+// accumulator register, ran several times the products' time from
+// instruction-cache misses); z and the residual arrive by TMA with the first
+// chunks. The weight gradients (wgmma_bytenet_bwd_wgrad_kernel) take 128 x
+// 128 tiles of dW2, dWc, dW1 over one split of the rows: X^T (dy, cd(dq),
+// cd(dp)) is read from [rows, P] boxes as an M-major A operand (wgmma's
+// transpose-A bit), Y (e, bb at tap t's shift, a) as the N-major B; for dWc
+// a group zeroes its X rows whose tap row lies in another chain. Two
+// blocks share an SM. ops/fused_bytenet.py::bytenet_block_backward_plan
+// computes every launch (grids, clusters, stages, splits, the workspace and
+// twelve tensor maps) and hd_bytenet_block_bwd_tma refuses any other.
+//
+// The cp.async + mma.sync design (the demos' widths, and on request;
+// gemm_tiles.cuh's pipelined core), f32 on its FMA path:
+//   1-3. bytenet_bwd_data_kernel: a block owns whole rows (up to 1024
+//        columns: 8 warps side by side, BM = 64, 32 or 16 rows by width);
+//        once the ring is drained, the block puts its rows of z (one
+//        cp.async batch) and its accumulator in shared memory and loops
+//        over them: a warp a row for the statistics, act(LN z) and the
+//        output, a thread a column for the partials. The conv-transposed
+//        operand gathers row m - shift_t of the chain.
+//   4.   bytenet_bwd_wgrad_kernel: 128 x 128 tiles; bb gathered per tap,
+//        zero outside the chain.
 // The weights arrive in cd (the forward's copies), so no block rounds a
 // weight. Wide rows (more than 384 columns) stage 64-byte chunks so that
 // three slots fit in shared memory. The port has no length padding: rows
 // outside a chain read as zeros, which is what the TPU kernel's row masks
-// (_row_mask) achieve on its padded rows. f32 inputs take the FMA path of
-// the same kernels.
+// (_row_mask) achieve on its padded rows.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "gemm_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -451,21 +482,19 @@ int wgrad_tiles(int P, int Q) { return ((P + 127) / 128) * ((Q + 127) / 128); }
 
 struct Layout {
   size_t dq, dp, e, bb, a, col1, col2, col3, w2p, wcp, w1p, bytes;
-  int nb1, nb3;       // data-GEMM blocks: of H columns (steps 1, 2), of D (step 3)
+  int nb1, nb3;       // data-GEMM row tiles: of H columns (steps 1, 2), of D (step 3)
   int chunk, splits;  // weight gradients: rows of a split, splits
 };
 
-Layout layout(int B, int L, int D, int H, int K, size_t cd) {
+// The workspace of either design: the bf16 intermediates, the column
+// partials of the data GEMMs' nb1 / nb3 row tiles, the splits' f32 partials
+Layout layout_of(size_t M, int D, int H, int K, size_t cd, int nb1, int nb3, int splits,
+                 int chunk) {
   Layout t;
-  const size_t M = (size_t)B * L;
-  t.nb1 = (int)((M + data_bm(data_ntw(H)) - 1) / data_bm(data_ntw(H)));
-  t.nb3 = (int)((M + data_bm(data_ntw(D)) - 1) / data_bm(data_ntw(D)));
-  const int tiles = wgrad_tiles(D, H) + wgrad_tiles(H, K * H) + wgrad_tiles(H, D);
-  int splits = (WGRAD_TARGET + tiles - 1) / tiles;
-  const int most = (int)((M + WGRAD_MIN_ROWS - 1) / WGRAD_MIN_ROWS);
-  splits = splits < 1 ? 1 : (splits > most ? most : splits);
-  t.chunk = (int)(((M + splits - 1) / splits + 63) / 64 * 64);
-  t.splits = (int)((M + t.chunk - 1) / t.chunk);
+  t.nb1 = nb1;
+  t.nb3 = nb3;
+  t.splits = splits;
+  t.chunk = chunk;
   size_t off = 0;
   auto take = [&](size_t bytes) { const size_t at = off; off += align256(bytes); return at; };
   t.dq = take(M * H * cd);
@@ -481,6 +510,49 @@ Layout layout(int B, int L, int D, int H, int K, size_t cd) {
   t.w1p = take((size_t)t.splits * H * D * 4);
   t.bytes = off;
   return t;
+}
+
+// rows of a split, a multiple of 64, for `splits` splits of M rows
+int split_rows(size_t M, int splits) { return (int)(((M + splits - 1) / splits + 63) / 64 * 64); }
+
+Layout layout(int B, int L, int D, int H, int K, size_t cd) {
+  const size_t M = (size_t)B * L;
+  const int tiles = wgrad_tiles(D, H) + wgrad_tiles(H, K * H) + wgrad_tiles(H, D);
+  int splits = (WGRAD_TARGET + tiles - 1) / tiles;
+  const int most = (int)((M + WGRAD_MIN_ROWS - 1) / WGRAD_MIN_ROWS);
+  splits = splits < 1 ? 1 : (splits > most ? most : splits);
+  const int chunk = split_rows(M, splits);
+  return layout_of(M, D, H, K, cd, (int)((M + data_bm(data_ntw(H)) - 1) / data_bm(data_ntw(H))),
+                   (int)((M + data_bm(data_ntw(D)) - 1) / data_bm(data_ntw(D))),
+                   (int)((M + chunk - 1) / chunk), chunk);
+}
+
+// blocks of the sum launch: a thread a value of the widest job, at most SUM_BLOCKS
+int sum_blocks(int D, int H, int K) {
+  const int widest = H * K * H > D * H ? H * K * H : D * H;
+  return (widest + 255) / 256 < SUM_BLOCKS ? (widest + 255) / 256 : SUM_BLOCKS;
+}
+
+struct Grads { float *g1, *b1, *w1, *c1, *g2, *b2, *wc, *cc, *g3, *b3, *w2, *c2; };
+
+// 5. every partial of the workspace at ws (layout t) summed into the gradients
+cudaError_t sum_all(const Grads& gr, const Layout& t, unsigned char* ws, int D, int H, int K,
+                    cudaStream_t stream) {
+  const float* col1 = reinterpret_cast<const float*>(ws + t.col1);  // [3][nb1][H]: g3, b3, cc
+  const float* col2 = reinterpret_cast<const float*>(ws + t.col2);  // [3][nb1][H]: g2, b2, c1
+  const float* col3 = reinterpret_cast<const float*>(ws + t.col3);  // [3][nb3][D]: g1, b1, c2
+  const size_t nh = (size_t)t.nb1 * H, nd = (size_t)t.nb3 * D;
+  SumJobs sj{{{reinterpret_cast<const float*>(ws + t.w2p), gr.w2, t.splits, D * H},
+              {reinterpret_cast<const float*>(ws + t.wcp), gr.wc, t.splits, H * K * H},
+              {reinterpret_cast<const float*>(ws + t.w1p), gr.w1, t.splits, H * D},
+              {col1, gr.g3, t.nb1, H}, {col1 + nh, gr.b3, t.nb1, H},
+              {col1 + 2 * nh, gr.cc, t.nb1, H},
+              {col2, gr.g2, t.nb1, H}, {col2 + nh, gr.b2, t.nb1, H},
+              {col2 + 2 * nh, gr.c1, t.nb1, H},
+              {col3, gr.g1, t.nb3, D}, {col3 + nd, gr.b1, t.nb3, D},
+              {col3 + 2 * nd, gr.c2, t.nb3, D}}};
+  bytenet_bwd_sum_kernel<<<dim3(sum_blocks(D, H, K), SUM_JOBS), 256, 0, stream>>>(sj);
+  return cudaGetLastError();
 }
 
 template <typename T, int NTW> cudaError_t data_tiled(const DataArgs<T>& a, cudaStream_t stream) {
@@ -512,8 +584,6 @@ template <typename T> cudaError_t wgrad(const WArgs<T>& a, int blocks, cudaStrea
   return cudaGetLastError();
 }
 
-struct Grads { float *g1, *b1, *w1, *c1, *g2, *b2, *wc, *cc, *g3, *b3, *w2, *c2; };
-
 template <typename T>
 int launch(const T* x, const T* p, const T* q, const float2* stats, const float* const* prm,
            const T* w1, const T* wc, const T* w2, const T* dy, T* dx, const Grads& gr,
@@ -531,9 +601,9 @@ int launch(const T* x, const T* p, const T* q, const float2* stats, const float*
   T* e = reinterpret_cast<T*>(ws + t.e);    // act(LN3 q)
   T* bb = reinterpret_cast<T*>(ws + t.bb);  // act(LN2 p)
   T* a = reinterpret_cast<T*>(ws + t.a);    // act(LN1 x)
-  float* col1 = reinterpret_cast<float*>(ws + t.col1);  // [3][nb1][H]: g3, b3, cc
-  float* col2 = reinterpret_cast<float*>(ws + t.col2);  // [3][nb1][H]: g2, b2, c1
-  float* col3 = reinterpret_cast<float*>(ws + t.col3);  // [3][nb3][D]: g1, b1, c2
+  float* col1 = reinterpret_cast<float*>(ws + t.col1);
+  float* col2 = reinterpret_cast<float*>(ws + t.col2);
+  float* col3 = reinterpret_cast<float*>(ws + t.col3);
   float* w2p = reinterpret_cast<float*>(ws + t.w2p);
   float* wcp = reinterpret_cast<float*>(ws + t.wcp);
   float* w1p = reinterpret_cast<float*>(ws + t.w1p);
@@ -555,20 +625,666 @@ int launch(const T* x, const T* p, const T* q, const float2* stats, const float*
   const int blocks = wa.job[2].first + wgrad_tiles(H, D) * t.splits;
   HD_STEP(wgrad<T>(wa, blocks, stream));
 
-  const size_t nh = (size_t)t.nb1 * H, nd = (size_t)t.nb3 * D;
-  SumJobs sj{{{w2p, gr.w2, t.splits, D * H},
-              {wcp, gr.wc, t.splits, H * K * H},
-              {w1p, gr.w1, t.splits, H * D},
-              {col1, gr.g3, t.nb1, H}, {col1 + nh, gr.b3, t.nb1, H},
-              {col1 + 2 * nh, gr.cc, t.nb1, H},
-              {col2, gr.g2, t.nb1, H}, {col2 + nh, gr.b2, t.nb1, H},
-              {col2 + 2 * nh, gr.c1, t.nb1, H},
-              {col3, gr.g1, t.nb3, D}, {col3 + nd, gr.b1, t.nb3, D},
-              {col3 + 2 * nd, gr.c2, t.nb3, D}}};
-  const int widest = H * K * H > D * H ? H * K * H : D * H;
-  const int sum_blocks = (widest + 255) / 256 < SUM_BLOCKS ? (widest + 255) / 256 : SUM_BLOCKS;
-  bytenet_bwd_sum_kernel<<<dim3(sum_blocks, SUM_JOBS), 256, 0, stream>>>(sj);
-  HD_STEP(cudaGetLastError());
+  HD_STEP(sum_all(gr, t, ws, D, H, K, stream));
+#undef HD_STEP
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16, D and H multiples of 128: TMA + wgmma (Hopper)
+// ---------------------------------------------------------------------------
+
+namespace wg = hd::wg;
+namespace cg = cooperative_groups;
+
+constexpr int TMA_BM = 128;                 // rows of a data tile: 64 a consumer warpgroup
+constexpr int TMA_BN = 128;                 // its columns; a weight-gradient tile is 128 x 128
+constexpr int TMA_GROUP_WARPS = 4;          // a consumer warpgroup; two a block
+constexpr int TMA_CONSUMERS = 2 * TMA_GROUP_WARPS;
+constexpr int TMA_THREADS = (TMA_CONSUMERS + 1) * 32;  // and one producer warp
+constexpr int BOX = 64 * 128;               // a 64 x 64 bf16 box of 128-byte rows: 8 KB
+constexpr int TMA_MAX_SMEM = 232448;        // dynamic shared memory a block may use
+constexpr int MAX_CLUSTER = 8;              // the portable cluster size
+constexpr int DATA_STAGES = 3;              // two blocks an SM
+constexpr int Z_STAGE = 2;                  // the stage z lands in after the last chunk
+constexpr int WGRAD_STAGES[2] = {3, 6};     // two blocks an SM, or one
+constexpr int N_MAPS = 12;                  // dy, w2, q, dq, wc, p, dp, w1, x, e, bb, a
+constexpr int PLAN_LEN = 28 + 5 * N_MAPS;
+
+// A data GEMM's shared memory from the aligned base: the ring (a stage: the
+// A rows as two 64-row boxes, one a warpgroup, and the weights' 64 rows as
+// two 64-column boxes), the mbarriers (full and empty a stage, z's), the
+// rows' statistics, exchanged sums and means of dn and dn n [128] float2
+// each, and the tile's columns of the LayerNorm's g and b. After the
+// products the ring holds the tile's dh, f32 [128][128] (DTile, stages 0
+// and 1; then the warps' column partials), and z (stage Z_STAGE, its rows
+// and columns in four boxes: the 64-column boxes of rows 0-63, then of rows
+// 64-127), which the producer asks for once the last chunk has freed it.
+struct DataSmem {
+  static constexpr int STAGE = 4 * BOX;
+  int stages;
+  __host__ __device__ constexpr int bars() const { return stages * STAGE; }
+  __host__ __device__ constexpr int stat() const { return bars() + 256; }
+  __host__ __device__ constexpr int par() const { return stat() + 3 * TMA_BM * 8; }
+  __host__ __device__ constexpr int bytes() const {
+    return par() + 2 * TMA_BN * 4 + wg::SMEM_SLACK;
+  }
+};
+static_assert(TMA_BM * TMA_BN * 4 <= Z_STAGE * DataSmem::STAGE && Z_STAGE < DATA_STAGES,
+              "dh fits the stages before z's");
+
+// An f32 [128][128] tile in shared memory whose 16-byte groups of a row are
+// stored XOR the row's low three bits, so that a warp writing a thread's
+// m16n8 pairs or reading a row's 16-byte groups meets few bank conflicts
+struct DTile {
+  float* t;
+  __device__ __forceinline__ float* at(int r, int c) const {
+    return t + r * TMA_BN + ((((c >> 2) ^ r) & 7) | ((c >> 2) & ~7)) * 4 + (c & 3);
+  }
+};
+
+// four bf16 as f32
+__device__ __forceinline__ float4 unpack4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+// Four neighbouring elements (c a multiple of 4) of a bf16 tile of 128 rows
+// and 128 columns laid out as four TMA boxes (see DataSmem), as f32
+__device__ __forceinline__ float4 tile4(const unsigned char* t, int r, int c) {
+  return unpack4(*reinterpret_cast<const uint2*>(t + (2 * (r >> 6) + (c >> 6)) * BOX +
+                                                wg::swizzle128(r & 63, c & 63)));
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(tc::pack(a, b), tc::pack(c, d));
+}
+
+// A weight-gradient block's: the ring (a stage: two boxes of X^T's 128
+// columns and two of Y's over 64 rows), its mbarriers
+struct WgradSmem {
+  static constexpr int STAGE = 4 * BOX;
+  int stages;
+  __host__ __device__ constexpr int bars() const { return stages * STAGE; }
+  __host__ __device__ constexpr int bytes() const { return bars() + 256 + wg::SMEM_SLACK; }
+};
+static_assert(TMA_CONSUMERS * 3 * TMA_BN * 4 <= DATA_STAGES * DataSmem::STAGE,
+              "the column partials fit the ring");
+
+// A consumer warp is done with a stage
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) wg::mbar_arrive(empty);
+}
+
+// Whether 64 rows whose first row sits at `first` in its chain have rows
+// whose row + shift lies in another chain (or past either end)
+__device__ __forceinline__ bool crosses(int first, int shift, int L) {
+  return shift != 0 &&
+         (first + 63 >= L || (shift > 0 ? first + 63 >= L - shift : first < -shift));
+}
+
+// Zero the rows of a landed 64-row box (its 128-byte rows, the warpgroup's
+// thread gt taking rows gt / 8 + 16 k and the 16-byte column gt % 8) whose
+// row + shift lies in another chain; lpos[k] the rows' chain positions
+__device__ __forceinline__ void zero_rows(unsigned char* box, const int (&lpos)[4], int shift,
+                                          int L, int gt) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (lpos[k] + shift < 0 || lpos[k] + shift >= L)
+      *reinterpret_cast<uint4*>(box + (gt / 8 + 16 * k) * 128 + (gt & 7) * 16) =
+          make_uint4(0, 0, 0, 0);
+}
+
+// The sums of the tile's rows over every column of the cluster's blocks:
+// each block's (sRow, written before the call), then every block in rank
+// order, so that every block holds the same sums; thread r < 128 returns
+// row r's
+__device__ __forceinline__ float2 cluster_row_sums(float2* sRow, cg::cluster_group& cluster) {
+  cluster.sync();  // every block's sRow is written
+  float2 tot = make_float2(0.f, 0.f);
+  if (threadIdx.x < TMA_BM)
+    for (unsigned k = 0; k < cluster.num_blocks(); ++k) {
+      const float2 w = *cluster.map_shared_rank(sRow + threadIdx.x, k);
+      tot.x += w.x;
+      tot.y += w.y;
+    }
+  cluster.sync();  // every block has read the others' sRow
+  return tot;
+}
+
+// What a data GEMM reads and writes besides its three tensor maps
+struct TmaDataArgs {
+  const float2* stats;  // the z rows' (mean, 1/sigma) [M] from the forward, or nullptr
+  const float* g;       // z's LayerNorm [N]
+  const float* b;
+  const bf16* res;      // [M, N] added to the result, or nullptr
+  bf16* out;            // [M, N] = bf16([res +] LN^T(acc act'(h) g))
+  bf16* act;            // [M, N] = bf16(act(LN z)): e, bb or a
+  float* part;          // [3][row tiles][N]: sum dh n, sum dh, sum (res ? res : result)
+  int M, L, C, N, taps, dil, gelu, stages;
+};
+
+// One data GEMM on Hopper (steps 1-3): the tile of rows m0 + [0, 128) and
+// columns n0 + [0, 128) of acc = A W, A the rows [M, C] of dy, cd(dq) or
+// cd(dp) (for the transposed conv, tap t's boxes start -(t - (taps - 1) / 2)
+// dil rows on: row m reads m + shift), W the weights [C, taps N] as they lie
+// (w2 [D, H], wc viewed as [H, K H] at column t H, w1 [H, D]: N-major B
+// operands). The producer warp's lane 0 keeps `stages` chunks in flight,
+// then asks for the tile of z (q, p or x) in the stage the last chunk
+// frees; each consumer warpgroup takes 64 of the rows over every chunk, a
+// chain of wgmma m64n128k16 with one chunk in flight while the next is
+// issued, zeroing its A rows whose tap row lies in another chain before
+// their products. Two blocks share an SM, so that one's epilogue runs under
+// the other's products. The epilogue runs over the products put in shared
+// memory, in small loops (an unrolled one, per accumulator register, ran
+// from instruction-cache misses at several times the products' time), a
+// warp a row, four columns a lane: the rows' LayerNorm statistics (given,
+// or summed across the cluster, which spans the row tile's column tiles),
+// act(LN z) written, dh = acc act'(h), dn = dh g, the rows' sums of dn and
+// dn n over all N columns through the cluster's shared memory in rank order,
+// out = bf16([res +] LN^T(dn)) with the lane's column partials over the
+// warp's rows, then the eight warps' in order.
+__global__ void __launch_bounds__(TMA_THREADS, 2)
+    wgmma_bytenet_bwd_data_kernel(const __grid_constant__ CUtensorMap map_a,
+                                  const __grid_constant__ CUtensorMap map_w,
+                                  const __grid_constant__ CUtensorMap map_z, TmaDataArgs p) {
+  constexpr int BN = TMA_BN;
+  const DataSmem SM{p.stages};
+  const int S = p.stages;
+  unsigned char* smem = wg::aligned_smem();
+  const unsigned char* zt = smem + Z_STAGE * DataSmem::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM.bars());
+  uint64_t* empty = full + S;
+  uint64_t* zbar = empty + S;
+  float2* sStat = reinterpret_cast<float2*>(smem + SM.stat());  // (mean, 1/sigma)
+  float2* sRow = sStat + TMA_BM;
+  float2* sMom = sRow + TMA_BM;  // (mean dn, mean dn n)
+  float* sG = reinterpret_cast<float*>(smem + SM.par());
+  float* sB = sG + BN;
+  const DTile sD{reinterpret_cast<float*>(smem)};  // dh, over the ring
+  float* sCol = reinterpret_cast<float*>(smem);    // [8 warps][3][128], over dh once read
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * TMA_BM, L = p.L, M = p.M, N = p.N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cpt = p.C / 64, n_chunks = p.taps * cpt, mid = (p.taps - 1) / 2;
+  const int syncs = p.stats ? 2 : 4;  // cluster barriers: one exchange, or two
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s)
+      wg::mbar_init(&full[s], 1), wg::mbar_init(&empty[s], TMA_CONSUMERS);
+    wg::mbar_init(zbar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+
+  if (warp == TMA_CONSUMERS) {  // the producer: ring position i is stage i % S
+    if (lane == 0) {
+      wg::tma_prefetch(&map_a);
+      wg::tma_prefetch(&map_w);
+      wg::tma_prefetch(&map_z);
+      int i = 0;
+      for (int t = 0, kc = 0; i < n_chunks; ++i) {
+        const int s = i % S, row = m0 - (t - mid) * p.dil;
+        wg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        unsigned char* st = smem + s * DataSmem::STAGE;
+        wg::mbar_arrive_expect(&full[s], DataSmem::STAGE);
+        wg::tma_load_2d(st, &map_a, &full[s], kc * 64, row);
+        wg::tma_load_2d(st + BOX, &map_a, &full[s], kc * 64, row + 64);
+        wg::tma_load_2d(st + 2 * BOX, &map_w, &full[s], t * N + n0, kc * 64);
+        wg::tma_load_2d(st + 3 * BOX, &map_w, &full[s], t * N + n0 + 64, kc * 64);
+        if (++kc == cpt) kc = 0, ++t;
+      }
+      while (i % S != Z_STAGE) ++i;  // z's position in the ring: once stage Z_STAGE is free
+      wg::mbar_wait(&empty[Z_STAGE], ((i / S) & 1) ^ 1);
+      wg::mbar_arrive_expect(zbar, 4 * BOX);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wg::tma_load_2d(smem + Z_STAGE * DataSmem::STAGE + k * BOX, &map_z, zbar,
+                        n0 + 64 * (k & 1), m0 + 64 * (k >> 1));
+    }
+    __syncwarp();
+    for (int i = 0; i < syncs; ++i) cluster.sync();  // the cluster's barriers count every thread
+    return;
+  }
+
+  const int grp = warp / TMA_GROUP_WARPS;
+  const int g = lane >> 2, t4 = lane & 3, gt = threadIdx.x % 128;
+  for (int c = threadIdx.x; c < BN; c += 32 * TMA_CONSUMERS) sG[c] = p.g[n0 + c], sB[c] = p.b[n0 + c];
+  if (p.stats)
+    for (int r = threadIdx.x; r < TMA_BM; r += 32 * TMA_CONSUMERS)
+      sStat[r] = m0 + r < M ? p.stats[m0 + r] : make_float2(0.f, 0.f);
+
+  // The thread's four rows of its group's A box and their positions in their chains
+  const int gm0 = m0 + 64 * grp;
+  int lpos[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) lpos[k] = (gm0 + gt / 8 + 16 * k) % L;
+  const int first = gm0 % L;
+
+  float acc[BN / 8][4];
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % S, t = c / cpt;
+    wg::mbar_wait(&full[s], (c / S) & 1);
+    unsigned char* st = smem + s * DataSmem::STAGE;
+    const int shift = -(t - mid) * p.dil;
+    if (crosses(first, shift, L)) {  // written by threads, read by wgmma
+      zero_rows(st + grp * BOX, lpos, shift, L, gt);
+      wg::fence_proxy();
+      wg::bar_sync(2 + grp, 128);
+    }
+    const uint64_t da = wg::desc(st + grp * BOX, 0, 1024);
+    const uint64_t db = wg::desc(st + 2 * BOX, BOX, 1024);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n128<1>(acc, wg::desc_add(da, 32 * kk), wg::desc_add(db, 2048 * kk),
+                         c > 0 || kk > 0);
+    wg::commit();
+    wg::wait<1>();  // the previous chunk is done
+    if (c > 0) release(&empty[(c - 1) % S], lane);
+  }
+  wg::wait<0>();
+  release(&empty[(n_chunks - 1) % S], lane);
+  wg::fence_acc(acc);
+
+  // the products into shared memory over the stages before z's, zero past the rows
+  wg::bar_sync(1, TMA_CONSUMERS * 32);  // both groups' products are done
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh;
+    const bool in = m0 + r < M;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<float2*>(sD.at(r, 8 * j + 2 * t4)) =
+          in ? make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]) : make_float2(0.f, 0.f);
+  }
+  // the residual's four columns of the warp's rows, its loads all in flight
+  // under the passes before its use
+  const int c4 = 4 * lane;  // the lane's four columns of a row
+  constexpr int WR = TMA_BM / TMA_CONSUMERS;  // rows of a warp: warp + 8 i
+  uint2 res[WR];
+#pragma unroll
+  for (int i = 0; i < WR; ++i) {
+    const int m = m0 + warp + TMA_CONSUMERS * i;
+    res[i] = p.res && m < M ? *reinterpret_cast<const uint2*>(p.res + (size_t)m * N + n0 + c4)
+                            : make_uint2(0, 0);
+  }
+  wg::mbar_wait(zbar, 0);
+  const float4 g4 = *reinterpret_cast<const float4*>(sG + c4);
+  const float4 b4 = *reinterpret_cast<const float4*>(sB + c4);
+  if (!p.stats) {  // the rows' statistics from z's sums across the cluster
+#pragma unroll 1
+    for (int r = warp; r < TMA_BM; r += TMA_CONSUMERS) {
+      const float4 z = tile4(zt, r, c4);
+      const float s = warp_sum(z.x + z.y + z.z + z.w);
+      const float s2 = warp_sum(z.x * z.x + z.y * z.y + z.z * z.z + z.w * z.w);
+      if (lane == 0) sRow[r] = make_float2(s, s2);
+    }
+    const float2 tot = cluster_row_sums(sRow, cluster);
+    if (threadIdx.x < TMA_BM)
+      sStat[threadIdx.x] = m0 + (int)threadIdx.x < M ? ln_stats(tot.x, tot.y, N)
+                                                     : make_float2(0.f, 0.f);
+  }
+  wg::bar_sync(1, TMA_CONSUMERS * 32);
+
+  // a warp a row: act(LN z) written; dh = acc act'(h) in place; the row's
+  // sums of dn = dh g and of dn n over the tile's columns
+#pragma unroll 2
+  for (int r = warp; r < TMA_BM; r += TMA_CONSUMERS) {
+    const int m = m0 + r;
+    const float2 st = sStat[r];
+    const float4 z = tile4(zt, r, c4);
+    float4* dp = reinterpret_cast<float4*>(sD.at(r, c4));
+    float4 d = *dp;
+    const float h0 = ln_affine(z.x, st, g4.x, b4.x), h1 = ln_affine(z.y, st, g4.y, b4.y);
+    const float h2 = ln_affine(z.z, st, g4.z, b4.z), h3 = ln_affine(z.w, st, g4.w, b4.w);
+    if (m < M)
+      store4(p.act + (size_t)m * N + n0 + c4, act_fn(h0, p.gelu), act_fn(h1, p.gelu),
+             act_fn(h2, p.gelu), act_fn(h3, p.gelu));
+    d.x *= dact_fn(h0, p.gelu);
+    d.y *= dact_fn(h1, p.gelu);
+    d.z *= dact_fn(h2, p.gelu);
+    d.w *= dact_fn(h3, p.gelu);
+    *dp = d;
+    const float dn0 = d.x * g4.x, dn1 = d.y * g4.y, dn2 = d.z * g4.z, dn3 = d.w * g4.w;
+    const float s1 = warp_sum(dn0 + dn1 + dn2 + dn3);
+    const float s2 = warp_sum(dn0 * ln_norm(z.x, st) + dn1 * ln_norm(z.y, st) +
+                              dn2 * ln_norm(z.z, st) + dn3 * ln_norm(z.w, st));
+    if (lane == 0) sRow[r] = make_float2(s1, s2);
+  }
+  {
+    const float2 tot = cluster_row_sums(sRow, cluster);
+    if (threadIdx.x < TMA_BM) sMom[threadIdx.x] = make_float2(tot.x / N, tot.y / N);
+  }
+  wg::bar_sync(1, TMA_CONSUMERS * 32);
+
+  // a warp a row: out = bf16([res +] LN^T(dn)); the lane's column partials
+  // of dh n, dh and (res ? res : the result before rounding) over the warp's
+  // rows in order
+  float4 pg = make_float4(0.f, 0.f, 0.f, 0.f), pb = pg, pc = pg;
+#pragma unroll
+  for (int i = 0; i < WR; ++i) {
+    const int r = warp + TMA_CONSUMERS * i, m = m0 + r;
+    const float2 st = sStat[r], mo = sMom[r];
+    const float4 rr = unpack4(res[i]);
+    const float4 z = tile4(zt, r, c4);
+    const float4 d = *reinterpret_cast<const float4*>(sD.at(r, c4));
+    const float4 n = make_float4(ln_norm(z.x, st), ln_norm(z.y, st), ln_norm(z.z, st),
+                                 ln_norm(z.w, st));
+    float4 o = make_float4(ln_bwd(d.x * g4.x, n.x, mo.x, mo.y, st.y),
+                           ln_bwd(d.y * g4.y, n.y, mo.x, mo.y, st.y),
+                           ln_bwd(d.z * g4.z, n.z, mo.x, mo.y, st.y),
+                           ln_bwd(d.w * g4.w, n.w, mo.x, mo.y, st.y));
+    pg = make_float4(pg.x + d.x * n.x, pg.y + d.y * n.y, pg.z + d.z * n.z, pg.w + d.w * n.w);
+    pb = make_float4(pb.x + d.x, pb.y + d.y, pb.z + d.z, pb.w + d.w);
+    if (p.res) {
+      pc = make_float4(pc.x + rr.x, pc.y + rr.y, pc.z + rr.z, pc.w + rr.w);
+      o = make_float4(rr.x + o.x, rr.y + o.y, rr.z + o.z, rr.w + o.w);
+    } else {
+      pc = make_float4(pc.x + o.x, pc.y + o.y, pc.z + o.z, pc.w + o.w);
+    }
+    if (m < M) store4(p.out + (size_t)m * N + n0 + c4, o.x, o.y, o.z, o.w);
+  }
+  wg::bar_sync(1, TMA_CONSUMERS * 32);  // every warp has read dh: its stages take the partials
+  *reinterpret_cast<float4*>(sCol + (warp * 3 + 0) * BN + c4) = pg;
+  *reinterpret_cast<float4*>(sCol + (warp * 3 + 1) * BN + c4) = pb;
+  *reinterpret_cast<float4*>(sCol + (warp * 3 + 2) * BN + c4) = pc;
+  wg::bar_sync(1, TMA_CONSUMERS * 32);
+  const size_t pstride = (size_t)gridDim.y * N;
+  for (int i = threadIdx.x; i < 3 * BN; i += 32 * TMA_CONSUMERS) {
+    const int k = i / BN, c = i % BN;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < TMA_CONSUMERS; ++w) t += sCol[(w * 3 + k) * BN + c];
+    p.part[k * pstride + (size_t)blockIdx.y * N + n0 + c] = t;
+  }
+}
+
+// The weight gradients on Hopper (step 4): part[s][P, Q] = X^T Y over the
+// rows of split s for three jobs in one launch (dW2 = dy^T e, dWc = cd(dq)^T
+// shift_t(bb) at column t H + i, dW1 = cd(dp)^T a), a block a 128 x 128
+// tile. A stage: X's rows [64][p0 + 128) as two boxes (the M-major A
+// operand, wgmma's transpose-A bit) and Y's [64][q0 + 128) (for dWc tap t's
+// box starts shift_t rows on; N-major B). Each consumer warpgroup takes 64
+// of the tile's P rows over every chunk (wgmma m64n128k16, one chunk in
+// flight while the next is issued); for dWc a group zeroes its A rows whose
+// tap row lies in another chain.
+struct TmaWJob {
+  float* part;  // [splits][P][Q]
+  int P, Q, C, taps, first;  // Q = taps C; first: the job's first block
+};
+struct TmaWArgs {
+  TmaWJob job[3];
+  int M, L, dil, chunk, stages;  // chunk: rows of a split, a multiple of 64
+};
+struct WgradMaps {
+  CUtensorMap m[6];  // each job's X and Y
+};
+
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+    wgmma_bytenet_bwd_wgrad_kernel(const __grid_constant__ WgradMaps maps, TmaWArgs a) {
+  const WgradSmem SM{a.stages};
+  const int S = a.stages;
+  unsigned char* smem = wg::aligned_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM.bars());
+  uint64_t* empty = full + S;
+  const int bx = blockIdx.x;  // the job by selects, not an index into the parameters
+  const int j = bx >= a.job[2].first ? 2 : bx >= a.job[1].first ? 1 : 0;
+  const TmaWJob jb = j == 2 ? a.job[2] : j == 1 ? a.job[1] : a.job[0];
+  const CUtensorMap* mx = j == 2 ? &maps.m[4] : j == 1 ? &maps.m[2] : &maps.m[0];
+  const CUtensorMap* my = j == 2 ? &maps.m[5] : j == 1 ? &maps.m[3] : &maps.m[1];
+  const int tiles_q = jb.Q / 128, tiles = (jb.P / 128) * tiles_q;
+  const int local = bx - jb.first, split = local / tiles, tile = local % tiles;
+  const int p0 = (tile / tiles_q) * 128, q0 = (tile % tiles_q) * 128;
+  const int t = q0 / jb.C, i0 = q0 - t * jb.C, shift = (t - (jb.taps - 1) / 2) * a.dil;
+  const int mb = split * a.chunk, me = min(a.M, mb + a.chunk);
+  const int n_chunks = me > mb ? (me - mb + 63) / 64 : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s)
+      wg::mbar_init(&full[s], 1), wg::mbar_init(&empty[s], TMA_CONSUMERS);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == TMA_CONSUMERS) {  // the producer
+    if (lane == 0) {
+      wg::tma_prefetch(mx);
+      wg::tma_prefetch(my);
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % S, k0 = mb + 64 * i;
+        wg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        unsigned char* st = smem + s * WgradSmem::STAGE;
+        wg::mbar_arrive_expect(&full[s], WgradSmem::STAGE);
+        wg::tma_load_2d(st, mx, &full[s], p0, k0);
+        wg::tma_load_2d(st + BOX, mx, &full[s], p0 + 64, k0);
+        wg::tma_load_2d(st + 2 * BOX, my, &full[s], i0, k0 + shift);
+        wg::tma_load_2d(st + 3 * BOX, my, &full[s], i0 + 64, k0 + shift);
+      }
+    }
+    return;
+  }
+
+  const int grp = warp / TMA_GROUP_WARPS, wq = warp % TMA_GROUP_WARPS;
+  const int g = lane >> 2, t4 = lane & 3, gt = threadIdx.x % 128;
+  float acc[16][4];
+  for (int i = 0; i < n_chunks; ++i) {
+    const int s = i % S, k0 = mb + 64 * i;
+    wg::mbar_wait(&full[s], (i / S) & 1);
+    unsigned char* st = smem + s * WgradSmem::STAGE;
+    if (crosses(k0 % a.L, shift, a.L)) {  // the group's X rows whose tap row is in another chain
+      int lpos[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) lpos[k] = (k0 + gt / 8 + 16 * k) % a.L;
+      zero_rows(st + grp * BOX, lpos, shift, a.L, gt);
+      wg::fence_proxy();
+      wg::bar_sync(2 + grp, 128);
+    }
+    const uint64_t da = wg::desc(st + grp * BOX, BOX, 1024);
+    const uint64_t db = wg::desc(st + 2 * BOX, BOX, 1024);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n128<1, 1>(acc, wg::desc_add(da, 2048 * kk), wg::desc_add(db, 2048 * kk),
+                            i > 0 || kk > 0);
+    wg::commit();
+    wg::wait<1>();  // the previous chunk is done
+    if (i > 0) release(&empty[(i - 1) % S], lane);
+  }
+  wg::wait<0>();
+  if (n_chunks > 0) release(&empty[(n_chunks - 1) % S], lane);
+  if (n_chunks == 0) {
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+  }
+  wg::fence_acc(acc);
+  float* dst = jb.part + (size_t)split * jb.P * jb.Q;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int pp = p0 + 64 * grp + 16 * wq + g + 8 * hh;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      store2(dst + (size_t)pp * jb.Q + q0 + 8 * jj + 2 * t4, acc[jj][2 * hh],
+             acc[jj][2 * hh + 1]);
+  }
+}
+
+// The transposed-A product alone: d [64, 128] f32 = a^T b for a [64 k][64 m]
+// and b [64 k][128 n] bf16 row-major, one warpgroup, the operands written
+// into 128-byte-swizzled shared memory by the threads
+__global__ void __launch_bounds__(128) trans_a_probe_kernel(const bf16* a, const bf16* b,
+                                                            float* d) {
+  unsigned char* s = wg::aligned_smem();
+  for (int i = threadIdx.x; i < 64 * 64; i += 128)
+    *reinterpret_cast<bf16*>(s + wg::swizzle128(i / 64, i % 64)) = a[i];
+  for (int i = threadIdx.x; i < 64 * 128; i += 128)
+    *reinterpret_cast<bf16*>(s + BOX + (i % 128 / 64) * BOX + wg::swizzle128(i / 128, i % 64)) =
+        b[i];
+  wg::fence_proxy();
+  __syncthreads();
+  float acc[16][4];
+  const uint64_t da = wg::desc(s, BOX, 1024), db = wg::desc(s + BOX, BOX, 1024);
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wg::mma_m64n128<1, 1>(acc, wg::desc_add(da, 2048 * kk), wg::desc_add(db, 2048 * kk), kk > 0);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(acc);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      store2(d + (16 * w + g + 8 * hh) * 128 + 8 * jj + 2 * t4, acc[jj][2 * hh],
+             acc[jj][2 * hh + 1]);
+}
+
+// Each Hopper kernel's limit on dynamic shared memory, set once (the first
+// call of a process is eager: a graph capture sets nothing)
+cudaError_t tma_limits() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(wgmma_bytenet_bwd_data_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DataSmem{DATA_STAGES}.bytes());
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(wgmma_bytenet_bwd_wgrad_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                WgradSmem{WGRAD_STAGES[1]}.bytes());
+  }();
+  return err;
+}
+
+bool one_of(long long v, const int (&set)[2]) { return v == set[0] || v == set[1]; }
+
+// The plan of one call as the caller computed it
+// (ops/fused_bytenet.py::bytenet_block_backward_plan), PLAN_LEN values:
+// the workspace's bytes, the splits and rows of a split; for each data GEMM
+// (de, dbb, da) grid x, y, cluster x, threads, shared memory, stages; the
+// weight-gradient launch's blocks, threads, shared memory, stages; the sum's
+// blocks, jobs, threads; the N_MAPS tensor maps (columns, rows, row bytes,
+// box columns, box rows) of dy, w2, q, dq, wc, p, dp, w1, x, e, bb, a. Only
+// the splits and the weight gradients' stages are choices; the rest
+// follows from the shape.
+bool own_plan(const long long* plan, int B, int L, int D, int H, int K, Layout* t) {
+  const long long M = (long long)B * L, rt = (M + TMA_BM - 1) / TMA_BM;
+  const long long splits = plan[1];
+  if (splits < 1 || splits > (M + 63) / 64) return false;
+  const int chunk = split_rows(M, (int)splits);
+  *t = layout_of(M, D, H, K, 2, (int)rt, (int)rt, (int)((M + chunk - 1) / chunk), chunk);
+  long long want[PLAN_LEN];
+  want[0] = (long long)t->bytes;
+  want[1] = t->splits;
+  want[2] = chunk;
+  const int cols[3] = {H, H, D};
+  for (int i = 0; i < 3; ++i) {
+    const long long w[6] = {cols[i] / TMA_BN, rt, cols[i] / TMA_BN, TMA_THREADS,
+                            DataSmem{DATA_STAGES}.bytes(), DATA_STAGES};
+    for (int k = 0; k < 6; ++k) want[3 + 6 * i + k] = w[k];
+  }
+  const long long wst = plan[24];
+  if (!one_of(wst, WGRAD_STAGES)) return false;
+  const long long tiles = wgrad_tiles(D, H) + wgrad_tiles(H, K * H) + wgrad_tiles(H, D);
+  want[21] = tiles * t->splits;
+  want[22] = TMA_THREADS;
+  want[23] = WgradSmem{(int)wst}.bytes();
+  want[24] = wst;
+  want[25] = sum_blocks(D, H, K);
+  want[26] = SUM_JOBS;
+  want[27] = 256;
+  const long long shapes[N_MAPS][2] = {{D, M}, {H, D}, {H, M}, {H, M}, {K * H, H}, {H, M},
+                                       {H, M}, {D, H}, {D, M}, {H, M}, {H, M}, {D, M}};
+  for (int k = 0; k < N_MAPS; ++k) {
+    const long long w[5] = {shapes[k][0], shapes[k][1], shapes[k][0] * 2, 64, 64};
+    for (int i = 0; i < 5; ++i) want[28 + 5 * k + i] = w[i];
+  }
+  for (int i = 0; i < PLAN_LEN; ++i)
+    if (plan[i] != want[i]) return false;
+  return want[3 + 2] <= MAX_CLUSTER && want[15 + 2] <= MAX_CLUSTER &&
+         want[3 + 4] <= TMA_MAX_SMEM && want[23] <= TMA_MAX_SMEM;
+}
+
+cudaError_t launch_data(const long long* lp, const CUtensorMap& ma, const CUtensorMap& mw,
+                        const CUtensorMap& mz, TmaDataArgs args, cudaStream_t stream) {
+  args.stages = (int)lp[5];
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)lp[0], (unsigned)lp[1], 1);
+  cfg.blockDim = dim3((unsigned)lp[3]);
+  cfg.dynamicSmemBytes = (size_t)lp[4];
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)lp[2];
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  void* params[4] = {const_cast<CUtensorMap*>(&ma), const_cast<CUtensorMap*>(&mw),
+                     const_cast<CUtensorMap*>(&mz), &args};
+  const cudaError_t err =
+      cudaLaunchKernelExC(&cfg, (const void*)wgmma_bytenet_bwd_data_kernel, params);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+int launch_tma(const bf16* x, const bf16* p, const bf16* q, const float2* stats,
+               const float* const* prm, const bf16* w1, const bf16* wc, const bf16* w2,
+               const bf16* dy, bf16* dx, const Grads& gr, unsigned char* ws, int B, int L, int D,
+               int H, int K, int dil, int gelu, const long long* plan, cudaStream_t stream,
+               int* launched) {
+  Layout t;
+  if (!own_plan(plan, B, L, D, H, K, &t)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = tma_limits();
+  if (err != cudaSuccess) return (int)err;
+  const int M = B * L;
+  bf16* dq = reinterpret_cast<bf16*>(ws + t.dq);
+  bf16* dp = reinterpret_cast<bf16*>(ws + t.dp);
+  bf16* e = reinterpret_cast<bf16*>(ws + t.e);
+  bf16* bb = reinterpret_cast<bf16*>(ws + t.bb);
+  bf16* a = reinterpret_cast<bf16*>(ws + t.a);
+  const void* bases[N_MAPS] = {dy, w2, q, dq, wc, p, dp, w1, x, e, bb, a};
+  CUtensorMap maps[N_MAPS];
+  for (int k = 0; k < N_MAPS; ++k) {
+    const long long* m = plan + 28 + 5 * k;
+    if (reinterpret_cast<uintptr_t>(bases[k]) % 16) return (int)cudaErrorInvalidValue;
+    const cuuint64_t dims[2] = {(cuuint64_t)m[0], (cuuint64_t)m[1]};
+    const cuuint64_t strides[1] = {(cuuint64_t)m[2]};
+    const cuuint32_t box[2] = {(cuuint32_t)m[3], (cuuint32_t)m[4]};
+    if (!wg::encode(&maps[k], bases[k], 2, dims, strides, box)) return (int)cudaErrorInvalidValue;
+  }
+  const float2* sx = stats;
+  const float2* sp = stats ? stats + M : nullptr;
+  const float2* sq = stats ? stats + 2 * (size_t)M : nullptr;
+  float* col1 = reinterpret_cast<float*>(ws + t.col1);
+  float* col2 = reinterpret_cast<float*>(ws + t.col2);
+  float* col3 = reinterpret_cast<float*>(ws + t.col3);
+  const TmaDataArgs d1{sq, prm[6], prm[7], nullptr, dq, e, col1, M, L, D, H, 1, 0, gelu, 0};
+  const TmaDataArgs d2{sp, prm[3], prm[4], nullptr, dp, bb, col2, M, L, H, H, K, dil, gelu, 0};
+  const TmaDataArgs d3{sx, prm[0], prm[1], dy, dx, a, col3, M, L, H, D, 1, 0, gelu, 0};
+#define HD_STEP(call)                                 \
+  if ((err = (call)) != cudaSuccess) return (int)err; \
+  ++*launched;
+  HD_STEP(launch_data(plan + 3, maps[0], maps[1], maps[2], d1, stream));
+  HD_STEP(launch_data(plan + 9, maps[3], maps[4], maps[5], d2, stream));
+  HD_STEP(launch_data(plan + 15, maps[6], maps[7], maps[8], d3, stream));
+  TmaWArgs wa{{{reinterpret_cast<float*>(ws + t.w2p), D, H, H, 1, 0},
+               {reinterpret_cast<float*>(ws + t.wcp), H, K * H, H, K, 0},
+               {reinterpret_cast<float*>(ws + t.w1p), H, D, D, 1, 0}},
+              M, L, dil, t.chunk, (int)plan[24]};
+  wa.job[1].first = wgrad_tiles(D, H) * t.splits;
+  wa.job[2].first = wa.job[1].first + wgrad_tiles(H, K * H) * t.splits;
+  WgradMaps wm{{maps[0], maps[9], maps[3], maps[10], maps[6], maps[11]}};
+  {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)plan[21]);
+    cfg.blockDim = dim3((unsigned)plan[22]);
+    cfg.dynamicSmemBytes = (size_t)plan[23];
+    cfg.stream = stream;
+    void* params[2] = {&wm, &wa};
+    err = cudaLaunchKernelExC(&cfg, (const void*)wgmma_bytenet_bwd_wgrad_kernel, params);
+    HD_STEP(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  HD_STEP(sum_all(gr, t, ws, D, H, K, stream));
 #undef HD_STEP
   return 0;
 }
@@ -628,4 +1344,71 @@ extern "C" int hd_bytenet_block_bwd(
                         static_cast<bf16*>(dx), gr, ws, B, L, D, H, K, dil, act, s, launched);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K4 on Hopper: bf16, D and H multiples of 128 up to 1024 (the shapes
+// ops/fused_bytenet.py::bytenet_block_backward_plan gives this path).
+// Arguments as hd_bytenet_block_bwd's, without dtype; x, p, q, dy, the
+// weights and the workspace at 16-byte aligned addresses (TMA); the
+// workspace of plan[0] bytes; `plan` the call's PLAN_LEN values, refused
+// unless they are this source's own. Sets *launched to the kernels
+// launched (5 on success) and returns a cudaError_t code (0 = all launched).
+extern "C" int hd_bytenet_block_bwd_tma(
+    const void* x, const void* p, const void* q, const void* stats, const void* g1, const void* b1,
+    const void* w1, const void* c1, const void* g2, const void* b2, const void* wc,
+    const void* cc, const void* g3, const void* b3, const void* w2, const void* c2,
+    const void* dy, void* dx, void* dg1, void* db1, void* dw1, void* dc1, void* dg2,
+    void* db2, void* dwc, void* dcc, void* dg3, void* db3, void* dw2, void* dc2,
+    void* workspace, int B, int L, int D, int H, int K, int dil, int act,
+    const long long* plan, void* stream, int* launched) {
+  *launched = 0;
+  if (bad_shape(B, L, D, H, K, dil, act) || D % TMA_BN || H % TMA_BN ||
+      reinterpret_cast<uintptr_t>(workspace) % 256)
+    return (int)cudaErrorInvalidValue;
+  auto f = [](const void* v) { return static_cast<const float*>(v); };
+  auto o = [](void* v) { return static_cast<float*>(v); };
+  auto h = [](const void* v) { return static_cast<const bf16*>(v); };
+  const float* prm[9] = {f(g1), f(b1), f(c1), f(g2), f(b2), f(cc), f(g3), f(b3), f(c2)};
+  const Grads gr{o(dg1), o(db1), o(dw1), o(dc1), o(dg2), o(db2),
+                 o(dwc), o(dcc), o(dg3), o(db3), o(dw2), o(dc2)};
+  return launch_tma(h(x), h(p), h(q), static_cast<const float2*>(stats), prm, h(w1), h(wc),
+                    h(w2), h(dy), static_cast<bf16*>(dx), gr,
+                    static_cast<unsigned char*>(workspace), B, L, D, H, K, dil, act, plan,
+                    static_cast<cudaStream_t>(stream), launched);
+}
+
+// The transposed-A wgmma alone (trans_a_probe_kernel): d [64, 128] f32 =
+// a^T b for bf16 a [64, 64] and b [64, 128], row-major, on the card; returns
+// a cudaError_t code
+extern "C" int hd_wgmma_trans_a_probe(const void* a, const void* b, void* d, void* stream) {
+  trans_a_probe_kernel<<<1, 128, 3 * BOX + wg::SMEM_SLACK, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(d));
+  return (int)cudaGetLastError();
+}
+
+// How the Hopper K4's launches of `plan` fit the card: out[0..2] the data
+// GEMMs' clusters that can be resident at once (cudaOccupancyMaxActiveClusters),
+// out[3] the weight-gradient blocks an SM; returns a cudaError_t code
+extern "C" int hd_bytenet_block_bwd_occupancy(const long long* plan, int* out) {
+  cudaError_t err = tma_limits();
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < 3; ++i) {
+    const long long* lp = plan + 3 + 6 * i;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)lp[0], (unsigned)lp[1], 1);
+    cfg.blockDim = dim3((unsigned)lp[3]);
+    cfg.dynamicSmemBytes = (size_t)lp[4];
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)lp[2];
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    if ((err = cudaOccupancyMaxActiveClusters(&out[i], (const void*)wgmma_bytenet_bwd_data_kernel,
+                                              &cfg)) != cudaSuccess)
+      return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[3], wgmma_bytenet_bwd_wgrad_kernel, (int)plan[22], (size_t)plan[23]);
 }

@@ -1,6 +1,6 @@
 // Hopper's asynchronous tile machinery for the bf16 kernels of
-// fused_layer.cu (K8), rope_attention.cu (K1), rope_attention_bwd.cu (K3,
-// K6) and bytenet_block.cu (K2): TMA
+// fused_layer.cu (K8), rope_attention.cu (K1, K5, K7), rope_attention_bwd.cu
+// (K3, K6), bytenet_block.cu (K2) and bytenet_block_bwd.cu (K4): TMA
 // tensor maps and bulk copies into shared memory, mbarriers, and wgmma, as
 // raw PTX. Raw PTX and not CuTe's atoms: the kernels need four
 // instructions of each kind, nvcc builds a source that includes no CUTLASS
@@ -164,8 +164,9 @@ template <int J> __device__ __forceinline__ void fence_acc(float (&d)[J][4]) {
 
 // d (64 x 64, f32) = A B + (accumulate ? d : 0) on the warpgroup, A [64, 16] and
 // B [16, 64] from shared memory through their descriptors; B N-major (TRANS_B
-// 1) or K-major (TRANS_B 0: [64 n][k] rows, laid out as an A operand)
-template <int TRANS_B = 1>
+// 1) or K-major (TRANS_B 0: [64 n][k] rows, laid out as an A operand); A
+// K-major (TRANS_A 0) or M-major (TRANS_A 1)
+template <int TRANS_B = 1, int TRANS_A = 0>
 __device__ __forceinline__ void mma_m64n64(float (&d)[8][4], uint64_t da, uint64_t db,
                                          int accumulate) {
   asm volatile(
@@ -175,7 +176,7 @@ __device__ __forceinline__ void mma_m64n64(float (&d)[8][4], uint64_t da, uint64
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -184,13 +185,13 @@ __device__ __forceinline__ void mma_m64n64(float (&d)[8][4], uint64_t da, uint64
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x 128, f32) = A B + (accumulate ? d : 0) on the warpgroup, A [64, 16] and
 // B [16, 128] from shared memory through their descriptors; B N-major or
-// K-major, as for mma_m64n64
-template <int TRANS_B = 1>
+// K-major and A K-major or M-major, as for mma_m64n64
+template <int TRANS_B = 1, int TRANS_A = 0>
 __device__ __forceinline__ void mma_m64n128(float (&d)[16][4], uint64_t da, uint64_t db,
                                          int accumulate) {
   asm volatile(
@@ -204,7 +205,7 @@ __device__ __forceinline__ void mma_m64n128(float (&d)[16][4], uint64_t da, uint
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -221,7 +222,7 @@ __device__ __forceinline__ void mma_m64n128(float (&d)[16][4], uint64_t da, uint
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 

@@ -8,12 +8,17 @@ to x's rows as they land, and the first two finish the next LayerNorm in
 their epilogues, as thread-block clusters spanning a row tile's columns,
 writing act(LN2 p) and act(LN3 q) for the next GEMM; in bf16 with widths
 that are multiples of 128 on Hopper's TMA + wgmma, otherwise on the
-earlier cp.async + mma.sync core, chosen by ``bytenet_block_plan`` from the shape) and
-``csrc/bytenet_block_bwd.cu`` (K4: five launches, three data-gradient
-GEMMs with the LayerNorm backward in their epilogues, one grouped
-weight-gradient GEMM and one fixed-order reduction), both on the pipelined
-GEMM core of ``csrc/gemm_tiles.cuh``; their headers say what bounds them
-on an H100 and how the designs answer that.
+earlier cp.async + mma.sync core, chosen by ``bytenet_block_plan`` from the
+shape) and ``csrc/bytenet_block_bwd.cu`` (K4: five launches, three
+data-gradient GEMMs with the LayerNorm backward in their epilogues, one
+grouped weight-gradient GEMM and one fixed-order reduction; in bf16 with
+widths that are multiples of 128 on TMA + wgmma, the data GEMMs as
+clusters over a row tile's columns and the weight gradients on wgmma's
+transpose-A bit, otherwise on the cp.async + mma.sync core, chosen by
+``bytenet_block_backward_plan`` from the shape); the older designs run on
+``csrc/gemm_tiles.cuh``, the Hopper ones on ``csrc/wgmma_tiles.cuh``; the
+sources' headers say what bounds them on an H100 and how the designs
+answer that.
 
 Parameters: ``w1`` [H, D] and ``w2`` [D, H] as ``nn.Linear`` weights,
 ``wc`` [H, K, H] (out, tap, in: ``ops/bytenet.py::DilatedConv``); the
@@ -58,6 +63,10 @@ _BWD_SIGNATURES = {
     'hd_bytenet_block_bwd': [ctypes.c_void_p] * 31 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p, ctypes.c_void_p],
     'hd_bytenet_block_bwd_workspace': [ctypes.c_int] * 6,
+    'hd_bytenet_block_bwd_tma': [ctypes.c_void_p] * 31 + [ctypes.c_int] * 7
+                                + [ctypes.c_void_p] * 3,
+    'hd_wgmma_trans_a_probe': [ctypes.c_void_p] * 4,
+    'hd_bytenet_block_bwd_occupancy': [ctypes.c_void_p] * 2,
 }
 _BWD_RESTYPES = {'hd_bytenet_block_bwd_workspace': ctypes.c_longlong}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,6 +166,140 @@ def bytenet_block_plan(B: int, L: int, D: int, H: int, K: int, dilation: int, dt
         launches.append(launch)
     array = sum((ln['array'] for ln in launches), ())
     return {'path': 'wgmma', 'launches': launches, 'array': array,
+            'c_array': (ctypes.c_longlong * len(array))(*array)}
+
+
+# K4's launches on the H100 (csrc/bytenet_block_bwd.cu). The Hopper path
+# (bf16, D and H multiples of 128) runs its three data GEMMs on 128 x 128
+# tiles of the B*L rows and N columns: a producer warp and two consumer
+# warpgroups of 64 rows each; a stage is the A rows (two 64 x 64 boxes)
+# and the weights' 64 rows (two 64-column boxes), 32 KB (after the
+# products: dh in f32 and the z tile); then come the mbarriers (256 bytes),
+# three [128] float2 of row values, the tile's g and b (128 f32 each) and
+# 1 KB of alignment: three stages, two blocks an SM. A cluster spans a row
+# tile's N / 128 column tiles. The weight-gradient launch's blocks are 128
+# x 128 tiles of one split of the rows, a stage two 64-column boxes of each
+# operand (32 KB): three stages let two blocks share an SM, six hold one.
+# The mma.sync and FMA designs keep the other shapes.
+K4_TMA_BM, K4_TMA_BN = 128, 128
+K4_TMA_THREADS = 9 * 32
+K4_BOX = 64 * 128
+K4_DATA_STAGES = 3
+K4_WGRAD_STAGES = (3, 6)
+K4_WGRAD_TARGET = 4 * H100_SMS    # weight-gradient blocks a call aims at ...
+K4_WGRAD_MIN_ROWS = 512           # ... with at least this many rows a split (mma.sync)
+K4_TMA_MIN_SPLIT_ROWS = 2048      # ... (Hopper: fewer partials; read faster on an H100)
+# The 256/128 tower's data GEMMs have one 128-column tile: up to this many
+# rows (B <= 32 at L = 152) the Hopper design left most SMs idle and read
+# 5-6% slower than mma.sync on an H100; the plan keeps mma.sync there
+K4_TMA_MIN_ROWS_H128 = 8192
+K4_SUM_BLOCKS = 2 * H100_SMS
+K4_SUM_JOBS = 12
+K4_PLAN_LEN = 88
+K4_PATHS = ('wgmma', 'mma_sync', 'fma')
+
+
+def k4_data_smem(stages: int) -> int:
+    """Shared memory of a Hopper K4 data-GEMM block with a ring of ``stages``."""
+    return stages * 4 * K4_BOX + 256 + 3 * 128 * 8 + 2 * 128 * 4 + 1024
+
+
+def k4_wgrad_smem(stages: int) -> int:
+    """Shared memory of a Hopper K4 weight-gradient block."""
+    return stages * 4 * K4_BOX + 256 + 1024
+
+
+def _wgrad_tiles(P: int, Q: int) -> int:
+    return -(-P // 128) * -(-Q // 128)
+
+
+def _split_rows(M: int, splits: int) -> int:
+    """Rows of a split, a multiple of 64 (``split_rows`` in the source)."""
+    return -(-(-(-M // splits)) // 64) * 64
+
+
+def _k4_workspace(M: int, D: int, H: int, K: int, nb: int, splits: int) -> int:
+    """Bytes of the Hopper design's workspace (``layout_of``): dq, dp, e, bb
+    [M, H] and a [M, D] bf16, the column partials [3][nb][H] twice and
+    [3][nb][D], the splits' f32 partials of dW2, dWc, dW1; 256-byte aligned."""
+    parts = (M * H * 2, M * H * 2, M * H * 2, M * H * 2, M * D * 2, 3 * nb * H * 4,
+             3 * nb * H * 4, 3 * nb * D * 4, splits * D * H * 4, splits * H * K * H * 4,
+             splits * H * D * 4)
+    return sum(-(-b // 256) * 256 for b in parts)
+
+
+@functools.lru_cache(maxsize=None)
+def bytenet_block_backward_plan(B: int, L: int, D: int, H: int, K: int, dilation: int, dtype,
+                                path: str = None, splits: int = None) -> dict:
+    """K4's five launches for x [B, L, D] of ``dtype``, hidden H, K taps,
+    on an H100, from the shape alone. ``path`` 'wgmma' (TMA + wgmma: bf16,
+    D and H multiples of 128 up to 1024, except H = 128 up to
+    K4_TMA_MIN_ROWS_H128 rows, where mma.sync read faster), else the earlier
+    'mma_sync' (bf16) or 'fma' (f32), which keep no plan beyond their name
+    (the source lays them out). For 'wgmma': the three data GEMMs (de, dbb, da: ``grid``
+    column tiles x 64-row tiles, ``cluster`` a row tile's column tiles,
+    ``threads``, ``smem_bytes``, ``stages``), the weight-gradient launch
+    (``blocks``: 128 x 128 tiles of dW2, dWc, dW1 times ``splits`` of the
+    rows, ``chunk`` rows each), the sum, the ``tensor_maps`` of dy, w2, q,
+    dq, wc, p, dp, w1, x, e, bb, a (2-D, 64 x 64 boxes, 128-byte swizzle),
+    ``workspace_bytes`` and ``array``, the K4_PLAN_LEN values the C entry
+    takes (``c_array`` as ctypes; plans are cached by shape). ``path`` names
+    another design for comparison where its kernel takes the shape;
+    ``splits`` another split of the rows; what no kernel takes raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f'bytenet_block_backward: dtype {dtype} not supported')
+    if (B <= 0 or L <= 0 or D <= 0 or H <= 0 or D % 32 or H % 32 or max(D, H) > 1024
+            or K <= 0 or K % 2 == 0 or dilation <= 0 or B * L > (1 << 30) // D):
+        raise ValueError(f'bytenet_block_backward: unsupported shape B={B} L={L} D={D} H={H} '
+                         f'K={K} dilation={dilation} (D, H multiples of 32 up to 1024, K odd)')
+    bf16 = dtype is torch.bfloat16
+    takes = bf16 and D % K4_TMA_BN == 0 and H % K4_TMA_BN == 0
+    faster = takes and (H > 128 or B * L > K4_TMA_MIN_ROWS_H128)
+    path = path or ('wgmma' if faster else 'mma_sync' if bf16 else 'fma')
+    if path not in K4_PATHS or (path == 'wgmma' and not takes) \
+            or (path == 'mma_sync' and not bf16) or (path == 'fma' and bf16):
+        raise ValueError(f'bytenet_block_backward: no {path!r} path for {dtype} at B={B} '
+                         f'L={L} D={D} H={H}')
+    if path != 'wgmma':
+        if splits is not None:
+            raise ValueError(f'bytenet_block_backward: the {path!r} design picks its own splits')
+        return {'path': path}
+    M = B * L
+    rows = -(-M // K4_TMA_BM)
+    tiles = _wgrad_tiles(D, H) + _wgrad_tiles(H, K * H) + _wgrad_tiles(H, D)
+    if splits is None:
+        splits = min(max(-(-K4_WGRAD_TARGET // tiles), 1), -(-M // K4_TMA_MIN_SPLIT_ROWS))
+    if not 1 <= splits <= -(-M // 64):
+        raise ValueError(f'bytenet_block_backward: {splits} splits of {M} rows')
+    chunk = _split_rows(M, splits)
+    splits = -(-M // chunk)
+    data = []
+    for N, C, taps in ((H, D, 1), (H, H, K), (D, H, 1)):   # de, dbb, da
+        grid = (N // K4_TMA_BN, rows, 1)
+        data.append({'grid': grid, 'cluster': (grid[0], 1, 1), 'threads': K4_TMA_THREADS,
+                     'smem_bytes': k4_data_smem(K4_DATA_STAGES), 'stages': K4_DATA_STAGES,
+                     'chunks': taps * C // 64})
+    blocks = tiles * splits
+    wstages = K4_WGRAD_STAGES[blocks <= H100_SMS]
+    wgrad = {'blocks': blocks, 'threads': K4_TMA_THREADS, 'smem_bytes': k4_wgrad_smem(wstages),
+             'stages': wstages, 'splits': splits, 'chunk': chunk}
+    widest = max(H * K * H, D * H)
+    sum_launch = {'blocks': min(-(-widest // 256), K4_SUM_BLOCKS), 'jobs': K4_SUM_JOBS,
+                  'threads': 256}
+    shapes = {'dy': (D, M), 'w2': (H, D), 'q': (H, M), 'dq': (H, M), 'wc': (K * H, H),
+              'p': (H, M), 'dp': (H, M), 'w1': (D, H), 'x': (D, M), 'e': (H, M), 'bb': (H, M),
+              'a': (D, M)}
+    maps = {k: {'dims': v, 'strides': (v[0] * 2,), 'box': (64, 64), 'swizzle': 128}
+            for k, v in shapes.items()}
+    ws = _k4_workspace(M, D, H, K, rows, splits)
+    array = (ws, splits, chunk,
+             *(v for ln in data for v in (*ln['grid'][:2], ln['cluster'][0], ln['threads'],
+                                          ln['smem_bytes'], ln['stages'])),
+             blocks, K4_TMA_THREADS, wgrad['smem_bytes'], wstages,
+             sum_launch['blocks'], K4_SUM_JOBS, 256,
+             *(v for m in maps.values() for v in (*m['dims'], *m['strides'], *m['box'])))
+    return {'path': 'wgmma', 'data': data, 'wgrad': wgrad, 'sum': sum_launch,
+            'tensor_maps': maps, 'workspace_bytes': ws, 'array': array,
             'c_array': (ctypes.c_longlong * len(array))(*array)}
 
 
@@ -400,14 +543,16 @@ def _forward(x, params, dilation: int, activation_name: str, keep: bool, plan: d
 
 
 def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2, dy, *,
-                           dilation: int, activation_name: str, stats=None):
+                           dilation: int, activation_name: str, stats=None, plan: dict = None):
     """(dx, 12 f32 parameter gradients) of the block at (x, p, q) for the
     output gradient ``dy`` (cast to x's type first, as ``_fused_bwd``
     does): K4 on a CUDA tensor, the plain version on a CPU one. K4 reads
     the weights in x's type (rounded here unless they already are, as the
     forward's copies that ``ByteNetBlockFn`` keeps). ``stats``: the
     forward's LayerNorm statistics of x, p, q rows ([3, B, L, 2] f32, as
-    ``_forward`` returns them); without them K4 takes them itself."""
+    ``_forward`` returns them); without them K4 takes them itself.
+    ``plan`` (``bytenet_block_backward_plan``) defaults to the shape's own;
+    a caller may pass another design's to compare the two."""
     global bwd_launches
     params = (g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2)
     dy = dy.to(x.dtype)
@@ -415,6 +560,7 @@ def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, 
         return bytenet_block_backward_reference(x, p, q, *params, dy, dilation=dilation,
                                                 activation_name=activation_name, stats=stats)
     B, L, D, H, K = _check(x, w1, wc, w2, activation_name, 'bytenet_block_backward')
+    plan = plan or bytenet_block_backward_plan(B, L, D, H, K, dilation, x.dtype)
     dev, cd = x.device, x.dtype
     x, p, q, dy = (_ready(t, dev, cd) for t in (x, p, q, dy))
     if p.shape != (B, L, H) or q.shape != (B, L, H) or dy.shape != x.shape:
@@ -424,27 +570,63 @@ def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, 
         if stats.shape != (3, B, L, 2):
             raise ValueError('bytenet_block_backward: stats must be [3, B, L, 2]')
     params = _prepared(params, dev, cd)
+    tma = plan['path'] == 'wgmma'
+    if tma:
+        x, p, q, dy = (_aligned(t) for t in (x, p, q, dy))
+        params = tuple(_aligned(t) if i in _WEIGHTS else t for i, t in enumerate(params))
     grads = [torch.empty(t.shape, dtype=torch.float32, device=dev) for t in params]
     dx = torch.empty_like(x)
     lib = _build.load('bytenet_block_bwd', _BWD_SIGNATURES, _BWD_RESTYPES)
     act, dt = _ACTS[activation_name], _DTYPES[cd]
-    nbytes = lib.hd_bytenet_block_bwd_workspace(B, L, D, H, K, dt)
+    nbytes = plan['workspace_bytes'] if tma else lib.hd_bytenet_block_bwd_workspace(
+        B, L, D, H, K, dt)
     if nbytes <= 0:
         raise ValueError(f'bytenet_block_backward: unsupported shape B={B} L={L} D={D} '
                          f'H={H} K={K}')
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
-    with _on(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.hd_bytenet_block_bwd(
-            x.data_ptr(), p.data_ptr(), q.data_ptr(),
+    ptrs = (x.data_ptr(), p.data_ptr(), q.data_ptr(),
             stats.data_ptr() if stats is not None else None, *(t.data_ptr() for t in params),
             dy.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in grads),
-            workspace.data_ptr(), B, L, D, H, K, int(dilation), act, dt, stream,
-            ctypes.addressof(launched))
+            workspace.data_ptr(), B, L, D, H, K, int(dilation), act)
+    with _on(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tma:
+            code = lib.hd_bytenet_block_bwd_tma(*ptrs, plan['c_array'], stream,
+                                                ctypes.addressof(launched))
+        else:
+            code = lib.hd_bytenet_block_bwd(*ptrs, dt, stream, ctypes.addressof(launched))
     bwd_launches += launched.value
     _build.check(code, 'bytenet_block_backward')
     return (dx, *grads)
+
+
+def k4_occupancy(plan: dict) -> dict:
+    """How a Hopper K4 plan's launches fit the card in this process: the
+    clusters of each data GEMM that can be resident at once and the
+    weight-gradient blocks an SM (the CUDA occupancy calculator)."""
+    lib = _build.load('bytenet_block_bwd', _BWD_SIGNATURES, _BWD_RESTYPES)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.hd_bytenet_block_bwd_occupancy(plan['c_array'], out),
+                 'bytenet_block_backward occupancy')
+    return {'data_clusters': list(out[:3]), 'wgrad_blocks_per_sm': out[3]}
+
+
+def wgmma_trans_a_probe(a, b):
+    """The transposed-A wgmma alone on the card: a^T b in f32 for bf16 a
+    [64, 64] and b [64, 128] (``trans_a_probe_kernel``), which the weight
+    gradients' products are built on; for the card tests, against
+    ``torch.matmul``."""
+    if a.device.type != 'cuda' or a.shape != (64, 64) or b.shape != (64, 128):
+        raise ValueError('wgmma_trans_a_probe: bf16 a [64, 64] and b [64, 128] on a card')
+    a, b = (t.to(torch.bfloat16).contiguous() for t in (a, b))
+    d = torch.empty(64, 128, dtype=torch.float32, device=a.device)
+    lib = _build.load('bytenet_block_bwd', _BWD_SIGNATURES, _BWD_RESTYPES)
+    with _on(a.device):
+        code = lib.hd_wgmma_trans_a_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                          torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(code, 'wgmma_trans_a_probe')
+    return d
 
 
 class ByteNetBlockFn(torch.autograd.Function):

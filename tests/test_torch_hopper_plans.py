@@ -1,15 +1,17 @@
-"""The launch plans of K1, K2, K3 and K5-K7 on an H100, and (on a card) the
-Hopper kernels against their plain versions.
+"""The launch plans of K1-K7 on an H100, and (on a card) the Hopper kernels
+against their plain versions.
 
-``rope_attention_qkv_plan``, ``bytenet_block_plan`` and
-``rope_attention_bwd_plan`` compute each launch from the shape alone: the
-path (TMA + wgmma on Hopper, or the earlier mma.sync / FMA designs), grid,
-cluster, shared memory and the TMA tensor maps. The C entries refuse any
-plan but their own, so these CPU tests hold the numbers every launch on the
-paths would take: B in {1, 16, 64, 128, 512}; L in {291, 152, 139}; 8, 4
-and 2 heads; the towers 256/128, 768/384, 512/256 and the demos' 64/32 and
-192/96 at K = 13; for the backward B in {16, 32, 128, 512} and L in {291,
-152, 100, 37, 17}, both layouts.
+``rope_attention_qkv_plan``, ``bytenet_block_plan``,
+``rope_attention_bwd_plan`` and ``bytenet_block_backward_plan`` compute
+each launch from the shape alone: the path (TMA + wgmma on Hopper, or the
+earlier mma.sync / FMA designs), grid, cluster, shared memory and the TMA
+tensor maps. The C entries refuse any plan but their own, so these CPU
+tests hold the numbers every launch on the paths would take: B in {1, 16,
+64, 128, 512}; L in {291, 152, 139}; 8, 4 and 2 heads; the towers 256/128,
+768/384, 512/256 and the demos' 64/32 and 192/96 at K = 13; for the
+attention backward B in {16, 32, 128, 512} and L in {291, 152, 100, 37,
+17}, both layouts; for K4 B in {16, 32, 128, 512}, L in {152, 139},
+dilations 1 and 32.
 
 The tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip without a
 card; the file imports neither JAX nor ``hudiff_tpu``:
@@ -17,7 +19,8 @@ card; the file imports neither JAX nor ``hudiff_tpu``:
     python -m pytest --noconftest tests/test_torch_hopper_plans.py -q -m cuda
 
 Their limits are chip_smoke.py's: f32 |err| <= 1e-5 (K1, K3, K6) / 2e-5
-(K2); bf16 |err| <= 2**-7 |ref| + 5e-3 (K1, K3, K6) / 2.5e-2 (K2).
+(K2); bf16 |err| <= 2**-7 |ref| + 5e-3 (K1, K3, K6) / 2.5e-2 (K2); K4's dx
+2**-7 |ref| + 1.5e-2 and its gradients 2e-3 max |ref|.
 """
 import re
 
@@ -380,6 +383,157 @@ def test_k3_refusals():
             FA.rope_attention_bwd_plan(**kw)
 
 
+# -- K4 ------------------------------------------------------------------------
+
+K4_BATCHES = (16, 32, 128, 512)
+K4_LENGTHS = (152, 139)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=str)
+@pytest.mark.parametrize('dil', DILATIONS)
+@pytest.mark.parametrize('D,K', TOWERS)
+@pytest.mark.parametrize('L', K4_LENGTHS)
+@pytest.mark.parametrize('B', K4_BATCHES)
+def test_k4_plan(B, L, D, K, dil, dtype):
+    """K4's plan at every shape the paths give it: the Hopper design for
+    bf16 with D and H multiples of 128 (its three data GEMMs on 128 x 128
+    tiles in clusters over a row tile's columns, the weight gradients on
+    128 x 128 tiles of the rows' splits, the sum, twelve 64 x 64 tensor
+    maps), mma.sync for the demos' widths, FMA for f32."""
+    H, M = D // 2, B * L
+    plan = FB.bytenet_block_backward_plan(B, L, D, H, K, dil, dtype)
+    if dtype is torch.float32:
+        assert plan == {'path': 'fma'}
+        return
+    if D % 128 or H % 128:
+        assert plan == {'path': 'mma_sync'}
+        with pytest.raises(ValueError):
+            FB.bytenet_block_backward_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+        return
+    if H == 128 and M <= 8192:   # one column tile, few row tiles: mma.sync read faster
+        assert plan == {'path': 'mma_sync'}
+        plan = FB.bytenet_block_backward_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+    assert plan['path'] == 'wgmma'
+    rows = -(-M // 128)
+    for ln, (N, C, taps) in zip(plan['data'], ((H, D, 1), (H, H, K), (D, H, 1))):
+        assert ln['grid'] == (N // 128, rows, 1) and max(ln['grid']) <= 65535
+        assert ln['cluster'] == (N // 128, 1, 1) and ln['cluster'][0] <= FB.MAX_CLUSTER
+        assert ln['threads'] == 288 and ln['chunks'] == taps * C // 64
+        assert ln['stages'] == FB.K4_DATA_STAGES == 3   # two blocks an SM
+        assert 2 * (ln['smem_bytes'] + 1024) <= 233472
+        assert ln['smem_bytes'] == FB.k4_data_smem(3) <= FB.MAX_SMEM
+    w = plan['wgrad']
+    tiles = (D // 128) * (H // 128) + (H // 128) * (K * H // 128) + (H // 128) * (D // 128)
+    chunk, splits = w['chunk'], w['splits']
+    assert chunk % 64 == 0 and splits == -(-M // chunk) and (splits - 1) * chunk < M
+    assert splits == -(-M // FB._split_rows(M, min(max(-(-4 * 132 // tiles), 1),
+                                                    -(-M // 2048))))
+    assert w['blocks'] == tiles * splits and w['threads'] == 288
+    assert w['stages'] == (6 if w['blocks'] <= 132 else 3)
+    assert w['smem_bytes'] == FB.k4_wgrad_smem(w['stages']) <= FB.MAX_SMEM
+    assert w['stages'] == 6 or 2 * (w['smem_bytes'] + 1024) <= 233472
+    assert plan['sum'] == {'blocks': min(-(-max(H * K * H, D * H) // 256), 264), 'jobs': 12,
+                           'threads': 256}
+    maps = plan['tensor_maps']
+    assert list(maps) == ['dy', 'w2', 'q', 'dq', 'wc', 'p', 'dp', 'w1', 'x', 'e', 'bb', 'a']
+    for name, (cols, rws) in {'dy': (D, M), 'w2': (H, D), 'q': (H, M), 'dq': (H, M),
+                              'wc': (K * H, H), 'p': (H, M), 'dp': (H, M), 'w1': (D, H),
+                              'x': (D, M), 'e': (H, M), 'bb': (H, M), 'a': (D, M)}.items():
+        tm = maps[name]
+        assert tm['dims'] == (cols, rws) and tm['strides'] == (cols * 2,) and tm['box'] == (64, 64)
+        assert _map_ok(tm) and tm['swizzle'] == 128
+    part = lambda n: -(-n // 256) * 256  # noqa: E731
+    assert plan['workspace_bytes'] == (4 * part(M * H * 2) + part(M * D * 2)
+                                       + 2 * part(3 * rows * H * 4) + part(3 * rows * D * 4)
+                                       + part(splits * D * H * 4) + part(splits * H * K * H * 4)
+                                       + part(splits * H * D * 4))
+    a = plan['array']
+    assert len(a) == FB.K4_PLAN_LEN and list(plan['c_array']) == list(a)
+    assert a[:3] == (plan['workspace_bytes'], splits, chunk)
+    assert a[21:28] == (w['blocks'], 288, w['smem_bytes'], w['stages'], plan['sum']['blocks'],
+                        12, 256)
+    # the same plan at every dilation: the choice depends on the shape alone
+    assert plan['array'] == FB.bytenet_block_backward_plan(B, L, D, H, K, 1, dtype,
+                                                           path='wgmma')['array']
+
+
+def test_k4_paths_and_splits():
+    """The Hopper design on the training paths' towers (768/384 and 512/256
+    at B = 16-512, 256/128 past 8192 rows); mma.sync for 256/128 up to 8192
+    rows, on request for the other shapes, and for the demos' widths; every split of the rows in 64-row chunks can be asked
+    for, and a split count that rounds to fewer chunks gives their number."""
+    bf = torch.bfloat16
+    path = lambda *a, **k: FB.bytenet_block_backward_plan(*a, **k)['path']  # noqa: E731
+    for B in (16, 32, 128, 512):
+        for D in (768, 512, 256):
+            # the 256/128 tower at B <= 32 (the fine-tune step) keeps mma.sync
+            want = 'mma_sync' if D == 256 and B <= 32 else 'wgmma'
+            assert path(B, 152, D, D // 2, 7, 1, bf) == path(B, 139, D, D // 2, 7, 1, bf) == want
+            assert path(B, 139, D, D // 2, 7, 32, bf, path='mma_sync') == 'mma_sync'
+            assert path(B, 139, D, D // 2, 7, 32, bf, path='wgmma') == 'wgmma'
+    assert path(53, 152, 256, 128, 7, 1, bf) == 'mma_sync' and path(54, 152, 256, 128, 7, 1,
+                                                                     bf) == 'wgmma'
+    for D in (64, 192):
+        assert path(128, 152, D, D // 2, 13, 1, bf) == 'mma_sync'
+    # the splits that read fastest on an H100 (bytenet_bwd_sweep --splits):
+    # 768/384 and 256/128 at B = 128, 512/256 and 256/128 at B = 512
+    for D, B, splits in ((768, 128, 6), (256, 128, 10), (512, 512, 12), (256, 512, 38)):
+        assert FB.bytenet_block_backward_plan(B, 152, D, D // 2, 7, 1,
+                                              bf)['wgrad']['splits'] == splits
+    M = 128 * 152
+    for splits in (1, 2, 3, 5, 16, 304):
+        plan = FB.bytenet_block_backward_plan(128, 152, 768, 384, 7, 1, bf, splits=splits)
+        w = plan['wgrad']
+        assert w['chunk'] == FB._split_rows(M, splits) and w['splits'] == -(-M // w['chunk'])
+        assert w['splits'] <= splits and w['blocks'] == 99 * w['splits']
+
+
+def test_k4_refusals():
+    """What no kernel takes raises: another dtype, an empty or oversized
+    shape, an even K, widths past 1024 or not multiples of 32; the Hopper
+    design in f32 or at widths that are not multiples of 128; mma.sync in
+    f32; FMA in bf16; a split of no row or past the 64-row chunks; a split
+    for a design that picks its own."""
+    bf = torch.bfloat16
+    with pytest.raises(TypeError):
+        FB.bytenet_block_backward_plan(16, 152, 768, 384, 7, 1, torch.float16)
+    for args in [(16, 152, 768, 384, 6, 1, bf), (16, 152, 770, 385, 7, 1, bf),
+                 (16, 152, 2048, 1024, 7, 1, bf), (0, 152, 768, 384, 7, 1, bf),
+                 (16, 0, 768, 384, 7, 1, bf), (16, 152, 768, 384, 7, 0, bf),
+                 (1 << 20, 2048, 768, 384, 7, 1, bf)]:
+        with pytest.raises(ValueError):
+            FB.bytenet_block_backward_plan(*args)
+    for args, kw in [((16, 152, 192, 96, 13, 1, bf), dict(path='wgmma')),
+                     ((16, 152, 768, 384, 7, 1, torch.float32), dict(path='wgmma')),
+                     ((16, 152, 768, 384, 7, 1, torch.float32), dict(path='mma_sync')),
+                     ((16, 152, 768, 384, 7, 1, bf), dict(path='fma')),
+                     ((16, 152, 768, 384, 7, 1, bf), dict(path='tiles')),
+                     ((16, 152, 768, 384, 7, 1, bf), dict(splits=0)),
+                     ((16, 152, 768, 384, 7, 1, bf), dict(splits=39)),
+                     ((16, 152, 768, 384, 7, 1, bf), dict(path='mma_sync', splits=2))]:
+        with pytest.raises(ValueError):
+            FB.bytenet_block_backward_plan(*args, **kw)
+
+
+def test_k4_cpu_tensors_take_the_plain_version():
+    """On the CPU the backward runs its plain version, whatever the plan."""
+    g = torch.Generator().manual_seed(17)
+    B, L, D, H, K = 2, 19, 128, 128, 3
+    x, dy = (torch.randn(B, L, D, generator=g).bfloat16() for _ in range(2))
+    p, q = (torch.randn(B, L, H, generator=g).bfloat16() for _ in range(2))
+    params = [torch.randn(s, generator=g) * 0.1 + (1.0 if i in (0, 4, 8) else 0.0)
+              for i, s in enumerate(((D,), (D,), (H, D), (H,), (H,), (H,), (H, K, H), (H,),
+                                     (H,), (H,), (D, H), (D,)))]
+    kw = dict(dilation=2, activation_name='gelu')
+    want = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+    before = FB.bwd_launches
+    for path in ('wgmma', 'mma_sync'):
+        plan = FB.bytenet_block_backward_plan(B, L, D, H, K, 2, torch.bfloat16, path=path)
+        got = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, plan=plan)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert FB.bwd_launches == before
+
+
 def test_plans_mirror_the_sources():
     """The constants the plans use are the CUDA sources' own."""
     src = {n: (_build.CSRC_DIR / n).read_text()
@@ -409,6 +563,28 @@ def test_plans_mirror_the_sources():
     for name in ('wgmma_rope_attention_qkv_kernel', 'wgmma_rope_attention_sep_fwd_kernel',
                  'wgmma_plain_attention_kernel', 'hd_rope_attention_tma', 'hd_attention_tma'):
         assert name in fwd, name
+    k4 = (_build.CSRC_DIR / 'bytenet_block_bwd.cu').read_text()
+    env = {}   # each K4 constant in order, from the constants before it
+
+    def k4_num(name):
+        env[name] = eval(re.search(rf'constexpr int {name} = ([^;]+);', k4).group(1), {}, env)
+        return env[name]
+    assert k4_num('WGRAD_TARGET') == FB.K4_WGRAD_TARGET
+    assert k4_num('WGRAD_MIN_ROWS') == FB.K4_WGRAD_MIN_ROWS
+    assert k4_num('SUM_JOBS') == FB.K4_SUM_JOBS and k4_num('SUM_BLOCKS') == FB.K4_SUM_BLOCKS
+    assert k4_num('TMA_BM') == FB.K4_TMA_BM and k4_num('TMA_BN') == FB.K4_TMA_BN
+    k4_num('TMA_GROUP_WARPS')
+    k4_num('TMA_CONSUMERS')
+    assert k4_num('TMA_THREADS') == FB.K4_TMA_THREADS and k4_num('BOX') == FB.K4_BOX
+    assert k4_num('TMA_MAX_SMEM') == FB.MAX_SMEM and k4_num('MAX_CLUSTER') == FB.MAX_CLUSTER
+    assert k4_num('DATA_STAGES') == FB.K4_DATA_STAGES
+    assert 'constexpr int WGRAD_STAGES[2] = {%d, %d};' % FB.K4_WGRAD_STAGES in k4
+    assert k4_num('N_MAPS') == len(FB.bytenet_block_backward_plan(
+        16, 152, 768, 384, 7, 1, torch.bfloat16)['tensor_maps'])
+    assert k4_num('PLAN_LEN') == FB.K4_PLAN_LEN
+    for name in ('wgmma_bytenet_bwd_data_kernel', 'wgmma_bytenet_bwd_wgrad_kernel',
+                 'hd_bytenet_block_bwd_tma', 'hd_wgmma_trans_a_probe'):
+        assert name in k4, name
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -562,10 +738,10 @@ def test_hopper_k5_residuals_feed_k6(dev, B, L):
 
 @pytest.mark.cuda
 def test_hopper_entries_from_a_fresh_thread(dev):
-    """The Hopper K5 and K6 launch where their tensor maps are the first CUDA
-    work of a thread (autograd's backward thread, the first time its first
-    kernel is one of them), with the bits of the same calls on the main
-    thread."""
+    """The Hopper K4, K5 and K6 launch where their tensor maps are the first
+    CUDA work of a thread (autograd's backward thread, the first time its
+    first kernel is one of them), with the bits of the same calls on the
+    main thread."""
     import threading
     from hudiff_tpu_torch.ops.rope import rope_tables
     bf, heads, B, L = torch.bfloat16, 8, 16, 152
@@ -576,8 +752,17 @@ def test_hopper_entries_from_a_fresh_thread(dev):
     want = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, heads, out=o32, lse=lse)
     got = {}
 
+    xb, dyb = (torch.randn(B, L, 768, generator=g).to(dev, bf) for _ in range(2))
+    from hudiff_tpu_torch.tools import bytenet_bwd_sweep as S
+    params = S.block_params(768, 'relu', 2, dev, g)
+    kw = dict(dilation=2, activation_name='relu')
+    _, p, qq, st = FB._forward(xb, params, 2, 'relu', keep=True)
+    assert FB.bytenet_block_backward_plan(B, L, 768, 384, 7, 2, bf)['path'] == 'wgmma'
+    want_k4 = FB.bytenet_block_backward(xb, p, qq, *params, dyb, **kw, stats=st)
+
     def work():
         try:
+            got['k4'] = FB.bytenet_block_backward(xb, p, qq, *params, dyb, **kw, stats=st)
             got['bwd'] = FA.rope_attention_backward(q, k, v, cos, sin, do, 0.125, heads,
                                                     out=o32, lse=lse)
             got['fwd'] = FA.rope_attention_forward(q, k, v, cos, sin, 0.125, heads, True)
@@ -591,6 +776,7 @@ def test_hopper_entries_from_a_fresh_thread(dev):
     assert 'error' not in got, got.get('error')
     assert all(torch.equal(a, b) for a, b in zip(got['bwd'], want))
     assert all(torch.equal(a, b) for a, b in zip(got['fwd'][1:], (o32, lse)))
+    assert all(torch.equal(a, b) for a, b in zip(got['k4'], want_k4))
 
 
 @pytest.mark.cuda
@@ -670,6 +856,56 @@ def test_k3_k6_on_the_card(dev, L, heads, dtype):
                             qkv, cos, sin, do, 0.125, heads, out=o32, lse=lse, plan=other))
 
 
+@pytest.mark.cuda
+def test_wgmma_transposed_a_alone(dev):
+    """One wgmma m64n128k16 chain with the transpose-A bit (A M-major in
+    shared memory, as the weight gradients read X^T) against torch.matmul."""
+    g = torch.Generator().manual_seed(23)
+    for _ in range(3):
+        a = torch.randn(64, 64, generator=g).to(dev, torch.bfloat16)
+        b = torch.randn(64, 128, generator=g).to(dev, torch.bfloat16)
+        got = FB.wgmma_trans_a_probe(a, b)
+        want = torch.matmul(a.float().t(), b.float())
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+K4_EDGE = [(2, 139, 768, 'relu', 32), (3, 37, 256, 'gelu', 4), (2, 152, 512, 'gelu', 1),
+           (1, 100, 1024, 'gelu', 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,L,D,act,dil', K4_EDGE)
+def test_k4_on_the_card(dev, B, L, D, act, dil):
+    """The Hopper K4 and mma.sync at the edge shapes (L = 139, dilation 32,
+    B*L not a multiple of 64 or 128, a cluster of 8), with and without K2's
+    statistics, against the plain version given the same, within K4's
+    limits (dx: 2**-7 |ref| + 1.5e-2; gradients 2e-3 max |ref|); a repeat
+    gives the same bits, five launches a call."""
+    from hudiff_tpu_torch.tools import bytenet_bwd_sweep as S
+    H, K, bf = D // 2, 7, torch.bfloat16
+    g = torch.Generator().manual_seed(B * L + D + dil)
+    params = S.block_params(D, act, dil, dev, g)
+    x, dy = (torch.randn(B, L, D, generator=g).to(dev, bf) for _ in range(2))
+    kw = dict(dilation=dil, activation_name=act)
+    _, p, q, st = FB._forward(x, params, dil, act, keep=True)
+    chosen_path = FB.bytenet_block_backward_plan(B, L, D, H, K, dil, bf)['path']
+    for stats in (st, None):
+        ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw, stats=stats)
+        chosen = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, stats=stats)
+        for path in ('wgmma', 'mma_sync'):
+            plan = FB.bytenet_block_backward_plan(B, L, D, H, K, dil, bf, path=path)
+            before = FB.bwd_launches
+            got = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, stats=stats, plan=plan)
+            again = FB.bytenet_block_backward(x, p, q, *params, dy, **kw, stats=stats, plan=plan)
+            torch.cuda.synchronize()
+            assert FB.bwd_launches == before + 10
+            rec = S.held(got, ref)
+            assert rec['held'], (path, stats is None, rec)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), path
+            if path == chosen_path:
+                assert all(torch.equal(a, b) for a, b in zip(got, chosen))
+
+
 def test_bwd_sweep_shapes_and_refusal_without_a_card(monkeypatch):
     """The backward's timing tool covers every shape the paths give K3 (B
     in 16, 32, 128, 512; L = 291, 152 and the short lengths; 8, 4 and 2
@@ -680,6 +916,57 @@ def test_bwd_sweep_shapes_and_refusal_without_a_card(monkeypatch):
     assert set(S.MAIN_SHAPES) <= set(S.PATH_SHAPES)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert S.main(['--shapes', 'main']) == 2
+
+
+def test_k4_sweep_shapes_and_refusal_without_a_card(monkeypatch):
+    """K4's timing tool covers the shapes the training paths give it (the
+    Ab towers at B = 16, 32 and 128, L = 152 and 139; the Nb towers at B =
+    512, L = 152), holds the card tests' limits and, without a card, refuses
+    with exit code 2."""
+    from hudiff_tpu_torch.tools import bytenet_bwd_sweep as S
+    assert set(S.PATH_SHAPES) == {(B, L, 768, 'relu') for B in (16, 32, 128) for L in (152, 139)} \
+        | {(B, L, 256, 'gelu') for B in (16, 32, 128) for L in (152, 139)} \
+        | {(512, 152, 512, 'gelu'), (512, 152, 256, 'gelu')}
+    assert set(S.MAIN_SHAPES) <= set(S.PATH_SHAPES) and S.DILATIONS == DILATIONS
+    assert (S.DX_ATOL, S.GRAD_RTOL) == (1.5e-2, 2e-3)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert S.main(['--shapes', 'main']) == 2
+
+
+def test_k4_sweep_time_designs_on_the_cpu(monkeypatch):
+    """The timing that the tool and chip_smoke.py's K4 records share: each
+    design is held before it is timed, ``device_ms`` is the plan's design's,
+    and an output off its limits stops it before its design is timed
+    (graph_ms stubbed, CPU tensors take the plain version: no card)."""
+    from hudiff_tpu_torch.tools import bytenet_bwd_sweep as S
+    timed = []
+
+    def graph_ms(fn):
+        fn()
+        timed.append(fn)
+        return float(len(timed))
+
+    monkeypatch.setattr(S, 'graph_ms', graph_ms)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    g = torch.Generator().manual_seed(5)
+    params = S.block_params(256, 'gelu', 2, torch.device('cpu'), g)
+    x, dy = (torch.randn(2, 19, 256, generator=g).bfloat16() for _ in range(2))
+    _, p, q, _ = FB._forward(x, params, 2, 'gelu', keep=True)
+    kw = dict(dilation=2, activation_name='gelu')
+    ref = FB.bytenet_block_backward_reference(x, p, q, *params, dy, **kw)
+    call = lambda plan: FB.bytenet_block_backward(x, p, q, *params, dy, **kw,  # noqa: E731
+                                                  plan=plan)
+    rec = S.time_designs(call, ref, (2, 19, 256, 128, 2), launches=False)
+    # 38 rows of the 256/128 tower: the plan keeps mma.sync, timed second
+    assert rec['path'] == 'mma_sync' and rec['device_ms'] == rec['device_ms_mma_sync'] == 2.0
+    assert rec['device_ms_wgmma'] == 1.0 and rec['held_wgmma'] and rec['held_mma_sync']
+    assert rec['dx_excess_wgmma'] <= 0.0 and rec['grad_rel_err_mma_sync'] == 0.0
+    timed.clear()
+    off = [t.clone() for t in ref]
+    off[3] = off[3] * 1.01
+    with pytest.raises(RuntimeError, match='wgmma design'):
+        S.time_designs(call, off, (2, 19, 256, 128, 2), launches=False)
+    assert not timed
 
 
 @pytest.mark.parametrize('layout', ('qkv', 'sep', 'blhd', 'bhld'))
@@ -793,7 +1080,8 @@ def test_hopper_gate_reads_every_librarys_log(monkeypatch):
     or not this process built it (cuobjdump stubbed: no card)."""
     import types
     import chip_smoke
-    libs = ('rope_attention', 'bytenet_block', 'rope_attention_bwd')
+    libs = chip_smoke.HOPPER_LIBRARIES
+    assert 'bytenet_block_bwd' in libs
     counts = {f'wgmma_kernel_{i}': {'HGMMA': 4, 'UTMALDG': 2, 'HMMA': 0}
               for i in range(chip_smoke.HOPPER_INSTANTIATIONS)}
     monkeypatch.setattr(chip_smoke, 'sass_counts',
