@@ -185,6 +185,18 @@ version on the card. Then:
   the same bits (``k4_paths``, sharing ``tools/bytenet_bwd_sweep.py``'s
   ``time_designs``); ``hopper_kernels`` holds HOPPER_LIBRARIES, K4's two
   kernels among the HOPPER_INSTANTIATIONS.
+- K2 on Hopper at every bf16 path shape: a 128-row design beside the
+  64-row one (``ops/fused_bytenet.py::bytenet_block_plan`` picks by shape
+  among them and mma.sync), F2 and F3 under programmatic dependent launch.
+  The ``K2`` phase also runs the Ab towers at the pretraining and
+  fine-tuning batches (B = 128 and 32, bf16). Every bf16 K2 record carries
+  ``k2_paths``'s keys: the device ms of each design that takes the shape
+  (``device_ms_wgmma``, ``device_ms_wgmma128``, ``device_ms_mma_sync``;
+  ``device_ms`` the plan's) and of the composition
+  (``library_device_ms``), each design held to the K2 limits and repeating
+  to the same bits (``tools/bytenet_fwd_sweep.py``'s ``time_designs``);
+  the kernels line carries them a forward at B = 16, 32, 64 and 128 (Nb
+  at 16 and 512).
 
 One JSON object per line; the last line is ``{"ok": true, "device":
 {...}}``. Any failed check exits non-zero before that line. Without a CUDA
@@ -225,6 +237,7 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}  # f32 kernels use FMA, not 
 MAIN_B = 16          # rows per humanization round on the main path
 BIG_B = 64
 TRAIN_B = 128        # configs/antibody_train.yml's batch
+AB_FINETUNE_B = 32   # configs/antibody_finetune.yml's
 SHORT_LENGTHS = (17, 37, 100)   # K3 at these lengths too (the entry points take any L)
 SEED = 2023
 # Tolerances. f32: |out - ref| <= TOL_F32, the same arithmetic in another
@@ -519,27 +532,35 @@ def k7_paths(torch, q, k, v, scale):
     return rec
 
 
-def k2_paths(torch, x, args, dil, act):
-    """K2's path at this shape and, in bf16, the device ms (graph_ms) of
-    both designs where the Hopper one takes the shape (D and H multiples of
-    128), each held to the K2 limit."""
+def k2_paths(torch, x, args, dil, act, ref):
+    """K2's design at this shape (``path``) and, in bf16 at widths the
+    Hopper designs take, the device ms (graph_ms) of each design that takes
+    the shape (``device_ms_wgmma``, ``device_ms_wgmma128``,
+    ``device_ms_mma_sync``; ``device_ms`` the plan's) and of the PyTorch
+    composition on the same inputs (``library_device_ms``), each design's
+    output held to the K2 limit against ``ref`` (the plain version's) and
+    repeating to the same bits (``bytenet_fwd_sweep.time_designs``)."""
     from hudiff_tpu_torch.ops import fused_bytenet as FB
+    from hudiff_tpu_torch.tools import bytenet_fwd_sweep as S
     B, L, D = x.shape
     H, K = args[2].shape[0], args[6].shape[1]
-    rec = {'path': FB.bytenet_block_plan(B, L, D, H, K, dil, x.dtype)['path']}
+    plan = FB.bytenet_block_plan(B, L, D, H, K, dil, x.dtype)
     if x.dtype != torch.bfloat16:
-        return rec
-    ref = FB.bytenet_block_reference(x, *args, dilation=dil, activation_name=act)
-    for path in ('wgmma', 'mma_sync'):
-        try:
-            plan = FB.bytenet_block_plan(B, L, D, H, K, dil, x.dtype, path=path)
-        except ValueError:   # the Hopper design does not take this shape
-            continue
-        y = FB._forward(x, args, dil, act, keep=False, plan=plan)[0]
+        return {'path': plan['path']}
+
+    def held(name, y):
         if not check_err(torch, 'K2', y, ref)[1]:
-            fail(f'K2 ({path} design) disagrees with its plain version at B={B} L={L} D={D}')
-        rec[f'device_ms_{path}'] = graph_ms(
-            torch, lambda: FB._forward(x, args, dil, act, keep=False, plan=plan))
+            fail(f'K2 ({name} design) disagrees with its plain version at B={B} L={L} D={D}')
+
+    lib = S.composition_params(args, x.dtype)
+    try:
+        rec = S.time_designs(lambda pl: FB._forward(x, args, dil, act, keep=False, plan=pl)[0],
+                             held, (B, L, D, H, K, dil),
+                             composition=lambda: S.block_composition(x, lib, dil, act))
+    except RuntimeError as e:
+        fail(str(e))
+    if plan['path'] in FB.K2_HOPPER:
+        rec['bn'] = [ln['bn'] for ln in plan['launches']]
     return rec
 
 
@@ -701,28 +722,6 @@ def k2_stage_excess(torch, x, args, dil, act):
     return out
 
 
-def composition_params(args, dtype):
-    """The block's parameters for ``block_composition``: all in ``dtype``,
-    the conv weight as F.conv1d takes it ([out, in, K])."""
-    g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, c2 = (t.detach().to(dtype) for t in args)
-    return g1, b1, w1, c1, g2, b2, wc.permute(0, 2, 1).contiguous(), cc, g3, b3, w2, c2
-
-
-def block_composition(x, prm, dil, act):
-    """The ByteNet block as PyTorch's own calls (F.layer_norm with eps 1e-6,
-    the activation, F.linear, F.conv1d, F.linear): the yardstick K2 and,
-    through autograd, K4 are timed beside. The port never calls it."""
-    import torch.nn.functional as F
-    g1, b1, w1, c1, g2, b2, wconv, cc, g3, b3, w2, c2 = prm
-    f = F.relu if act == 'relu' else F.gelu
-    d, h, k = x.shape[-1], w1.shape[0], wconv.shape[-1]
-    p = F.linear(f(F.layer_norm(x, (d,), g1, b1, 1e-6)), w1, c1)
-    bb = f(F.layer_norm(p, (h,), g2, b2, 1e-6))
-    q = F.conv1d(bb.transpose(1, 2), wconv, cc, padding=(k - 1) // 2 * dil,
-                 dilation=dil).transpose(1, 2)
-    return x + F.linear(f(F.layer_norm(q, (h,), g3, b3, 1e-6)), w2, c2)
-
-
 def ptxas_registers(logs):
     """Registers and spilled bytes of each kernel, from nvcc's -Xptxas -v
     output by source: {source: [[kernel, registers, spill stores, spill
@@ -781,8 +780,10 @@ def sass_counts(library, opcodes=('HGMMA', 'UTMALDG'), symbols=False):
     return counts
 
 
-HOPPER_INSTANTIATIONS = 18   # K1 2, K5 2, K7 1, K2 3, K3 and K6 dq and dkv at 1 and 2
-#                              warpgroups, K4's data GEMM and weight gradients
+HOPPER_INSTANTIATIONS = 27   # K1 2, K5 2, K7 1, K2 12 (three launches of 64-row tiles of
+#                              64 and 128 columns and of 128-row tiles of 128 and 256), K3 and
+#                              K6 dq and dkv at 1 and 2 warpgroups, K4's data GEMM and weight
+#                              gradients
 HOPPER_LIBRARIES = ('rope_attention', 'bytenet_block', 'rope_attention_bwd', 'bytenet_block_bwd')
 
 
@@ -863,9 +864,11 @@ def profiled_run(torch, work, between=None):
 def launch_times(torch, fn, counter, n=5):
     """The device ms of each kernel one call of ``fn`` launches, in launch
     order (median over ``n`` calls, each in a profiled run of its own), from
-    the profiler; a run whose kernel records are not the ``counter()``
+    the profiler (``added_ms``: from the later of its start and the previous
+    kernel's end); a run whose kernel records are not the ``counter()``
     launches of one call is read again (the profiler can miss or carry over
     a record, PERF.md §6); 'not measured' when none is."""
+    from hudiff_tpu_torch.tools import added_ms
     fn()
     torch.cuda.synchronize()
     before = counter()
@@ -881,7 +884,7 @@ def launch_times(torch, fn, counter, n=5):
     for _ in range(2 * n):
         ks = [e for e in profiled_run(torch, work)[1] if 'bytenet' in e.name]
         if len(ks) == per:
-            runs.append([e.time_range.elapsed_us() / 1e3 for e in ks])
+            runs.append(added_ms(ks))
             names = [e.name[:80] for e in ks]
         if len(runs) == n:
             break
@@ -976,11 +979,15 @@ def main():
     # -- phase 3: K2 against its plain version at every Ab tower shape ------
     cfg = DenoiserConfig()
     torch.manual_seed(SEED)   # the blocks' initial weights
+    ab_towers = [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
+                 (cfg.sum_d_model, 'relu', cfg.dual_layers)]
     results['K2'] = k2_phase(
-        torch, gen, dev, [(cfg.d_model, cfg.activation, cfg.n_encoder_layers),
-                          (cfg.sum_d_model, 'relu', cfg.dual_layers)],
-        (MAIN_B, BIG_B), (C.HEAVY_LEN, C.LIGHT_LEN), cfg.aa_kernel_size, cfg.r, 'K2',
-        launch_shape=(MAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1))
+        torch, gen, dev, ab_towers, (MAIN_B, BIG_B), (C.HEAVY_LEN, C.LIGHT_LEN),
+        cfg.aa_kernel_size, cfg.r, 'K2', launch_shape=(MAIN_B, cfg.sum_d_model, C.HEAVY_LEN, 1))
+    # ... and at the pretraining and fine-tuning batches, bf16: every design held and timed
+    results['K2'].update(k2_phase(
+        torch, gen, dev, ab_towers, (TRAIN_B, AB_FINETUNE_B), (C.HEAVY_LEN, C.LIGHT_LEN),
+        cfg.aa_kernel_size, cfg.r, 'K2', dtypes=(torch.bfloat16,), readings=False))
 
     # -- phase 4: full-width forward, f32 on the card vs the CPU --------------
     torch.manual_seed(SEED)
@@ -1121,7 +1128,10 @@ def main():
          **parallel['K1'], **orbax['K1'], 'launches_graph_sampler': graphed['K1'],
          'launches_bench': benched['K1']},
         {'name': 'K2 ByteNet block forward (three GEMMs, each LayerNorm + activation '
-                 'applied as its operand lands)',
+                 'applied as its operand lands; bf16 at widths that are multiples of 128 on '
+                 'TMA + wgmma: 64-row tiles at the sampling batches, 128-row tiles in clusters '
+                 'over a row tile at the training batches, F2 and F3 under programmatic '
+                 'dependent launch)',
          'route': 'cuda',
          'source': 'hudiff_tpu_torch/csrc/bytenet_block.cu',
          'replaces': 'hudiff_tpu/ops/pallas_bytenet.py:162',
@@ -1134,11 +1144,11 @@ def main():
          'library': LIBRARY_COMPOSITION, 'ms_per_forward': k2['ms'],
          'stage_excess': {k: k2[k] for k in STAGE_KEYS},
          'paths': k2['paths'], 'device_ms': k2['device_ms'] / n2,
-         'device_ms_wgmma': k2.get('device_ms_wgmma'),
-         'device_ms_mma_sync': k2.get('device_ms_mma_sync'),
+         **{f'device_ms_{p}': k2.get(f'device_ms_{p}') for p in K2_DESIGNS},
          'device_ms_per_forward': k2['device_ms'],
-         'device_ms_per_forward_B64': results['K2'][(BIG_B, 'bfloat16')]['device_ms'],
-         'paths_B64': results['K2'][(BIG_B, 'bfloat16')]['paths'],
+         'library_device_ms_per_forward': k2['library_device_ms'],
+         **{f'{key}_B{B}': value for B in (BIG_B, AB_FINETUNE_B, TRAIN_B)
+            for key, value in k2_totals(results['K2'][(B, 'bfloat16')]).items()},
          'sass': {k: v for k, v in hopper['sass'].items() if 'bytenet' in k},
          'launch_ms_one_dual_tower_call': k2['launch_ms'],
          'shape': f'B={MAIN_B}, one call (all its kernels), mean over the {n2} '
@@ -1191,6 +1201,18 @@ def main():
     return 0
 
 
+K2_DESIGNS = ('wgmma', 'wgmma128', 'mma_sync')   # fused_bytenet.K2_PATHS's bf16 designs
+
+
+def k2_totals(tot):
+    """The kernels line's keys of a ``K2_forward_total`` record: the paths
+    its calls took, the device ms of a forward's calls on the plan's
+    design, on each design and as the composition."""
+    return {'paths': tot['paths'], 'device_ms_per_forward': tot['device_ms'],
+            **{f'device_ms_{p}_per_forward': tot.get(f'device_ms_{p}') for p in K2_DESIGNS},
+            'library_device_ms_per_forward': tot['library_device_ms']}
+
+
 # the keys a K3 or K6 record gains from bwd_paths, carried on the kernels line
 BWD_PATH_KEYS = ('path', 'grid', 'groups', 'device_ms', 'device_ms_wgmma', 'device_ms_mma_sync',
                  'library_device_ms')
@@ -1211,11 +1233,15 @@ KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7', 'K8')
 def kernel_groups(events, n):
     """From the device kernel events of ``n`` repeats (``profiled_run``):
     device ms per repeat by group (K1-K8, cuBLAS, other), the number of
-    K1-K8 kernels seen, and every kernel with device time, largest first."""
+    K1-K8 kernels seen, and every kernel with device time, largest first.
+    A kernel's device time is what it adds to the busy time (``added_ms``:
+    a kernel that starts under the previous one's tail is not charged for
+    its wait), so the groups sum to the time the device was busy."""
+    from hudiff_tpu_torch.tools import added_ms
     by_name = {}
-    for e in events:
+    for e, added in zip(events, added_ms(events)):
         ms, calls = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+        by_name[e.name] = (ms + added, calls + 1)
     groups = dict.fromkeys(KERNELS + ('cublas', 'other'), 0.0)
     seen = dict.fromkeys(KERNELS, 0)
     for name, (ms, calls) in by_name.items():
@@ -1334,22 +1360,28 @@ def reset_counters():
     FA.rope_launches = FA.rope_bwd_launches = FA.attention_launches = FL.launches = 0
 
 
-def k2_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shape=None):
+def k2_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shape=None,
+             dtypes=None, readings=True):
     """K2 against its plain version at every block of ``towers`` ((D,
     activation, blocks) over the dilation cycle up to ``r``), each length
-    and batch, f32 and bf16: one record a call, and a ``<phase>_forward_total``
-    over the calls of one (B, dtype) with times summed. bf16 calls also
-    time the PyTorch composition, split the excess by stage, and at
-    ``launch_shape`` (B, D, L, dilation) read each launch's device ms."""
+    and batch, in ``dtypes`` (f32 and bf16): one record a call, and a
+    ``<phase>_forward_total`` over the calls of one (B, dtype) with times
+    summed. bf16 calls also time every design and the composition as graph
+    replays (``k2_paths``); with ``readings`` every call also times the
+    plain version and bf16 calls the composition on CUDA events, split the
+    excess by stage, and at ``launch_shape`` (B, D, L, dilation) read each
+    launch's device ms."""
     from hudiff_tpu_torch.ops import fused_bytenet as FB
     from hudiff_tpu_torch.ops.bytenet import ByteNetBlock, dilation_schedule
+    from hudiff_tpu_torch.tools import bytenet_fwd_sweep as S
     out = {}
     for B in batches:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes or (torch.float32, torch.bfloat16):
             name = str(dtype).split('.')[-1]
-            tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'calls': 0,
-                   'max_abs_err': 0.0, 'excess_over_rtol': 0.0, 'bytes_ms': 0.0,
-                   'ops_ms': 0.0, 'library_ms': 0.0 if dtype == torch.bfloat16 else None}
+            tot = {'ms': 0.0, 'plain_ms': 0.0 if readings else None, 'bound_ms': 0.0,
+                   'calls': 0, 'max_abs_err': 0.0, 'excess_over_rtol': 0.0, 'bytes_ms': 0.0,
+                   'ops_ms': 0.0,
+                   'library_ms': 0.0 if dtype == torch.bfloat16 and readings else None}
             for d, act, n_layers in towers:
                 h = d // 2
                 for Lc in lengths:
@@ -1378,23 +1410,22 @@ def k2_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                         tot['ops_ms'] += t_ops
                         rec['ms'] = time_ms(torch, lambda: FB.bytenet_block(x, *args, **kw),
                                             reps=5, windows=3)
-                        rec.update(k2_paths(torch, x, args, dil, act))
-                        if f"device_ms_{rec['path']}" in rec:   # the design the plan took
-                            rec['device_ms'] = rec[f"device_ms_{rec['path']}"]
-                        for key in ('device_ms', 'device_ms_wgmma', 'device_ms_mma_sync'):
+                        rec.update(k2_paths(torch, x, args, dil, act, ref))
+                        for key in K2_PATH_MS:
                             if key in rec:
                                 tot[key] = tot.get(key, 0.0) + rec[key]
                         tot.setdefault('paths', {})
                         tot['paths'][rec['path']] = tot['paths'].get(rec['path'], 0) + 1
-                        rec['plain_ms'] = time_ms(torch, lambda: FB.bytenet_block_reference(
-                            x, *args, **kw), reps=2, windows=3)
-                        if dtype == torch.bfloat16:
+                        if readings:
+                            rec['plain_ms'] = time_ms(torch, lambda: FB.bytenet_block_reference(
+                                x, *args, **kw), reps=2, windows=3)
+                        if dtype == torch.bfloat16 and readings:
                             rec.update(k2_stage_excess(torch, x, args, dil, act))
-                            lib = composition_params(args, dtype)
+                            lib = S.composition_params(args, dtype)
                             rec['library_ms'] = time_ms(
-                                torch, lambda: block_composition(x, lib, dil, act),
+                                torch, lambda: S.block_composition(x, lib, dil, act),
                                 reps=5, windows=3)
-                            rec['library_max_abs_err'] = (block_composition(x, lib, dil, act)
+                            rec['library_max_abs_err'] = (S.block_composition(x, lib, dil, act)
                                                           .float() - ref.float()).abs().max().item()
                             tot['library_ms'] += rec['library_ms']
                             if (B, d, Lc, dil) == launch_shape:
@@ -1403,7 +1434,8 @@ def k2_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                                     lambda: FB.launches)
                         emit(rec)
                         for key in ('ms', 'plain_ms', 'bound_ms'):
-                            tot[key] += rec[key]
+                            if key in rec:
+                                tot[key] += rec[key]
                         tot['calls'] += 1
                         for key in ('max_abs_err', 'excess_over_rtol', *STAGE_KEYS):
                             if key in rec:
@@ -1576,7 +1608,8 @@ def k4_phase(torch, gen, dev, towers, batches, lengths, K, r, phase, launch_shap
                         emit(rec)
                         paths.add(rec['path'])
                         for key in ('ms', 'plain_ms', 'bound_ms'):
-                            tot[key] += rec[key]
+                            if key in rec:
+                                tot[key] += rec[key]
                         tot['calls'] += 1
                         for key in ('max_abs_err', 'excess_over_rtol', 'grad_rel_err',
                                     'standalone_max_abs_err', 'standalone_grad_rel_err'):
@@ -1597,6 +1630,9 @@ def grad_rel_err(got, ref):
 
 # the device ms keys of a K4 record (k4_paths), summed over a step's blocks
 K4_PATH_MS = ('device_ms', 'device_ms_wgmma', 'device_ms_mma_sync')
+# ... and of a K2 record (k2_paths), summed over a forward's blocks
+K2_PATH_MS = ('device_ms', 'device_ms_wgmma', 'device_ms_wgmma128', 'device_ms_mma_sync',
+              'library_device_ms')
 
 
 def k4_paths(torch, x, p, q, params, dy, st, dil, act):
@@ -1630,9 +1666,10 @@ def composition_backward_ms(torch, x, params, dy, dil, act):
     """ms of the backward of ``block_composition`` under autograd (its graph
     built once, then the gradients of x and the 12 parameters for ``dy``):
     K4's yardstick."""
+    from hudiff_tpu_torch.tools import bytenet_fwd_sweep as S
     leaves = [x.detach().clone().requires_grad_()] + [
-        t.requires_grad_() for t in composition_params(params, x.dtype)]
-    y = block_composition(leaves[0], leaves[1:], dil, act)
+        t.requires_grad_() for t in S.composition_params(params, x.dtype)]
+    y = S.block_composition(leaves[0], leaves[1:], dil, act)
     ms = time_ms(torch, lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
                  reps=3, windows=3)
     del y
@@ -3812,18 +3849,21 @@ def eval_ab_phase(torch, dev, paths, root, aligned):
         eval_s = time.perf_counter() - t0
     parents = {name: (h, l) for name, h, l in pairs}
     samples = [r for r in _sample_rows(sample_csv) if r['Specific'] == 'humanization']
-    bad = []
+    bad, differ = [], {}
     for r in samples:
         h, l = parents[EH._parental_key(r['name'])]
         group = HZ.pair_input(h, l)['l_group']
-        if _region_cdrs(r['hseq'], r['lseq'], group) != _region_cdrs(h, l, group):
+        got, want = _region_cdrs(r['hseq'], r['lseq'], group), _region_cdrs(h, l, group)
+        if got != want:
             bad.append(r['name'])
+            differ[r['name']] = {'sample': got, 'parent': want, 'hseq': r['hseq'],
+                                 'lseq': r['lseq']}
     emit({'phase': 'eval_ab', 'antibodies': len(pairs), 'samples': len(samples),
           'rows_per_antibody': EVAL_ROWS, 'device_batch': EVAL_PACK, 'forwards': forwards[0],
           'humanize_s': humanize_s, 'eval_s': eval_s, **clock.record(),
           'launches': launched, 'expected_launches': expected,
           'report_keys': sorted(report), 'report': report,
-          'samples_whose_cdrs_differ': bad})
+          'samples_whose_cdrs_differ': bad, 'cdrs_that_differ': differ})
     if not (len(samples) == len(pairs) and report['n_matched'] == len(pairs)
             and report['n_skipped_unaligned'] == 0 and not bad and launched == expected
             and _json.loads(text) == report
@@ -4892,7 +4932,10 @@ def nano_entries(nano):
     out['K2'].update(nano_stage_excess={k: k2[k] for k in STAGE_KEYS},
                      nano_B512_excess_over_rtol=k2_train['excess_over_rtol'],
                      nano_B512_excess_block_f32_ln=k2_train['excess_block_f32_ln'],
-                     nano_conv_ms_per_forward=k2['ms'])
+                     nano_conv_ms_per_forward=k2['ms'],
+                     nano_bound_ms_per_forward_B512=k2_train['bound_ms'],
+                     **{f'nano_{key}_B{B}': value for B in (MAIN_B, NANO_TRAIN_B)
+                        for key, value in k2_totals(nano['K2'][(B, 'bfloat16')]).items()})
     out['K4'].update(nano_grad_rel_err=k4['grad_rel_err'],
                      nano_grad_rel_err_f32=k4_f32['grad_rel_err'],
                      nano_conv_ms_per_step=k4['ms'], nano_paths=k4['paths'],

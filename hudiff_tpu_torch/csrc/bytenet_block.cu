@@ -1,5 +1,5 @@
 // K2: the ByteNet residual block forward, as three launches, one GEMM each,
-// with every LayerNorm + activation folded into a GEMM, in two designs.
+// with every LayerNorm + activation folded into a GEMM, in three designs.
 //
 // Replaces hudiff_tpu/ops/pallas_bytenet.py::_fwd_kernel (called through
 // _pallas_fwd / bytenet_block_fused).
@@ -13,42 +13,58 @@
 //
 // What bounds it on an H100: operations. For the 768/384 dual-tower block at
 // B=64, L=152 one forward is about 31.5 GFLOP (32 us at 989 TFLOP/s bf16)
-// against about 30 MB of activations (9 us at 3.35 TB/s). At the sampler's
-// B=16 the three GEMMs are small (2,432 rows): each block's chain of
-// dependent chunks (42 for the conv at H = 384), its epilogue and the
-// launches are what cost.
+// against about 30 MB of activations (9 us at 3.35 TB/s). What holds the
+// designs far from that: at the training batches, the bytes each chunk of
+// products reads from L2 (a 64 x 128 tile reads 24 KB a 1 MFLOP chunk) and,
+// for GELU, F1's LayerNorm + activation of x, which every column tile
+// repeats (most of F1's time at 512/256); at the sampler's B <= 16 (2,432
+// rows or fewer), each block's chain of dependent chunks (42 for the conv
+// at H = 384), its epilogue and the three dependent launches.
 //
-// Hopper design (bf16, D and H multiples of 128: wgmma_bytenet_fwd_gemm_kernel;
-// wgmma_tiles.cuh), the same three GEMMs and rounding points: a block takes
-// a 64 x 128 tile of the B*L rows and a GEMM's columns. A producer warp
-// keeps a ring of 8 (or 4) stages full by TMA, each an A box (64 rows x 64
-// channels, 128-byte swizzle: rows past the ends are TMA's zeros) and the
-// tile's 128 weight rows of the same channels (the weights are K-major B
-// operands as they lie, [N][taps * C]); the F2 tap t box starts (t - (K -
-// 1) / 2) dil rows on. Two consumer warpgroups split the chunks, even and
-// odd, each a chain of wgmma m64n128k16 from shared memory with the next
-// chunk issued before the last is waited on: the chain a block waits on is
-// half the reduction, with twice the blocks a 128-row tile would give.
-// Where a landed box must change, the group that reads it rewrites it in
-// place (then a proxy fence and a group barrier): F1's x becomes bf16(act(
-// LN1 x)), LN1's statistics taken first from a pass of x's chunks through
-// the same ring; F2 zeroes the rows whose tap row lies in another chain
-// (the conv's padding; pallas_bytenet.py:174-178), only in tiles that have
-// such rows. The two partial sums meet in shared memory, each group adding
-// the other's half of the columns to its own in one order, so both round
-// alike; each group finishes its 64 columns (bias, residual, rounding) and
-// F1 and F2, launched as clusters over a row tile's column tiles, take the
-// next LayerNorm's statistics through distributed shared memory, in rank
-// order. Parameters the epilogue reads sit in shared memory and the
-// residual's loads are issued together (with each load waiting for the
-// last store an epilogue took 7-8 us). ops/fused_bytenet.py::
-// bytenet_block_plan computes every launch (grid, cluster, stages, tensor
-// maps) and the entry refuses any other; it takes this path for the 768/384
-// and 512/256 towers up to 528 conv tiles (B <= 64 at L = 152), where it
-// read faster than the cp.async + mma.sync design below on an H100.
+// Which design takes which shape (ops/fused_bytenet.py::bytenet_block_plan,
+// from tools/bytenet_fwd_sweep.py on an H100; the entries refuse any other
+// plan): bf16 with D and H multiples of 128 takes the 64-row Hopper design
+// up to 4,096 rows (B <= 16 at L = 152: the sampler, a lone request; the
+// 256/128 tower up to 8,192 rows, B = 32) and the 128-row one past them
+// (the fine-tuning, the bench's sampler and the pretraining batches). The
+// cp.async + mma.sync design keeps the demos' widths, and its FMA path f32.
 //
-// The cp.async + mma.sync design (the rest: f32, widths that are not multiples of 128, the
-// 256/128 tower, larger batches; gemm_tiles.cuh's pipelined core; one
+// Hopper designs (wgmma_tiles.cuh; bytenet_tiles.cuh the parts K4 shares),
+// the same three GEMMs and rounding points. A producer warp keeps a ring of
+// stages full by TMA, each an A box of the tile's rows and 64 channels
+// (128-byte swizzle: rows past the ends are TMA's zeros; the F2 tap t box
+// starts (t - (K - 1) / 2) dil rows on) and the tile's weight rows of the
+// same channels (K-major B operands as they lie, [N][taps * C]). Where a
+// landed box must change, the groups that read it rewrite it in place (then
+// a proxy fence and a group barrier): F1's x becomes bf16(act(LN1 x)),
+// LN1's statistics summed first (both designs sum x's rows in one order:
+// the same statistics), from global memory while the ring fills in the
+// 64-row design, through the ring ahead of the chunks in the 128-row one;
+// F2
+// zeroes the rows whose tap row lies in another chain (the conv's padding;
+// pallas_bytenet.py:174-178), only in tiles that have such rows. F1 and F2
+// launch as clusters over a row tile's column tiles, which take the next
+// LayerNorm's row sums through distributed shared memory, in rank order.
+// F2 and F3 are programmatic dependent launches: each starts under the
+// previous launch's tail, sets up and asks for its first weights, and waits
+// for that launch before it reads or writes anything else.
+//  - 64-row design (wgmma_bytenet_fwd_gemm_kernel<STAGE, BN>): 64 x BN tiles
+//    (BN 128, or 64 where a launch has few tiles), a ring of 8 stages (one
+//    block an SM) or 4 (two); two consumer warpgroups split the chunks, even
+//    and odd, each a chain of wgmma m64nBNk16 with the next chunk issued
+//    before the last is waited on: the chain a block waits on is half the
+//    reduction. The partial sums meet in shared memory, each group adding
+//    the other's half of the columns to its own in one order, so both round
+//    alike; each group finishes its columns from registers (bias, residual,
+//    rounding; the residual's loads issued together).
+//  - 128-row design (wgmma_wide_bytenet_fwd_gemm_kernel<STAGE, BN>, K4's
+//    data-GEMM block): 128 x 128 tiles, two consumer warpgroups of 64 rows
+//    over every chunk, three 32 KB stages, two blocks an SM; F1 takes 128 x
+//    256 tiles where N allows, four warpgroups and one block an SM, so that
+//    x is rewritten once a row tile. The epilogue runs over the products
+//    staged in shared memory, a warp a row.
+//
+// The cp.async + mma.sync design (gemm_tiles.cuh's pipelined core; one
 // kernel, bytenet_fwd_gemm_kernel):
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -56,6 +72,7 @@
 
 #include <cstdint>
 
+#include "bytenet_tiles.cuh"
 #include "gemm_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -361,10 +378,12 @@ int launch(const T* x, const float* const* prm, const T* w1, const T* wc, const 
 // ---- bf16, widths multiples of 128: wgmma fed by TMA (Hopper) ---------------
 
 namespace wg = hd::wg;
+namespace bt = hd::bt;
 
-constexpr int TMA_BM = 64;                  // rows of a tile
-constexpr int TMA_BN = 128;                 // columns of a tile
-constexpr int TMA_GROUP_WARPS = 4;          // a consumer warpgroup; two split the chunks
+constexpr int TMA_BM = 64;                  // rows of a tile of the 64-row design
+constexpr int TMA_BN = 128;                 // columns of a tile (the 64-row design: or 64)
+constexpr int WIDE_BM = 128;                // rows of a tile of the 128-row design
+constexpr int TMA_GROUP_WARPS = 4;          // a consumer warpgroup; two a block
 constexpr int TMA_CONSUMERS = 2 * TMA_GROUP_WARPS;
 constexpr int TMA_THREADS = (TMA_CONSUMERS + 1) * 32;  // and one producer warp
 constexpr int TMA_MAX_C = 1024;             // F1: LayerNorm 1's g and b held in shared memory
@@ -372,26 +391,50 @@ constexpr int A_BOX = TMA_BM * 128;         // 64 rows x 64 channels, 128-byte r
 constexpr int TMA_MAX_SMEM = 232448;        // dynamic shared memory a block may use
 constexpr int RED_LD = 72;                  // row stride of the partial sums' exchange (f32)
 
-// Shared memory from the aligned base: the ring of `stages` landed chunks
-// (an A box and a 128-row weight box a stage; after the products, the two
-// groups' halves of their partial sums), its full and empty mbarriers, the
-// rows' LayerNorm statistics [64], row sums [64] and the groups' partial
-// row sums [2][64], F1's LayerNorm 1 g and b [TMA_MAX_C] each, and the
-// tile's columns of the bias and of the next LayerNorm's g and b [128]
-// each. Eight stages (205 KB) hold an SM; four (107 KB) let two blocks
-// share one, for launches of more blocks than SMs.
+// The 64-row design's shared memory from the aligned base: the ring of
+// `stages` landed chunks (an A box and a `bn`-row weight box a stage; after
+// the products, the two groups' halves of their partial sums), its full
+// and empty mbarriers, the rows' LayerNorm statistics [64], row sums [64]
+// and the groups' partial row sums [2][64], F1's LayerNorm 1 g and b
+// [TMA_MAX_C] each, and the tile's columns of the bias and of the next
+// LayerNorm's g and b [bn] each. Eight stages hold an SM; four let two
+// blocks share one, for launches of more blocks than SMs.
 struct TmaSmem {
-  static constexpr int STAGE = A_BOX + TMA_BN * 128;
-  int stages;
-  __host__ __device__ constexpr int bars() const { return stages * STAGE; }
+  int stages, bn;
+  __host__ __device__ constexpr int stage() const { return A_BOX + bn * 128; }
+  __host__ __device__ constexpr int bars() const { return stages * stage(); }
   __host__ __device__ constexpr int stat() const { return bars() + 2 * stages * 8; }
   __host__ __device__ constexpr int par() const { return stat() + 4 * TMA_BM * 8; }
   __host__ __device__ constexpr int bytes() const {
-    return par() + (2 * TMA_MAX_C + 3 * TMA_BN) * 4 + wg::SMEM_SLACK;
+    return par() + (2 * TMA_MAX_C + 3 * bn) * 4 + wg::SMEM_SLACK;
   }
 };
 constexpr int TMA_STAGES[2] = {4, 8};
-static_assert(2 * TMA_BM * RED_LD * 4 <= 4 * TmaSmem::STAGE, "the exchange fits the ring");
+static_assert(2 * TMA_BM * RED_LD * 4 <= 4 * TmaSmem{4, 64}.stage(), "the exchange fits the ring");
+
+// The 128-row design's: the ring (a stage: the A rows [128][64] as one box,
+// a warpgroup's 64 rows 8 KB apart, and the bn weight rows of the chunk's
+// channels: 32 or 48 KB), the mbarriers, the rows' statistics and row sums
+// [128] each, F1's LayerNorm 1 g and b [TMA_MAX_C], the tile's bias and
+// next g, b [bn]. After the products the first stages hold them in f32
+// (bt::DTile). With 128 columns three stages let two blocks share an SM
+// and six hold one; with 256, four hold one.
+struct WideSmem {
+  static constexpr int A = WIDE_BM * 128;
+  int stages, bn;
+  __host__ __device__ constexpr int stage() const { return A + bn * 128; }
+  __host__ __device__ constexpr int bars() const { return stages * stage(); }
+  __host__ __device__ constexpr int stat() const { return bars() + 256; }
+  __host__ __device__ constexpr int par() const { return stat() + 2 * WIDE_BM * 8; }
+  __host__ __device__ constexpr int bytes() const {
+    return par() + (2 * TMA_MAX_C + 3 * bn) * 4 + wg::SMEM_SLACK;
+  }
+};
+constexpr int WIDE_STAGES[2] = {3, 6};  // 128 columns
+constexpr int WIDE_STAGES_256 = 4;      // 256 columns
+static_assert(WIDE_BM * 128 * 4 <= 2 * WideSmem{3, 128}.stage() &&
+                  WIDE_BM * 256 * 4 <= 3 * WideSmem{4, 256}.stage() && 2 * 6 * 8 <= 256,
+              "the products fit the first stages; the mbarriers their room");
 
 // What a launch reads and writes besides its two tensor maps: STAGE 1 is
 // F1 (A = act(LN1 x), x read again for LN1's statistics), 2 F2 (the
@@ -411,38 +454,148 @@ struct TmaFwdArgs {
   int stages;                        // of the ring
 };
 
-// A consumer warp is done with a stage
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) wg::mbar_arrive(empty);
+// The producer warp's lane 0: ring position i is stage i % S, a stage
+// `stage` bytes: an A box of `a_bytes` at its start, the weights' box after
+// it. The first `base` positions are x's chunks alone (the 128-row F1's
+// pass for LayerNorm 1's statistics); then every chunk of the reduction:
+// the A rows at row m0 + (t - (taps - 1) / 2) dil (rows past either end
+// land as zeros) and the weights' rows n0 + [0, bn) of the chunk's
+// channels. F2 and F3 may start under the launch before them (programmatic
+// dependent launch); F1 starts once the launch before it has ended, as the
+// plan launches it. A launch reads and writes nothing before grid_wait but
+// the weights, which were written before F1 began (F2 can start only once
+// every block of F1 has passed its grid_wait): the producer asks for the
+// weights of the first stages before grid_wait, so that under F2 and F3
+// they land under the previous launch's tail.
+__device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                        const CUtensorMap* map_a, const CUtensorMap* map_w,
+                                        const TmaFwdArgs& p, int S, int stage, int a_bytes,
+                                        int base, int m0, int n0) {
+  const int cpt = p.C / 64, n_chunks = p.taps * cpt, mid = (p.taps - 1) / 2;
+  wg::tma_prefetch(map_a);
+  wg::tma_prefetch(map_w);
+  const int early = base ? 0 : min(S, n_chunks);
+  for (int i = 0; i < early; ++i) {
+    wg::mbar_arrive_expect(&full[i], stage);
+    wg::tma_load_2d(smem + i * stage + a_bytes, map_w, &full[i], (i / cpt) * p.C + (i % cpt) * 64,
+                    n0);
+  }
+  wg::grid_wait();
+  for (int i = 0, t = 0, kc = 0; i < base + n_chunks; ++i) {
+    const int s = i % S;
+    unsigned char* st = smem + s * stage;
+    if (i >= early) wg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+    if (i < base) {  // x's chunks once for LayerNorm 1's statistics
+      wg::mbar_arrive_expect(&full[s], a_bytes);
+      wg::tma_load_2d(st, map_a, &full[s], i * 64, m0);
+      continue;
+    }
+    if (i >= early) {
+      wg::mbar_arrive_expect(&full[s], stage);
+      wg::tma_load_2d(st + a_bytes, map_w, &full[s], t * p.C + kc * 64, n0);
+    }
+    wg::tma_load_2d(st, map_a, &full[s], kc * 64, m0 + (t - mid) * p.dil);
+    if (++kc == cpt) kc = 0, ++t;
+  }
 }
 
-// One launch of K2 on Hopper: the tile of rows m0 + [0, 64) of the B*L rows
-// and columns n0 + [0, 128) of out = bf16([res +] A' W^T + bias), A' the
-// taps' rows of the A operand (F1: act(LN1 x)). The producer warp's lane 0
-// keeps `stages` chunks in flight: a box of the A rows [B*L][C] at row m0 +
-// (t - (taps - 1) / 2) dil (rows past either end land as zeros) and the 128
-// weight rows of the chunk's channels, landing on the stage's mbarrier.
-// The two consumer warpgroups split the chunks (even and odd) and sum them
-// in two chains of wgmma m64n128k16, each keeping one chunk's products in
-// flight while it issues the next: the chain a block waits on is half the
-// reduction, and a launch has twice the blocks of 128-row tiles. Before its
-// products a group rewrites its landed A box where it must: F1 normalises
-// and activates x in place; F2 zeroes the rows whose tap row lies in
-// another chain (the conv's padding, pallas_bytenet.py:174-178). The two
-// partial sums meet in shared memory, each group adding the other's half of
-// the columns to its own in one order (so both round alike), and each group
-// finishes its 64 columns. F1 and F2 launch as a cluster over the row
+// F1's A' = bf16(act(LN1 x)) in place on a landed 64-row box of chunk kc,
+// zero past the rows (sStat[r].y < 0): the warpgroup's thread gt takes rows
+// gt / 8 + 16 k, k = k0, k0 + KS, ... < 4, and the 16-byte column gt % 8
+template <int KS = 1>
+__device__ __forceinline__ void ln_act_box(unsigned char* box, const float2* sStat,
+                                           const float* g, const float* b, int kc, int gt,
+                                           int gelu, int k0 = 0) {
+#pragma unroll
+  for (int j = 0; j < 4 / KS; ++j) {
+    const int r = gt / 8 + 16 * (k0 + KS * j), ch = kc * 64 + 8 * ((gt ^ r) & 7);
+    const float2 st = sStat[r];
+    uint4* cell = reinterpret_cast<uint4*>(box + r * 128 + (gt & 7) * 16);
+    uint4 u = *cell;
+    const float4 gv[2] = {*reinterpret_cast<const float4*>(g + ch),
+                          *reinterpret_cast<const float4*>(g + ch + 4)};
+    const float4 bv[2] = {*reinterpret_cast<const float4*>(b + ch),
+                          *reinterpret_cast<const float4*>(b + ch + 4)};
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[q]));
+      const float4& gq = gv[q / 2];
+      const float4& bq = bv[q / 2];
+      const float g0 = q % 2 ? gq.z : gq.x, g1 = q % 2 ? gq.w : gq.y;
+      const float b0 = q % 2 ? bq.z : bq.x, b1 = q % 2 ? bq.w : bq.y;
+      w[q] = st.y >= 0.f ? tc::pack(act_fn(ln_affine(f.x, st, g0, b0), gelu),
+                                    act_fn(ln_affine(f.y, st, g1, b1), gelu))
+                         : 0u;
+    }
+    *cell = u;
+  }
+}
+
+// LayerNorm 1's sums over 32 channels of a row of x (half a 64-channel
+// chunk: the thread's neighbour lane takes the other half), added to s, s2
+// in channel order, the order both Hopper designs keep: x_sums from global
+// memory (the 64-row design, while its ring fills), box_sums from a landed
+// 64-row box of the 128-row design's statistics pass through its ring.
+// Each read faster for its design on an H100 (at B = 16 and at B = 128).
+__device__ __forceinline__ void add_sums(Pack<bf16> (&v)[4], float& s, float& s2) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float f = to_f(v[q][e]);
+      s += f;
+      s2 += f * f;
+    }
+}
+__device__ __forceinline__ void x_sums(const bf16* x, float& s, float& s2) {
+  Pack<bf16> v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q].u = *reinterpret_cast<const uint4*>(x + 8 * q);
+  add_sums(v, s, s2);
+}
+__device__ __forceinline__ void box_sums(const unsigned char* box, int gt, float& s, float& s2) {
+  const int r = gt >> 1, half = gt & 1;
+  Pack<bf16> v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    v[q].u = *reinterpret_cast<const uint4*>(box + r * 128 + (((4 * half + q) ^ r) & 7) * 16);
+  add_sums(v, s, s2);
+}
+
+// m64nBNk16 with B K-major ([BN n][k] rows, as the weights lie)
+template <int BN>
+__device__ __forceinline__ void mma_k(float (&d)[BN / 8][4], uint64_t da, uint64_t db, int acc) {
+  if constexpr (BN == 128)
+    wg::mma_m64n128<0>(d, da, db, acc);
+  else
+    wg::mma_m64n64<0>(d, da, db, acc);
+}
+
+// One launch of K2 on Hopper, 64-row design: the tile of rows m0 + [0, 64)
+// of the B*L rows and columns n0 + [0, BN) of out = bf16([res +] A' W^T +
+// bias), A' the taps' rows of the A operand (F1: act(LN1 x)). The producer
+// warp keeps `stages` chunks in flight (produce). The two consumer
+// warpgroups split the chunks (even and odd) and sum them in two chains
+// of wgmma m64nBNk16, each keeping one chunk's products in flight while
+// it issues the next: the chain a block waits on is half the reduction,
+// and a launch has twice the blocks of 128-row tiles. Before its products
+// a group rewrites its landed A box where it must: F1 normalises and
+// activates x in place; F2 zeroes the rows whose tap row lies in another
+// chain (the conv's padding, pallas_bytenet.py:174-178). The two partial
+// sums meet in shared memory, each group adding the other's half of the
+// columns to its own in one order (so both round alike), and each group
+// finishes its BN / 2 columns. F1 and F2 launch as a cluster over the row
 // tile's column tiles, which exchange the rows' sums through distributed
 // shared memory for the next LayerNorm (in rank order, so every block holds
 // the same statistics) and write act_out.
-template <int STAGE>
+template <int STAGE, int BN>
 __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
     wgmma_bytenet_fwd_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                                   const __grid_constant__ CUtensorMap map_w, TmaFwdArgs p) {
-  constexpr int BN = TMA_BN;
-  const TmaSmem SM{p.stages};
-  const int S = p.stages;
+  constexpr int HN = BN / 16;  // n-tiles of 8 columns in a group's half of the columns
+  const TmaSmem SM{p.stages, BN};
+  const int S = p.stages, STG = SM.stage();
   unsigned char* smem = wg::aligned_smem();
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM.bars());
   uint64_t* empty = full + S;
@@ -457,7 +610,6 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * TMA_BM, L = p.L, M = p.M;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cpt = p.C / 64, n_chunks = p.taps * cpt;
-  const int base = STAGE == 1 ? cpt : 0;  // F1's statistics pass comes first in the ring
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s)
       wg::mbar_init(&full[s], 1), wg::mbar_init(&empty[s], TMA_GROUP_WARPS);
@@ -466,25 +618,10 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
   __syncthreads();
   cg::cluster_group cluster = cg::this_cluster();
 
-  if (warp == TMA_CONSUMERS) {  // the producer: ring position i is stage i % S
-    if (lane == 0) {
-      wg::tma_prefetch(&map_a);
-      wg::tma_prefetch(&map_w);
-      for (int i = 0, t = 0, kc = 0; i < base + n_chunks; ++i) {
-        const int s = i % S;
-        wg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
-        unsigned char* st = smem + s * TmaSmem::STAGE;
-        if (i < base) {  // F1: x's chunks once for LayerNorm 1's statistics
-          wg::mbar_arrive_expect(&full[s], A_BOX);
-          wg::tma_load_2d(st, &map_a, &full[s], i * 64, m0);
-          continue;
-        }
-        wg::mbar_arrive_expect(&full[s], TmaSmem::STAGE);
-        wg::tma_load_2d(st, &map_a, &full[s], kc * 64, m0 + (t - (p.taps - 1) / 2) * p.dil);
-        wg::tma_load_2d(st + A_BOX, &map_w, &full[s], t * p.C + kc * 64, n0);
-        if (++kc == cpt) kc = 0, ++t;
-      }
-    }
+  if (warp == TMA_CONSUMERS) {
+    if (lane == 0) produce(smem, full, empty, &map_a, &map_w, p, S, STG, A_BOX, 0, m0, n0);
+    wg::grid_wait();
+    wg::grid_launch();
     if (STAGE != 3) {  // the cluster's two barriers count every thread
       cluster.sync();
       cluster.sync();
@@ -494,33 +631,24 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
 
   const int grp = warp / TMA_GROUP_WARPS, wq = warp % TMA_GROUP_WARPS;
   const int g = lane >> 2, t4 = lane & 3, gt = threadIdx.x % 128;
+  wg::grid_wait();  // nothing is read or written before the launch before this one has ended
+  wg::grid_launch();
   // the parameters the epilogue (and F1's transform) read, in shared memory
   for (int c = threadIdx.x; c < BN; c += 32 * TMA_CONSUMERS) {
     sBias[c] = p.bias[n0 + c];
     if (STAGE != 3) sGo[c] = p.g_out[n0 + c], sBo[c] = p.b_out[n0 + c];
   }
-  if constexpr (STAGE == 1) {
+  if constexpr (STAGE == 1)
     for (int c = threadIdx.x; c < p.C; c += 32 * TMA_CONSUMERS) sLnG[c] = p.g[c], sLnB[c] = p.b[c];
-    // LayerNorm 1's statistics from x's landed chunks, the groups taking
-    // alternate chunks: a thread takes half a row (32 channels a chunk),
-    // its neighbour lane the other half
+  if constexpr (STAGE == 1) {
+    // LayerNorm 1's statistics of the tile's rows from x, while the ring
+    // fills: the groups take alternate chunks, a thread half of each
     const int r = gt >> 1, half = gt & 1;
     float s = 0.f, s2 = 0.f;
-    for (int i = grp; i < base; i += 2) {
-      wg::mbar_wait(&full[i % S], (i / S) & 1);
-      const unsigned char* row = smem + (i % S) * TmaSmem::STAGE + r * 128;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        Pack<bf16> v;
-        v.u = *reinterpret_cast<const uint4*>(row + (((4 * half + q) ^ r) & 7) * 16);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float f = to_f(v[e]);
-          s += f;
-          s2 += f * f;
-        }
-      }
-      release(&empty[i % S], lane);
+    if (m0 + r < M) {
+      const bf16* row = p.x + (size_t)(m0 + r) * p.C + 32 * half;
+#pragma unroll 2
+      for (int i = grp; i < cpt; i += 2) x_sums(row + 64 * i, s, s2);
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
@@ -547,37 +675,19 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
   {
     int prev = -1;
     for (int c = grp; c < n_chunks; c += 2) {
-      const int i = base + c, s = i % S, kc = c % cpt, t = c / cpt;
-      wg::mbar_wait(&full[s], (i / S) & 1);
-      unsigned char* a_rows = smem + s * TmaSmem::STAGE;
+      const int s = c % S, kc = c % cpt, t = c / cpt;
+      wg::mbar_wait(&full[s], (c / S) & 1);
+      unsigned char* a_rows = smem + s * STG;
       bool rewritten = false;
-      if constexpr (STAGE == 1) {  // A' = bf16(act(LN1 x)) in place, zero past the rows
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int r = gt / 8 + 16 * k, ch = kc * 64 + 8 * ((gt ^ r) & 7);
-          const float2 st = sStat[r];
-          uint4* cell = reinterpret_cast<uint4*>(a_rows + r * 128 + (gt & 7) * 16);
-          Pack<bf16> v;
-          v.u = *cell;
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            v[e] = from_f<bf16>(st.y >= 0.f ? act_fn(ln_affine(to_f(v[e]), st, sLnG[ch + e],
-                                                               sLnB[ch + e]), p.gelu)
-                                            : 0.f);
-          *cell = v.u;
-        }
+      if constexpr (STAGE == 1) {
+        ln_act_box(a_rows, sStat, sLnG, sLnB, kc, gt, p.gelu);
         rewritten = true;
       } else {
         // F2: the rows whose tap row lies in another chain become zeros;
         // only where the tile has such rows
         const int shift = (t - (p.taps - 1) / 2) * p.dil;
-        if (shift != 0 && (first + TMA_BM - 1 >= L || (shift > 0 ? first + TMA_BM - 1 >= L - shift
-                                                                  : first < -shift))) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (lpos[k] + shift < 0 || lpos[k] + shift >= L)
-              *reinterpret_cast<uint4*>(a_rows + (gt / 8 + 16 * k) * 128 + (gt & 7) * 16) =
-                  make_uint4(0, 0, 0, 0);
+        if (bt::crosses(first, shift, L)) {
+          bt::zero_rows(a_rows, lpos, shift, L, gt);
           rewritten = true;
         }
       }
@@ -590,15 +700,14 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
       wg::fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wg::mma_m64n128<0>(acc, wg::desc_add(da, 32 * kk), wg::desc_add(db, 32 * kk),
-                           c > grp || kk > 0);
+        mma_k<BN>(acc, wg::desc_add(da, 32 * kk), wg::desc_add(db, 32 * kk), c > grp || kk > 0);
       wg::commit();
       wg::wait<1>();  // the group's previous chunk is done
-      if (prev >= 0) release(&empty[prev], lane);
+      if (prev >= 0) bt::release(&empty[prev], lane);
       prev = s;
     }
     wg::wait<0>();
-    if (prev >= 0) release(&empty[prev], lane);
+    if (prev >= 0) bt::release(&empty[prev], lane);
     if (grp >= n_chunks) {  // a group with no chunk adds nothing (one-chunk reductions)
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
@@ -612,35 +721,35 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
   // columns through the ring (every product is done) and adds the other's
   wg::bar_sync(1, TMA_CONSUMERS * 32);
   float* red = reinterpret_cast<float*>(smem);
-  const int other = 8 * (1 - grp);  // the n-tiles of the other group's half
+  const int other = HN * (1 - grp);  // the n-tiles of the other group's half
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < HN; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
       *reinterpret_cast<float2*>(red + (grp * TMA_BM + 16 * wq + g + 8 * hh) * RED_LD + 8 * j +
                                  2 * t4) =
           make_float2(acc[other + j][2 * hh], acc[other + j][2 * hh + 1]);
   wg::bar_sync(1, TMA_CONSUMERS * 32);
-  float v[8][4];  // this group's 64 columns, n-tiles 8 grp + j
+  float v[HN][4];  // this group's BN / 2 columns, n-tiles HN grp + j
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < HN; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const float2 o = *reinterpret_cast<const float2*>(
           red + ((1 - grp) * TMA_BM + 16 * wq + g + 8 * hh) * RED_LD + 8 * j + 2 * t4);
-      const float a0 = acc[8 * grp + j][2 * hh], a1 = acc[8 * grp + j][2 * hh + 1];
+      const float a0 = acc[HN * grp + j][2 * hh], a1 = acc[HN * grp + j][2 * hh + 1];
       v[j][2 * hh] = grp == 0 ? a0 + o.x : o.x + a0;
       v[j][2 * hh + 1] = grp == 0 ? a1 + o.y : o.y + a1;
     }
 
-  // epilogue on the group's columns cb + [0, 64): bias, residual, rounding
-  // (kept in v); the rounded values' row sums
-  const int cb = 64 * grp, rw = 16 * wq;
+  // epilogue on the group's columns cb + [0, BN / 2): bias, residual,
+  // rounding (kept in v); the rounded values' row sums
+  const int cb = (BN / 2) * grp, rw = 16 * wq;
   float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   if constexpr (STAGE == 3) {  // the residual's loads first, all in flight together
-    float2 res[8][2];
+    float2 res[HN][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < HN; ++j)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const size_t m = (size_t)m0 + rw + g + 8 * hh;
@@ -648,7 +757,7 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
                                    : make_float2(0.f, 0.f);
       }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < HN; ++j)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         v[j][2 * hh] = res[j][hh].x + (v[j][2 * hh] + sBias[cb + 8 * j + 2 * t4]);
@@ -656,12 +765,12 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
       }
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < HN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[j][e] += sBias[cb + 8 * j + 2 * t4 + (e & 1)];
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HN; ++j) {
     const int col = n0 + cb + 8 * j + 2 * t4;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -693,22 +802,16 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
       const float2 a = sPart[threadIdx.x], b2 = sPart[TMA_BM + threadIdx.x];
       sRow[threadIdx.x] = make_float2(a.x + b2.x, a.y + b2.y);
     }
-    cluster.sync();  // every block's sRow is written
+    const float2 tot = bt::cluster_row_sums<TMA_BM>(sRow, cluster);
     if (threadIdx.x < TMA_BM) {
       const int r = threadIdx.x;
-      float s = 0.f, s2 = 0.f;
-      for (unsigned k = 0; k < cluster.num_blocks(); ++k) {
-        const float2 w = *cluster.map_shared_rank(sRow + r, k);
-        s += w.x;
-        s2 += w.y;
-      }
-      sStat[r] = ln_stats(s, s2, p.N);
+      sStat[r] = ln_stats(tot.x, tot.y, p.N);
       if (p.stats_out && blockIdx.x == 0 && m0 + r < M) p.stats_out[m0 + r] = sStat[r];
     }
-    cluster.sync();  // every block has read the others' sRow; sStat is written
+    wg::bar_sync(1, TMA_CONSUMERS * 32);
     // act_out = bf16(act(LN(out))) from the rounded values in v
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < HN; ++j) {
       const int c = cb + 8 * j + 2 * t4;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -723,74 +826,349 @@ __global__ void __launch_bounds__(TMA_THREADS, STAGE == 1 ? 1 : 2)
   }
 }
 
-const void* const TMA_KERNELS[3] = {(const void*)wgmma_bytenet_fwd_gemm_kernel<1>,
-                                    (const void*)wgmma_bytenet_fwd_gemm_kernel<2>,
-                                    (const void*)wgmma_bytenet_fwd_gemm_kernel<3>};
+// One launch of K2 on Hopper, 128-row design (the training batches, where
+// 64-row tiles are L2-bound: a 24 KB stage a 1 MFLOP chunk): the tile of
+// rows m0 + [0, 128) and columns n0 + [0, BN), K4's data-GEMM block. The
+// producer warp keeps `stages` chunks in flight (produce: the A rows as one
+// 128-row box). BN / 64 consumer warpgroups each take 64 of the rows and
+// 128 of the columns over every chunk, a chain of wgmma m64n128k16 with one
+// chunk in flight while the next is issued, and rewrite their half of the
+// A box where it must, as the 64-row design does (F1: act(LN1 x), the
+// groups of a row half splitting its cells, LayerNorm 1's statistics taken
+// first from a pass of x's chunks through the ring, a group's rows each,
+// even and odd chunks summed apart and then added as the 64-row design's
+// two groups add them,
+// so both designs hold the same statistics of x; F2: the conv's rows from
+// another chain zeroed). With 128 columns two blocks share an SM, so that
+// one's epilogue runs under the other's products; 256 columns (four
+// groups, one block an SM) halve a launch's column tiles where N allows:
+// F1 rewrites x once a row tile, not once a column tile (its LayerNorm and
+// GELU are most of F1's time), and a 4 MFLOP chunk reads 48 KB, not 64.
+// The epilogue runs over the products put in shared memory, a warp a row,
+// four columns of each 128 a lane, in small loops (an epilogue unrolled
+// per accumulator register ran from instruction-cache misses in K4): bias,
+// residual (its loads issued together first), rounding, out written, the
+// rows' sums; F1 and F2 launch as a cluster over the row tile's column
+// tiles, which exchange the sums through distributed shared memory in rank
+// order; then act_out.
+template <int BN> constexpr int wide_threads() { return (BN / 64 * TMA_GROUP_WARPS + 1) * 32; }
 
-// Each Hopper kernel's limit on dynamic shared memory, set once for all three
-// (the first call of a process is eager: a graph capture sets nothing)
+template <int STAGE, int BN>
+__global__ void __launch_bounds__(wide_threads<BN>(), BN == TMA_BN ? 2 : 1)
+    wgmma_wide_bytenet_fwd_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                                       const __grid_constant__ CUtensorMap map_w, TmaFwdArgs p) {
+  constexpr int BM = WIDE_BM, NH = BN / 128;   // n128 column halves
+  constexpr int GROUPS = 2 * NH, CW = GROUPS * TMA_GROUP_WARPS;  // consumer groups, warps
+  constexpr int WR = BM / CW;                  // rows of a warp in the epilogue: warp + CW i
+  const WideSmem SM{p.stages, BN};
+  const int S = p.stages, STG = SM.stage();
+  unsigned char* smem = wg::aligned_smem();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM.bars());
+  uint64_t* empty = full + S;
+  float2* sStat = reinterpret_cast<float2*>(smem + SM.stat());
+  float2* sRow = sStat + BM;
+  float* sLnG = reinterpret_cast<float*>(smem + SM.par());  // F1: LayerNorm 1
+  float* sLnB = sLnG + TMA_MAX_C;
+  float* sBias = sLnB + TMA_MAX_C;                         // the tile's columns
+  float* sGo = sBias + BN;
+  float* sBo = sGo + BN;
+  const bt::DTile<BN> sD{reinterpret_cast<float*>(smem)};  // the products, over the ring
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, L = p.L, M = p.M;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cpt = p.C / 64, n_chunks = p.taps * cpt;
+  const int base = STAGE == 1 ? cpt : 0;  // F1's statistics pass comes first in the ring
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) wg::mbar_init(&full[s], 1), wg::mbar_init(&empty[s], CW);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+
+  if (warp == CW) {
+    if (lane == 0) produce(smem, full, empty, &map_a, &map_w, p, S, STG, WideSmem::A, base, m0, n0);
+    wg::grid_wait();
+    wg::grid_launch();
+    if (STAGE != 3) {
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+
+  // group grp: rows 64 rh + [0, 64) and columns 128 ch + [0, 128) of the tile;
+  // the groups of a row half (NH of them) meet at barrier 2 + rh
+  const int grp = warp / TMA_GROUP_WARPS, wq = warp % TMA_GROUP_WARPS;
+  const int rh = grp & 1, ch = grp >> 1;
+  const int g = lane >> 2, t4 = lane & 3, gt = threadIdx.x % 128;
+  wg::grid_wait();
+  wg::grid_launch();
+  for (int c = threadIdx.x; c < BN; c += 32 * CW) {
+    sBias[c] = p.bias[n0 + c];
+    if (STAGE != 3) sGo[c] = p.g_out[n0 + c], sBo[c] = p.b_out[n0 + c];
+  }
+  if constexpr (STAGE == 1)
+    for (int c = threadIdx.x; c < p.C; c += 32 * CW) sLnG[c] = p.g[c], sLnB[c] = p.b[c];
+  const int gm0 = m0 + 64 * rh;  // the group's rows
+  float2* gStat = sStat + 64 * rh;
+  if constexpr (STAGE == 1) {  // LayerNorm 1's statistics, by the groups of column half 0
+    float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};  // even and odd chunks
+    for (int i = 0; i < base; ++i) {
+      wg::mbar_wait(&full[i % S], (i / S) & 1);
+      if (ch == 0) box_sums(smem + (i % S) * STG + rh * A_BOX, gt, s[i & 1], s2[i & 1]);
+      bt::release(&empty[i % S], lane);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], 1);
+      s2[k] += __shfl_xor_sync(0xffffffffu, s2[k], 1);
+    }
+    const int r = gt >> 1;
+    if (ch == 0 && (gt & 1) == 0) {
+      const bool in = gm0 + r < M;
+      gStat[r] = in ? ln_stats(s[0] + s[1], s2[0] + s2[1], p.C) : make_float2(0.f, -1.f);
+      if (in && p.stats_a && blockIdx.x == 0) p.stats_a[gm0 + r] = gStat[r];
+    }
+    wg::bar_sync(2 + rh, NH * 128);
+  }
+
+  int lpos[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) lpos[k] = (gm0 + gt / 8 + 16 * k) % L;
+  const int first = gm0 % L, mid = (p.taps - 1) / 2;
+
+  float acc[16][4];
+  for (int c = 0; c < n_chunks; ++c) {
+    const int i = base + c, s = i % S, t = c / cpt;
+    wg::mbar_wait(&full[s], (i / S) & 1);
+    unsigned char* st = smem + s * STG;
+    unsigned char* a_rows = st + rh * A_BOX;
+    bool rewritten = false;
+    if constexpr (STAGE == 1) {  // the row half's groups take alternate cells
+      ln_act_box<NH>(a_rows, gStat, sLnG, sLnB, c % cpt, gt, p.gelu, NH == 1 ? 0 : ch);
+      rewritten = true;
+    } else {
+      const int shift = (t - mid) * p.dil;
+      if (bt::crosses(first, shift, L)) {  // the same zeros, written by each group of the half
+        bt::zero_rows(a_rows, lpos, shift, L, gt);
+        rewritten = true;
+      }
+    }
+    if (rewritten) {
+      wg::fence_proxy();
+      wg::bar_sync(2 + rh, NH * 128);
+    }
+    const uint64_t da = wg::desc(a_rows, 0, 1024);
+    const uint64_t db = wg::desc(st + WideSmem::A + ch * 128 * 128, 0, 1024);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_m64n128<0>(acc, wg::desc_add(da, 32 * kk), wg::desc_add(db, 32 * kk),
+                         c > 0 || kk > 0);
+    wg::commit();
+    wg::wait<1>();  // the previous chunk is done
+    if (c > 0) bt::release(&empty[(i - 1) % S], lane);
+  }
+  wg::wait<0>();
+  bt::release(&empty[(base + n_chunks - 1) % S], lane);
+  wg::fence_acc(acc);
+
+  // the products into shared memory over the first stages, zero past the rows
+  wg::bar_sync(1, CW * 32);  // every group's products are done
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 64 * rh + 16 * wq + g + 8 * hh;
+    const bool in = m0 + r < M;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(sD.at(r, 128 * ch + 8 * j + 2 * t4)) =
+          in ? make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]) : make_float2(0.f, 0.f);
+  }
+  const int c4 = 4 * lane;  // the lane's four columns of each 128 of a row
+  uint2 res[STAGE == 3 ? WR : 1][NH];
+  if constexpr (STAGE == 3)  // the residual's rows, its loads all in flight together
+#pragma unroll
+    for (int i = 0; i < WR; ++i) {
+      const int m = m0 + warp + CW * i;
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        res[i][h] = m < M ? *reinterpret_cast<const uint2*>(p.x + (size_t)m * p.N + n0 +
+                                                            128 * h + c4)
+                          : make_uint2(0, 0);
+    }
+  wg::bar_sync(1, CW * 32);
+
+  // a warp a row: bias, residual, rounding (kept in place), out; the
+  // rounded values' sums over the tile's columns
+  float4 b4[NH];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) b4[h] = *reinterpret_cast<const float4*>(sBias + 128 * h + c4);
+#pragma unroll 2
+  for (int i = 0; i < WR; ++i) {
+    const int r = warp + CW * i, m = m0 + r;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int c = 128 * h + c4;
+      float4* dp = reinterpret_cast<float4*>(sD.at(r, c));
+      float4 d = *dp;
+      if constexpr (STAGE == 3) {
+        const float4 x4 = bt::unpack4(res[i][h]);
+        d = make_float4(x4.x + (d.x + b4[h].x), x4.y + (d.y + b4[h].y), x4.z + (d.z + b4[h].z),
+                        x4.w + (d.w + b4[h].w));
+      } else {
+        d = make_float4(d.x + b4[h].x, d.y + b4[h].y, d.z + b4[h].z, d.w + b4[h].w);
+      }
+      d = make_float4(to_f(from_f<bf16>(d.x)), to_f(from_f<bf16>(d.y)), to_f(from_f<bf16>(d.z)),
+                      to_f(from_f<bf16>(d.w)));
+      if (m < M && p.out) bt::store4(p.out + (size_t)m * p.N + n0 + c, d.x, d.y, d.z, d.w);
+      if constexpr (STAGE != 3) {
+        *dp = d;
+        s1 += (d.x + d.y) + (d.z + d.w);
+        s2 += (d.x * d.x + d.y * d.y) + (d.z * d.z + d.w * d.w);
+      }
+    }
+    if constexpr (STAGE != 3) {
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) sRow[r] = make_float2(s1, s2);
+    }
+  }
+  if constexpr (STAGE != 3) {
+    const float2 tot = bt::cluster_row_sums<BM>(sRow, cluster);
+    if (threadIdx.x < BM) {
+      const int r = threadIdx.x;
+      sStat[r] = ln_stats(tot.x, tot.y, p.N);
+      if (p.stats_out && blockIdx.x == 0 && m0 + r < M) p.stats_out[m0 + r] = sStat[r];
+    }
+    wg::bar_sync(1, CW * 32);
+    // a warp a row: act_out = bf16(act(LN(out))) from the rounded values
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int c = 128 * h + c4;
+      const float4 go = *reinterpret_cast<const float4*>(sGo + c);
+      const float4 bo = *reinterpret_cast<const float4*>(sBo + c);
+#pragma unroll 2
+      for (int i = 0; i < WR; ++i) {
+        const int r = warp + CW * i, m = m0 + r;
+        if (m >= M) continue;
+        const float2 st = sStat[r];
+        const float4 d = *reinterpret_cast<const float4*>(sD.at(r, c));
+        bt::store4(p.act_out + (size_t)m * p.N + n0 + c,
+                   act_fn(ln_affine(d.x, st, go.x, bo.x), p.gelu),
+                   act_fn(ln_affine(d.y, st, go.y, bo.y), p.gelu),
+                   act_fn(ln_affine(d.z, st, go.z, bo.z), p.gelu),
+                   act_fn(ln_affine(d.w, st, go.w, bo.w), p.gelu));
+      }
+    }
+  }
+}
+
+// The kernel of launch `stage` (1-3) of a design: `bm`-row tiles of `bn`
+// columns
+template <int STAGE> const void* kernel_of(int bm, int bn) {
+  if (bm == WIDE_BM)
+    return bn == 256 ? (const void*)wgmma_wide_bytenet_fwd_gemm_kernel<STAGE, 256>
+                     : (const void*)wgmma_wide_bytenet_fwd_gemm_kernel<STAGE, 128>;
+  return bn == 64 ? (const void*)wgmma_bytenet_fwd_gemm_kernel<STAGE, 64>
+                  : (const void*)wgmma_bytenet_fwd_gemm_kernel<STAGE, 128>;
+}
+const void* tma_kernel(int stage, int bm, int bn) {
+  return stage == 1   ? kernel_of<1>(bm, bn)
+         : stage == 2 ? kernel_of<2>(bm, bn)
+                      : kernel_of<3>(bm, bn);
+}
+int tma_smem(int bm, int bn, int stages) {
+  return bm == WIDE_BM ? WideSmem{stages, bn}.bytes() : TmaSmem{stages, bn}.bytes();
+}
+
+// Each Hopper kernel's limit on dynamic shared memory, set once for all
+// twelve (the first call of a process is eager: a graph capture sets nothing)
 cudaError_t tma_limits() {
   static const cudaError_t err = [] {
-    for (const void* k : TMA_KERNELS) {
-      const cudaError_t e =
-          cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TmaSmem{TMA_STAGES[1]}.bytes());
-      if (e != cudaSuccess) return e;
-    }
+    const int designs[4][3] = {{TMA_BM, 64, TMA_STAGES[1]}, {TMA_BM, TMA_BN, TMA_STAGES[1]},
+                               {WIDE_BM, TMA_BN, WIDE_STAGES[1]}, {WIDE_BM, 256, WIDE_STAGES_256}};
+    for (int stage = 1; stage <= 3; ++stage)
+      for (const auto& d : designs) {
+        const cudaError_t e =
+            cudaFuncSetAttribute(tma_kernel(stage, d[0], d[1]),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 tma_smem(d[0], d[1], d[2]));
+        if (e != cudaSuccess) return e;
+      }
     return cudaSuccess;
   }();
   return err;
 }
 
+bool one_of(long long v, const int (&set)[2]) { return v == set[0] || v == set[1]; }
+
 // The plan of one launch as the caller computed it
-// (ops/fused_bytenet.py::bytenet_block_plan), 18 values: grid x, y, z,
-// cluster x, threads, shared-memory bytes, BN, the ring's stages, the A
-// rows' map (dims, innermost first, byte stride, box) and the weight map's
-// (the same)
-constexpr int PLAN_LEN = 18;
+// (ops/fused_bytenet.py::bytenet_block_plan), PLAN_LEN values: grid x, y,
+// z, cluster x, threads, shared-memory bytes, the tile's rows BM (64 or
+// 128: the design) and columns BN (64 or 128; 128 or 256), the ring's stages, whether the launch
+// may start under the previous one's tail (programmatic dependent launch,
+// 0 or 1), the A rows' map (dims, innermost first, byte stride, box) and
+// the weight map's (the same). The design, BN, stages and launch mode are
+// choices; the rest follows from them and the shape.
+constexpr int PLAN_LEN = 20;
+
+// The launch configuration of a plan's launch (its cluster, and the
+// programmatic launch where the plan asks for it)
+struct LaunchCfg {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[2];
+  LaunchCfg(const long long* lp, cudaStream_t stream) {
+    cfg.gridDim = dim3((unsigned)lp[0], (unsigned)lp[1], (unsigned)lp[2]);
+    cfg.blockDim = dim3((unsigned)lp[4]);
+    cfg.dynamicSmemBytes = (size_t)lp[5];
+    cfg.stream = stream;
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = (unsigned)lp[3];
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = lp[9] ? 2 : 1;
+  }
+};
 
 // Refuse a plan other than this source's own for the launch, then launch it
 cudaError_t launch_tma(int stage, const long long* plan, const void* a_rows, const void* w,
                        TmaFwdArgs args, cudaStream_t stream) {
   const long long C = args.C, N = args.N, M = args.M, taps = args.taps;
-  if (N % TMA_BN || C % 64 || C > TMA_MAX_C || reinterpret_cast<uintptr_t>(a_rows) % 16 ||
+  const long long bm = plan[6], bn = plan[7], stages = plan[8], pdl = plan[9];
+  const bool wide = bm == WIDE_BM;
+  const bool tiles_ok = wide ? (bn == TMA_BN && one_of(stages, WIDE_STAGES)) ||
+                                   (bn == 256 && stages == WIDE_STAGES_256)
+                             : (bn == 64 || bn == TMA_BN) && one_of(stages, TMA_STAGES);
+  if ((bm != TMA_BM && !wide) || !tiles_ok || (pdl != 0 && pdl != 1) || N % bn ||
+      C % 64 || C > TMA_MAX_C || reinterpret_cast<uintptr_t>(a_rows) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16)
     return cudaErrorInvalidValue;
-  const long long stages = plan[7];
-  if (stages != TMA_STAGES[0] && stages != TMA_STAGES[1]) return cudaErrorInvalidValue;
   args.stages = (int)stages;
-  const long long tiles_n = N / TMA_BN, smem = TmaSmem{(int)stages}.bytes();
-  const long long want[PLAN_LEN] = {tiles_n, (M + TMA_BM - 1) / TMA_BM, 1,
-                                    stage == 3 ? 1 : tiles_n, TMA_THREADS, smem, TMA_BN,
-                                    stages, C, M, C * 2, 64, TMA_BM,
-                                    taps * C, N, taps * C * 2, 64, TMA_BN};
+  const long long tiles_n = N / bn, smem = tma_smem((int)bm, (int)bn, (int)stages);
+  const long long threads = bn == 256 ? wide_threads<256>() : TMA_THREADS;
+  const long long want[PLAN_LEN] = {tiles_n, (M + bm - 1) / bm, 1, stage == 3 ? 1 : tiles_n,
+                                    threads, smem, bm, bn, stages, pdl,
+                                    C, M, C * 2, 64, bm,
+                                    taps * C, N, taps * C * 2, 64, bn};
   for (int i = 0; i < PLAN_LEN; ++i)
     if (plan[i] != want[i]) return cudaErrorInvalidValue;
   if (want[3] > MAX_CLUSTER || smem > TMA_MAX_SMEM) return cudaErrorInvalidValue;
   CUtensorMap ma, mw;
-  const cuuint64_t a_dims[2] = {(cuuint64_t)plan[8], (cuuint64_t)plan[9]};
-  const cuuint64_t a_strides[1] = {(cuuint64_t)plan[10]};
-  const cuuint32_t a_box[2] = {(cuuint32_t)plan[11], (cuuint32_t)plan[12]};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)plan[13], (cuuint64_t)plan[14]};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)plan[15]};
-  const cuuint32_t w_box[2] = {(cuuint32_t)plan[16], (cuuint32_t)plan[17]};
+  const cuuint64_t a_dims[2] = {(cuuint64_t)plan[10], (cuuint64_t)plan[11]};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)plan[12]};
+  const cuuint32_t a_box[2] = {(cuuint32_t)plan[13], (cuuint32_t)plan[14]};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)plan[15], (cuuint64_t)plan[16]};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)plan[17]};
+  const cuuint32_t w_box[2] = {(cuuint32_t)plan[18], (cuuint32_t)plan[19]};
   if (!wg::encode(&ma, a_rows, 2, a_dims, a_strides, a_box) ||
       !wg::encode(&mw, w, 2, w_dims, w_strides, w_box))
     return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)plan[0], (unsigned)plan[1], (unsigned)plan[2]);
-  cfg.blockDim = dim3((unsigned)plan[4]);
-  cfg.dynamicSmemBytes = (size_t)plan[5];
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = (unsigned)plan[3];
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
+  LaunchCfg lc(plan, stream);
   void* params[3] = {&ma, &mw, &args};
-  const cudaError_t err = cudaLaunchKernelExC(&cfg, TMA_KERNELS[stage - 1], params);
+  const cudaError_t err = cudaLaunchKernelExC(&lc.cfg, tma_kernel(stage, (int)bm, (int)bn), params);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -838,10 +1216,10 @@ extern "C" int hd_bytenet_block_fwd(const void* x, const void* g1, const void* b
 }
 
 // K2 on Hopper: bf16, D and H multiples of 128 (the shapes
-// ops/fused_bytenet.py::bytenet_block_plan gives this path). Arguments as
-// hd_bytenet_block_fwd's, without dtype; x, w1, wc, w2 and the scratch bb, e
-// at 16-byte aligned addresses (TMA); `plan` the three launches' plans
-// (3 x PLAN_LEN values, F1, F2, F3), each refused unless it is this
+// ops/fused_bytenet.py::bytenet_block_plan gives these designs). Arguments
+// as hd_bytenet_block_fwd's, without dtype; x, w1, wc, w2 and the scratch
+// bb, e at 16-byte aligned addresses (TMA); `plan` the three launches'
+// plans (3 x PLAN_LEN values, F1, F2, F3), each refused unless it is this
 // source's own. Sets *launched to the kernels launched (3 on success) and
 // returns a cudaError_t code (0 = all launched).
 extern "C" int hd_bytenet_block_fwd_tma(const void* x, const void* g1, const void* b1,
@@ -881,6 +1259,25 @@ extern "C" int hd_bytenet_block_fwd_tma(const void* x, const void* g1, const voi
         cudaSuccess)
       return (int)err;
     ++*launched;
+  }
+  return 0;
+}
+
+// How the three launches of a Hopper K2 `plan` fit the card: out[i] the
+// clusters of launch i that can be resident at once
+// (cudaOccupancyMaxActiveClusters); returns a cudaError_t code
+extern "C" int hd_bytenet_block_fwd_occupancy(const long long* plan, int* out) {
+  cudaError_t err = tma_limits();
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < 3; ++i) {
+    const long long* lp = plan + i * PLAN_LEN;
+    if ((lp[6] != TMA_BM && lp[6] != WIDE_BM) || (lp[7] != 64 && lp[7] != TMA_BN && lp[7] != 256))
+      return (int)cudaErrorInvalidValue;
+    LaunchCfg lc(lp, nullptr);
+    lc.cfg.numAttrs = 1;  // the cluster alone
+    if ((err = cudaOccupancyMaxActiveClusters(&out[i], tma_kernel(i + 1, (int)lp[6], (int)lp[7]),
+                                              &lc.cfg)) != cudaSuccess)
+      return (int)err;
   }
   return 0;
 }

@@ -92,6 +92,7 @@
 
 #include <cstdint>
 
+#include "bytenet_tiles.cuh"
 #include "gemm_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -636,6 +637,11 @@ int launch(const T* x, const T* p, const T* q, const float2* stats, const float*
 
 namespace wg = hd::wg;
 namespace cg = cooperative_groups;
+using hd::bt::crosses;
+using hd::bt::release;
+using hd::bt::store4;
+using hd::bt::unpack4;
+using hd::bt::zero_rows;
 
 constexpr int TMA_BM = 128;                 // rows of a data tile: 64 a consumer warpgroup
 constexpr int TMA_BN = 128;                 // its columns; a weight-gradient tile is 128 x 128
@@ -673,30 +679,11 @@ struct DataSmem {
 static_assert(TMA_BM * TMA_BN * 4 <= Z_STAGE * DataSmem::STAGE && Z_STAGE < DATA_STAGES,
               "dh fits the stages before z's");
 
-// An f32 [128][128] tile in shared memory whose 16-byte groups of a row are
-// stored XOR the row's low three bits, so that a warp writing a thread's
-// m16n8 pairs or reading a row's 16-byte groups meets few bank conflicts
-struct DTile {
-  float* t;
-  __device__ __forceinline__ float* at(int r, int c) const {
-    return t + r * TMA_BN + ((((c >> 2) ^ r) & 7) | ((c >> 2) & ~7)) * 4 + (c & 3);
-  }
-};
-
-// four bf16 as f32
-__device__ __forceinline__ float4 unpack4(uint2 u) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 // Four neighbouring elements (c a multiple of 4) of a bf16 tile of 128 rows
 // and 128 columns laid out as four TMA boxes (see DataSmem), as f32
 __device__ __forceinline__ float4 tile4(const unsigned char* t, int r, int c) {
   return unpack4(*reinterpret_cast<const uint2*>(t + (2 * (r >> 6) + (c >> 6)) * BOX +
                                                 wg::swizzle128(r & 63, c & 63)));
-}
-__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(tc::pack(a, b), tc::pack(c, d));
 }
 
 // A weight-gradient block's: the ring (a stage: two boxes of X^T's 128
@@ -709,48 +696,6 @@ struct WgradSmem {
 };
 static_assert(TMA_CONSUMERS * 3 * TMA_BN * 4 <= DATA_STAGES * DataSmem::STAGE,
               "the column partials fit the ring");
-
-// A consumer warp is done with a stage
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) wg::mbar_arrive(empty);
-}
-
-// Whether 64 rows whose first row sits at `first` in its chain have rows
-// whose row + shift lies in another chain (or past either end)
-__device__ __forceinline__ bool crosses(int first, int shift, int L) {
-  return shift != 0 &&
-         (first + 63 >= L || (shift > 0 ? first + 63 >= L - shift : first < -shift));
-}
-
-// Zero the rows of a landed 64-row box (its 128-byte rows, the warpgroup's
-// thread gt taking rows gt / 8 + 16 k and the 16-byte column gt % 8) whose
-// row + shift lies in another chain; lpos[k] the rows' chain positions
-__device__ __forceinline__ void zero_rows(unsigned char* box, const int (&lpos)[4], int shift,
-                                          int L, int gt) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    if (lpos[k] + shift < 0 || lpos[k] + shift >= L)
-      *reinterpret_cast<uint4*>(box + (gt / 8 + 16 * k) * 128 + (gt & 7) * 16) =
-          make_uint4(0, 0, 0, 0);
-}
-
-// The sums of the tile's rows over every column of the cluster's blocks:
-// each block's (sRow, written before the call), then every block in rank
-// order, so that every block holds the same sums; thread r < 128 returns
-// row r's
-__device__ __forceinline__ float2 cluster_row_sums(float2* sRow, cg::cluster_group& cluster) {
-  cluster.sync();  // every block's sRow is written
-  float2 tot = make_float2(0.f, 0.f);
-  if (threadIdx.x < TMA_BM)
-    for (unsigned k = 0; k < cluster.num_blocks(); ++k) {
-      const float2 w = *cluster.map_shared_rank(sRow + threadIdx.x, k);
-      tot.x += w.x;
-      tot.y += w.y;
-    }
-  cluster.sync();  // every block has read the others' sRow
-  return tot;
-}
 
 // What a data GEMM reads and writes besides its three tensor maps
 struct TmaDataArgs {
@@ -801,7 +746,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 2)
   float2* sMom = sRow + TMA_BM;  // (mean dn, mean dn n)
   float* sG = reinterpret_cast<float*>(smem + SM.par());
   float* sB = sG + BN;
-  const DTile sD{reinterpret_cast<float*>(smem)};  // dh, over the ring
+  const hd::bt::DTile<> sD{reinterpret_cast<float*>(smem)};  // dh, over the ring
   float* sCol = reinterpret_cast<float*>(smem);    // [8 warps][3][128], over dh once read
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * TMA_BM, L = p.L, M = p.M, N = p.N;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -919,7 +864,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 2)
       const float s2 = warp_sum(z.x * z.x + z.y * z.y + z.z * z.z + z.w * z.w);
       if (lane == 0) sRow[r] = make_float2(s, s2);
     }
-    const float2 tot = cluster_row_sums(sRow, cluster);
+    const float2 tot = hd::bt::cluster_row_sums<TMA_BM>(sRow, cluster);
     if (threadIdx.x < TMA_BM)
       sStat[threadIdx.x] = m0 + (int)threadIdx.x < M ? ln_stats(tot.x, tot.y, N)
                                                      : make_float2(0.f, 0.f);
@@ -952,7 +897,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 2)
     if (lane == 0) sRow[r] = make_float2(s1, s2);
   }
   {
-    const float2 tot = cluster_row_sums(sRow, cluster);
+    const float2 tot = hd::bt::cluster_row_sums<TMA_BM>(sRow, cluster);
     if (threadIdx.x < TMA_BM) sMom[threadIdx.x] = make_float2(tot.x / N, tot.y / N);
   }
   wg::bar_sync(1, TMA_CONSUMERS * 32);

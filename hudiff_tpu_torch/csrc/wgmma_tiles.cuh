@@ -90,6 +90,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > (1LL << 34)) __trap();
 }
 
+// ---- programmatic dependent launch ---------------------------------------------
+// A kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
+// may start while the launch before it on the stream still runs. grid_wait
+// blocks until that launch has completed and its writes are visible (it
+// returns at once in a kernel launched without the attribute); grid_launch
+// lets the next launch start once every block of this one has called it or
+// exited. A kernel that reads and writes nothing the launch before it may
+// touch until grid_wait, and calls grid_launch only after grid_wait, can
+// rely, before its own grid_wait, on everything before the previous launch.
+__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void grid_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // ---- TMA -------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {

@@ -7,7 +7,9 @@ one call launches three GEMMs; the first applies LayerNorm 1 + activation
 to x's rows as they land, and the first two finish the next LayerNorm in
 their epilogues, as thread-block clusters spanning a row tile's columns,
 writing act(LN2 p) and act(LN3 q) for the next GEMM; in bf16 with widths
-that are multiples of 128 on Hopper's TMA + wgmma, otherwise on the
+that are multiples of 128 on Hopper's TMA + wgmma, on 64-row tiles at the
+sampling batches and 128-row tiles at the training batches, the second
+and third GEMM starting under the previous one's tail, otherwise on the
 earlier cp.async + mma.sync core, chosen by ``bytenet_block_plan`` from the
 shape) and ``csrc/bytenet_block_bwd.cu`` (K4: five launches, three
 data-gradient GEMMs with the LayerNorm backward in their epilogues, one
@@ -58,6 +60,7 @@ _SIGNATURES = {
                             + [ctypes.c_void_p, ctypes.c_void_p],
     'hd_bytenet_block_fwd_tma': [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
                                 + [ctypes.c_void_p] * 3,
+    'hd_bytenet_block_fwd_occupancy': [ctypes.c_void_p] * 2,
 }
 _BWD_SIGNATURES = {
     'hd_bytenet_block_bwd': [ctypes.c_void_p] * 31 + [ctypes.c_int] * 8
@@ -72,30 +75,69 @@ _BWD_RESTYPES = {'hd_bytenet_block_bwd_workspace': ctypes.c_longlong}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {'relu': 0, 'gelu': 1}
 
-# K2's launches on the H100 (csrc/bytenet_block.cu). The Hopper path's
-# block is a 64 x 128 tile of the B*L x N output, two consumer warpgroups
-# that split the reduction's chunks, and a producer warp; a stage of its
-# ring is a 64 x 64 A box (8 KB) and 128 weight rows of 64 channels (16 KB),
-# then come the mbarriers, [4][64] float2 of row statistics, F1's LayerNorm
-# g and b (1024 f32 each), the tile's bias and next LayerNorm's g and b (128
-# f32 each) and 1 KB of alignment: with eight stages one block holds an SM,
-# with four two share one. The path takes bf16 with D and H multiples of
-# 128; the plan gives it the towers of H >= 256 up to K2_TMA_MAX_TILES of
-# the conv's tiles (B <= 64 at 768/384, <= 128 at 512/256), where it read
-# faster than the earlier cp.async + mma.sync core on an H100; that core
-# keeps the 256/128 tower, larger batches and the other widths (PERF.md).
+# K2's launches on the H100 (csrc/bytenet_block.cu). Two Hopper designs
+# (bf16, D and H multiples of 128), both a producer warp and two consumer
+# warpgroups. The 64-row design ('wgmma') takes 64 x bn tiles (bn 128, or
+# 64 for launches of few tiles: K2_NARROW_TILES), its groups splitting the
+# chunks; a stage of its ring is a 64 x 64 A box (8 KB) and bn weight rows
+# of 64 channels, then come the mbarriers, [4][64] float2 of row
+# statistics, F1's LayerNorm g and b (1024 f32 each), the tile's bias and
+# next LayerNorm's g and b (bn f32 each) and 1 KB of alignment: with eight
+# stages one block holds an SM, with four two share one. The 128-row
+# design ('wgmma128', K4's data-GEMM block) takes 128 x 128 tiles, each
+# group 64 rows over every chunk, or 128 x 256 tiles with four groups where
+# N is a multiple of 256; a stage is the 128 A rows and the tile's weight
+# rows of 64 channels (32 or 48 KB), then the mbarriers (256 bytes),
+# [2][128] float2 of row values, the same parameters: three stages of 128
+# columns let two blocks share an SM, six hold one; four of 256 hold one.
+# F2 and F3 are programmatic dependent launches: each starts under the
+# launch before it, sets up, asks for its first weights and waits for it
+# before reading or writing anything else (F1 as well read 16% slower at
+# 768/384, B = 64, L = 152, and gained under 1 us elsewhere).
+# The plan picks the design by shape where it read fastest on an H100
+# (``_k2_design``); mma.sync keeps the demos' widths (and runs on request),
+# FMA f32.
 H100_SMS = 132
 MAX_SMEM = 232448
 MAX_CLUSTER = 8
-K2_TMA_BM, K2_TMA_BN = 64, 128
-K2_TMA_THREADS = 9 * 32
-K2_TMA_MAX_TILES = 5 * H100_SMS
+K2_TMA_BM, K2_TMA_BN, K2_WIDE_BM = 64, 128, 128
+K2_TMA_THREADS = 9 * 32          # a producer warp and two consumer warpgroups
+K2_WIDE_THREADS_256 = 17 * 32    # 256-column tiles: four consumer warpgroups
+K2_TMA_STAGES = (4, 8)
+K2_WIDE_STAGES = (3, 6)   # 128-column tiles: two blocks an SM, or one
+K2_WIDE_STAGES_256 = 4    # 256-column tiles: one block an SM
+K2_PLAN_LEN = 20
+K2_PATHS = ('wgmma', 'wgmma128', 'mma_sync', 'fma')
+K2_HOPPER = ('wgmma', 'wgmma128')
 
 
-def k2_tma_smem(stages: int) -> int:
-    """Shared memory of a Hopper K2 block with a ring of ``stages``."""
-    return stages * (64 + 128) * 128 + 2 * stages * 8 + 4 * 64 * 8 + (2 * 1024 + 3 * 128) * 4 + 1024
-K2_PATHS = ('wgmma', 'mma_sync', 'fma')
+def k2_tma_smem(stages: int, bn: int = K2_TMA_BN) -> int:
+    """Shared memory of a 64-row Hopper K2 block: a ring of ``stages``, bn columns."""
+    return stages * (64 + bn) * 128 + 2 * stages * 8 + 4 * 64 * 8 + (2 * 1024 + 3 * bn) * 4 + 1024
+
+
+def k2_wide_smem(stages: int, bn: int = K2_TMA_BN) -> int:
+    """Shared memory of a 128-row Hopper K2 block: a ring of ``stages``, bn columns."""
+    return stages * (128 + bn) * 128 + 256 + 2 * 128 * 8 + (2 * 1024 + 3 * bn) * 4 + 1024
+
+
+# The design each bf16 shape takes (M = B*L rows), where
+# bytenet_fwd_sweep --shapes paths read it fastest on an H100: the 64-row
+# design up to K2_WIDE_MIN_ROWS rows (B <= 16 at L = 152; the 256/128
+# tower up to K2_WIDE_MIN_ROWS_H128, B <= 32), the 128-row one past them
+K2_WIDE_MIN_ROWS = 4096
+K2_WIDE_MIN_ROWS_H128 = 8192
+# the 64-row design's F1, F2 and F3 of at most this many 64 x 128 tiles
+# take 64-column tiles, where those read faster on an H100 (B = 16: F1 of
+# the 256/128 tower, F2 up to 512/256, F3 up to 768/384; every launch at
+# B = 1)
+K2_NARROW_TILES = (38, 76, 228)
+
+
+def _k2_design(M: int, D: int, H: int) -> str:
+    """The bf16 design of a shape whose widths are multiples of 128."""
+    return 'wgmma' if M <= (K2_WIDE_MIN_ROWS_H128 if H == 128 else K2_WIDE_MIN_ROWS) \
+        else 'wgmma128'
 
 
 def _pr5_launch(M: int, N: int, cluster: bool, dtype) -> dict:
@@ -113,21 +155,24 @@ def _pr5_launch(M: int, N: int, cluster: bool, dtype) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def bytenet_block_plan(B: int, L: int, D: int, H: int, K: int, dilation: int, dtype,
-                       path: str = None) -> dict:
+                       path: str = None, bn: int = None, pdl: bool = None) -> dict:
     """K2's three launches (F1: p and act(LN2 p) from x; F2: the dilated
     conv, q and act(LN3 q); F3: y) for x [B, L, D] of ``dtype``, hidden H,
-    K taps, on an H100, from the shape alone. ``path`` 'wgmma' (TMA +
-    wgmma: bf16, D and H multiples of 128, H >= 256, at most
-    K2_TMA_MAX_TILES 64 x 128 tiles of the conv) or else the earlier 'mma_sync'
-    (bf16) or 'fma' (f32). Each launch: ``grid``, ``cluster``, ``threads``,
-    ``smem_bytes`` and the column tile ``bn``; for 'wgmma' (grid: column
-    tiles, row tiles of 64 of the B*L rows, 1) also the ring's ``stages``,
-    the A rows' and the weights' tensor maps and ``array``, the 18 values
-    a launch the C entry takes (``c_array`` as ctypes; plans are cached by
-    shape).
-    ``path`` names another path for comparison, where the kernel takes the
-    shape ('wgmma': bf16, D and H multiples of 128); what no kernel takes
-    raises."""
+    K taps, on an H100, from the shape alone. ``path``: the Hopper designs
+    (bf16, D and H multiples of 128) 'wgmma' (64-row tiles) and 'wgmma128'
+    (128-row tiles), the one ``_k2_design`` names for the shape, else the
+    earlier 'mma_sync' (bf16) or 'fma' (f32). Each launch: ``grid``,
+    ``cluster``, ``threads``, ``smem_bytes`` and the column tile ``bn``; on
+    a Hopper design (grid: column tiles, row tiles of ``bm`` of the B*L
+    rows, 1) also the ring's ``stages``, ``pdl`` (launched to start under
+    the previous launch's tail: F2 and F3), the A rows' and the weights'
+    tensor maps and ``array``, the K2_PLAN_LEN values a launch the C entry
+    takes (``c_array`` as ctypes; plans are cached by shape).
+    ``path`` names another design for comparison, where its kernel takes
+    the shape; ``bn`` the column tiles of all three launches, or of each
+    (a tuple of three, None for the plan's own): 64 or 128 in the 64-row
+    design, 128 or 256 in the 128-row one; ``pdl=False``
+    launches without the overlap; what no kernel takes raises."""
     if dtype not in _DTYPES:
         raise TypeError(f'bytenet_block: dtype {dtype} not supported')
     if (B <= 0 or L <= 0 or D <= 0 or H <= 0 or D % 32 or H % 32 or max(D, H) > 1024
@@ -135,37 +180,60 @@ def bytenet_block_plan(B: int, L: int, D: int, H: int, K: int, dilation: int, dt
         raise ValueError(f'bytenet_block: unsupported shape B={B} L={L} D={D} H={H} K={K} '
                          f'dilation={dilation} (D, H multiples of 32 up to 1024, K odd)')
     bf16 = dtype is torch.bfloat16
-    rows = -(-B * L // K2_TMA_BM)
-    takes = bf16 and D % K2_TMA_BN == 0 and H % K2_TMA_BN == 0 and B * L <= 1 << 30
-    fits = takes and H >= 256 and H // K2_TMA_BN * rows <= K2_TMA_MAX_TILES
-    path = path or ('wgmma' if fits else 'mma_sync' if bf16 else 'fma')
-    if path not in K2_PATHS or (path == 'wgmma' and not takes) \
+    M = B * L
+    takes = bf16 and D % K2_TMA_BN == 0 and H % K2_TMA_BN == 0 and M <= 1 << 30
+    path = path or (_k2_design(M, D, H) if takes else 'mma_sync' if bf16 else 'fma')
+    if path not in K2_PATHS or (path in K2_HOPPER and not takes) \
             or (path == 'mma_sync' and not bf16) or (path == 'fma' and bf16):
         raise ValueError(f'bytenet_block: no {path!r} path for {dtype} at B={B} L={L} '
                          f'D={D} H={H}')
     gemms = ((D, H, 1, True), (H, H, K, True), (H, D, 1, False))   # (C, N, taps, next LN)
-    if path != 'wgmma':
-        return {'path': path, 'launches': [_pr5_launch(B * L, N, ln, dtype)
+    if path not in K2_HOPPER:
+        if bn is not None or pdl is not None:
+            raise ValueError(f'bytenet_block: the {path!r} design picks its own tiles')
+        return {'path': path, 'launches': [_pr5_launch(M, N, ln, dtype)
                                            for _, N, _, ln in gemms]}
+    wide = path == 'wgmma128'
+    tiles = bn if isinstance(bn, tuple) else (bn,) * 3
+    if len(tiles) != 3 or not set(tiles) <= ({None, K2_TMA_BN, 256} if wide
+                                             else {None, 64, K2_TMA_BN}):
+        raise ValueError(f'bytenet_block: no {bn}-column tiles in the {path!r} design')
+    bm = K2_WIDE_BM if wide else K2_TMA_BM
     launches = []
-    for C, N, taps, ln in gemms:
-        grid = (N // K2_TMA_BN, rows, 1)
-        a_map = {'dims': (C, B * L), 'strides': (C * 2,), 'box': (64, K2_TMA_BM)}
-        w_map = {'dims': (taps * C, N), 'strides': (taps * C * 2,), 'box': (64, K2_TMA_BN)}
-        # eight stages where the blocks fit the SMs one each (and always for
-        # F1, whose registers allow one block an SM); else four, two blocks an SM
-        stages = 8 if taps == 1 and ln or grid[0] * grid[1] <= H100_SMS else 4
-        launch = {'grid': grid, 'cluster': (grid[0] if ln else 1, 1, 1),
-                  'threads': K2_TMA_THREADS, 'smem_bytes': k2_tma_smem(stages),
-                  'bn': K2_TMA_BN, 'stages': stages, 'chunks': taps * C // 64,
+    for i, (C, N, taps, ln) in enumerate(gemms):
+        asked = tiles[i]
+        if wide:   # 256 columns for F1 where N allows (x rewritten once a row tile)
+            cols = asked or (256 if i == 0 and N % 256 == 0 else K2_TMA_BN)
+        else:      # 64 where a launch has few tiles
+            narrow = N // 128 * -(-M // bm) <= K2_NARROW_TILES[i]
+            cols = asked or (64 if narrow else K2_TMA_BN)
+        if N % cols or (ln and N // cols > MAX_CLUSTER):   # a cluster spans a row tile's columns
+            if asked:
+                raise ValueError(f'bytenet_block: {N} columns in tiles of {cols} (a cluster '
+                                 f'of at most {MAX_CLUSTER})')
+            cols = K2_TMA_BN
+        grid = (N // cols, -(-M // bm), 1)
+        blocks = grid[0] * grid[1]
+        if wide:   # 128 columns: six stages where the blocks fit the SMs one each, else
+            # three, two an SM; 256 columns: four, one an SM
+            stages = K2_WIDE_STAGES_256 if cols == 256 else K2_WIDE_STAGES[blocks <= H100_SMS]
+            smem = k2_wide_smem(stages, cols)
+        else:      # eight for F1 (one block an SM) and where the blocks fit the SMs, else four
+            stages = K2_TMA_STAGES[(taps == 1 and ln) or blocks <= H100_SMS]
+            smem = k2_tma_smem(stages, cols)
+        a_map = {'dims': (C, M), 'strides': (C * 2,), 'box': (64, bm)}
+        w_map = {'dims': (taps * C, N), 'strides': (taps * C * 2,), 'box': (64, cols)}
+        launch = {'grid': grid, 'cluster': (grid[0] if ln else 1, 1, 1), 'bm': bm,
+                  'threads': K2_WIDE_THREADS_256 if cols == 256 else K2_TMA_THREADS,
+                  'smem_bytes': smem, 'bn': cols, 'stages': stages,
+                  'pdl': i > 0 and pdl is not False, 'chunks': taps * C // 64,
                   'a_map': a_map, 'w_map': w_map}
-        launch['array'] = (*grid, launch['cluster'][0], launch['threads'],
-                           launch['smem_bytes'], K2_TMA_BN, stages, *a_map['dims'],
-                           *a_map['strides'], *a_map['box'], *w_map['dims'],
-                           *w_map['strides'], *w_map['box'])
+        launch['array'] = (*grid, launch['cluster'][0], launch['threads'], smem, bm, cols,
+                           stages, int(launch['pdl']), *a_map['dims'], *a_map['strides'],
+                           *a_map['box'], *w_map['dims'], *w_map['strides'], *w_map['box'])
         launches.append(launch)
     array = sum((ln['array'] for ln in launches), ())
-    return {'path': 'wgmma', 'launches': launches, 'array': array,
+    return {'path': path, 'launches': launches, 'array': array,
             'c_array': (ctypes.c_longlong * len(array))(*array)}
 
 
@@ -512,7 +580,8 @@ def _forward(x, params, dilation: int, activation_name: str, keep: bool, plan: d
     dev, cd = x.device, x.dtype
     params = _prepared(params, dev, cd)
     x = x.contiguous()
-    if plan['path'] == 'wgmma':
+    tma = plan['path'] in K2_HOPPER
+    if tma:
         x = _aligned(x)
         params = tuple(_aligned(t) if i in _WEIGHTS else t for i, t in enumerate(params))
     y = torch.empty_like(x)
@@ -529,7 +598,7 @@ def _forward(x, params, dilation: int, activation_name: str, keep: bool, plan: d
             scratch[0].data_ptr(), scratch[1].data_ptr(), stats.data_ptr() if keep else None)
     with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if plan['path'] == 'wgmma':
+        if tma:
             code = lib.hd_bytenet_block_fwd_tma(
                 *ptrs, B, L, D, H, K, int(dilation), _ACTS[activation_name], plan['c_array'],
                 stream, ctypes.addressof(launched))
@@ -599,6 +668,17 @@ def bytenet_block_backward(x, p, q, g1, b1, w1, c1, g2, b2, wc, cc, g3, b3, w2, 
     bwd_launches += launched.value
     _build.check(code, 'bytenet_block_backward')
     return (dx, *grads)
+
+
+def k2_occupancy(plan: dict) -> list:
+    """How a Hopper K2 plan's three launches fit the card in this process:
+    the clusters of each that can be resident at once (the CUDA occupancy
+    calculator)."""
+    lib = _build.load('bytenet_block', _SIGNATURES)
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.hd_bytenet_block_fwd_occupancy(plan['c_array'], out),
+                 'bytenet_block occupancy')
+    return list(out)
 
 
 def k4_occupancy(plan: dict) -> dict:

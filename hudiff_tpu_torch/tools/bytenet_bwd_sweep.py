@@ -41,6 +41,7 @@ import torch
 
 from ..ops import fused_bytenet as FB
 from ..ops.bytenet import ByteNetBlock
+from . import added_ms
 from .attention_bwd_sweep import graph_ms
 
 AB, NB = ((768, 'relu'), (256, 'gelu')), ((512, 'gelu'), (256, 'gelu'))
@@ -96,25 +97,28 @@ def eager_ms(fn, n: int = 20, windows: int = 3) -> float:
     return statistics.median(out)
 
 
-def launch_ms(fn, n: int = 5):
+def launch_ms(fn, n: int = 5, counter: str = 'bwd_launches', match: str = 'bytenet_bwd'):
     """Device ms of each kernel one call of ``fn`` launches, in launch order:
-    the median over ``n`` calls in one profiled run; 'not measured' where the
-    profiler's records are not the calls' launches."""
+    the median over ``n`` calls in one profiled run, a kernel charged from
+    the later of its start and the previous kernel's end (``added_ms``);
+    'not measured' where the profiler's records are not the calls' launches
+    (``counter``: the wrapper's count, ``match`` in the kernels' names: K4's
+    by default)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    before = FB.bwd_launches
+    before = getattr(FB, counter)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    per = (FB.bwd_launches - before) // n
+    per = (getattr(FB, counter) - before) // n
     ks = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                 and 'bytenet_bwd' in e.name), key=lambda e: e.time_range.start)
+                 and match in e.name), key=lambda e: e.time_range.start)
     if len(ks) != per * n:
         return 'not measured'
-    return [statistics.median(ks[per * i + k].time_range.elapsed_us() / 1e3 for i in range(n))
-            for k in range(per)]
+    ms = added_ms(ks)
+    return [statistics.median(ms[per * i + k] for i in range(n)) for k in range(per)]
 
 
 def time_designs(call, ref, shape, splits: bool = False, launches: bool = True) -> dict:

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from . import added_ms
 from ..models.denoiser import (AntiTFNet, DenoiserConfig, NanoAntiTFNet, SelfAttNet,
                                SplitConvTowers, nano_config)
 from ..ops import masking
@@ -171,8 +172,8 @@ def profile_window(fn, device, top: int = 15) -> dict:
                and not getattr(e, 'is_user_annotation', False) and e.time_range.start > start]
     by_group = dict.fromkeys(('K1', 'K2', 'K3', 'K4', 'cublas', 'other'), 0.0)
     counts = dict.fromkeys(by_group, 0)
-    for e in kernels:
-        by_group[kernel_group(e.name)] += e.time_range.elapsed_us() / 1e3
+    for e, ms in zip(kernels, added_ms(kernels)):   # what each adds to the busy time
+        by_group[kernel_group(e.name)] += ms
         counts[kernel_group(e.name)] += 1
     other = {}
     for e in events:   # each kernel under the op that launched it

@@ -203,6 +203,52 @@ def test_fwd_plan_refusals(layout):
 
 # -- K2 ------------------------------------------------------------------------
 
+def _k2_launches_ok(plan, B, L, D, H, K, tiles=None):
+    """Every launch of a Hopper K2 plan as the C entry takes it: the grid of
+    column and row tiles, a cluster over a row tile's column tiles for F1
+    and F2 (at most 8), the ring's stages and shared memory (two blocks an
+    SM where planned), the A rows' and weights' 2-D tensor maps, the
+    programmatic launch of F2 and F3, and the C array; the column tiles
+    the plan's own (``tiles`` where asked for)."""
+    gemms = ((D, H, 1, True), (H, H, K, True), (H, D, 1, False))
+    wide = plan['path'] == 'wgmma128'
+    bm = 128 if wide else 64
+    for i, (ln, (C, N, taps, next_ln)) in enumerate(zip(plan['launches'], gemms)):
+        bn = ln['bn']
+        assert ln['bm'] == bm and N % bn == 0
+        if wide:   # 256 columns for F1 where N is a multiple of 256
+            assert bn == (tiles or (256 if i == 0 and N % 256 == 0 else 128))
+        else:      # 64 columns where a launch has at most K2_NARROW_TILES 64 x 128 tiles
+            narrow = N // 128 * -(-B * L // 64) <= FB.K2_NARROW_TILES[i]
+            assert bn == (tiles or (64 if narrow and (not next_ln or N // 64 <= 8) else 128))
+        assert ln['grid'] == (N // bn, -(-B * L // bm), 1) and max(ln['grid'][1:]) <= 65535
+        assert ln['cluster'] == ((N // bn if next_ln else 1), 1, 1)
+        assert ln['cluster'][0] <= FB.MAX_CLUSTER
+        blocks = ln['grid'][0] * ln['grid'][1]
+        if wide:   # 128 columns: six stages where the blocks fit the SMs one each, else
+            # three, two an SM; 256 columns (where N allows them): four, one an SM
+            assert ln['stages'] == (4 if bn == 256 else 6 if blocks <= 132 else 3)
+            assert ln['smem_bytes'] == FB.k2_wide_smem(ln['stages'], bn)
+        else:      # eight for F1 and where the blocks fit the SMs, else four
+            assert ln['stages'] == (8 if i == 0 or blocks <= 132 else 4)
+            assert ln['smem_bytes'] == FB.k2_tma_smem(ln['stages'], bn)
+        assert ln['threads'] == (544 if bn == 256 else 288)   # 4 or 2 consumer warpgroups
+        assert ln['smem_bytes'] <= FB.MAX_SMEM
+        one_an_sm = ln['stages'] in (6, 8) or bn == 256
+        assert one_an_sm or 2 * (ln['smem_bytes'] + 1024) <= 233472
+        assert ln['chunks'] == taps * C // 64
+        assert ln['pdl'] == (i > 0)   # F2 and F3 start under the previous launch's tail
+        assert _map_ok(ln['a_map']) and _map_ok(ln['w_map'])
+        assert ln['a_map']['dims'] == (C, B * L) and ln['a_map']['box'] == (64, bm)
+        assert ln['w_map']['dims'] == (taps * C, N) and ln['w_map']['box'] == (64, bn)
+        assert ln['array'] == (*ln['grid'], ln['cluster'][0], ln['threads'], ln['smem_bytes'],
+                               bm, bn, ln['stages'], int(ln['pdl']), C, B * L, 2 * C, 64, bm,
+                               taps * C, N, 2 * taps * C, 64, bn)
+        assert len(ln['array']) == FB.K2_PLAN_LEN
+    assert plan['array'] == sum((ln['array'] for ln in plan['launches']), ())
+    assert list(plan['c_array']) == list(plan['array'])
+
+
 @pytest.mark.parametrize('dtype', DTYPES, ids=str)
 @pytest.mark.parametrize('D,K', TOWERS)
 @pytest.mark.parametrize('L', LENGTHS)
@@ -219,52 +265,94 @@ def test_k2_plan(B, L, D, K, dtype):
             assert plan['path'] == 'fma'
             continue
         wide = D % 128 == 0 and H % 128 == 0
-        tiles = H // 128 * -(-B * L // 64)
-        chosen = wide and H >= 256 and tiles <= 5 * FB.H100_SMS
-        assert plan['path'] == ('wgmma' if chosen else 'mma_sync')
+        assert plan['path'] == (FB._k2_design(B * L, D, H) if wide else 'mma_sync')
         if not wide:
-            with pytest.raises(ValueError):
-                FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+            for path in FB.K2_HOPPER:
+                with pytest.raises(ValueError):
+                    FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path=path)
             continue
-        plan = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path='wgmma')
-        gemms = ((D, H, 1, True), (H, H, K, True), (H, D, 1, False))
-        for i, (ln, (C, N, taps, next_ln)) in enumerate(zip(plan['launches'], gemms)):
-            assert ln['grid'] == (N // 128, -(-B * L // 64), 1) and ln['bn'] == 128
-            assert ln['cluster'] == ((N // 128 if next_ln else 1), 1, 1)
-            assert ln['cluster'][0] <= FB.MAX_CLUSTER
-            # eight stages for F1 and where the blocks fit the SMs, else four
-            assert ln['stages'] == (8 if i == 0 or ln['grid'][0] * ln['grid'][1] <= 132 else 4)
-            assert ln['threads'] == 288 and ln['smem_bytes'] == FB.k2_tma_smem(ln['stages'])
-            assert ln['smem_bytes'] <= FB.MAX_SMEM and (ln['stages'] == 8
-                                                        or 2 * (ln['smem_bytes'] + 1024) <= 233472)
-            assert ln['chunks'] == taps * C // 64
-            assert _map_ok(ln['a_map']) and _map_ok(ln['w_map'])
-            assert ln['a_map']['dims'] == (C, B * L) and ln['a_map']['box'] == (64, 64)
-            assert ln['w_map']['dims'] == (taps * C, N) and ln['w_map']['box'] == (64, 128)
-            assert len(ln['array']) == 18
-        assert plan['array'] == sum((ln['array'] for ln in plan['launches']), ())
-        assert list(plan['c_array']) == list(plan['array'])
+        for path in FB.K2_HOPPER:   # every Hopper design takes the shape, on request too
+            _k2_launches_ok(FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path=path),
+                            B, L, D, H, K)
+        if plan['path'] in FB.K2_HOPPER:
+            _k2_launches_ok(plan, B, L, D, H, K)
+        # the same plan at every dilation: the choice depends on the shape alone
+        assert plan['launches'] == FB.bytenet_block_plan(B, L, D, H, K, 1, dtype)['launches']
+
+
+def test_k2_plan_choices():
+    """The 64-row design's column tiles (64 where a launch has at most its
+    K2_NARROW_TILES 64 x 128 tiles, on request 64 or 128 for every launch or
+    for each, 128 where 64 would make a cluster past 8), the 128-row
+    design's (256 for F1 where N is a multiple of 256) and the programmatic
+    launch of F2 and F3 (off on request)."""
+    bf = torch.bfloat16
+    plan = FB.bytenet_block_plan(16, 152, 256, 128, 7, 1, bf, path='wgmma')
+    assert [ln['bn'] for ln in plan['launches']] == [64, 64, 64]   # 38, 38 and 76 tiles
+    plan = FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, bf, path='wgmma')
+    assert [ln['bn'] for ln in plan['launches']] == [128, 128, 64]   # 114, 114 and 228 tiles
+    plan = FB.bytenet_block_plan(16, 152, 512, 256, 7, 1, bf, path='wgmma')
+    assert [ln['bn'] for ln in plan['launches']] == [128, 64, 64]    # 76, 76 and 152 tiles
+    plan = FB.bytenet_block_plan(1, 139, 768, 384, 7, 1, bf, path='wgmma')
+    assert [ln['bn'] for ln in plan['launches']] == [64, 64, 64]
+    plan = FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, bf, path='wgmma', bn=(64, None, 64))
+    assert [ln['bn'] for ln in plan['launches']] == [64, 128, 64]
+    for bn in (64, 128):
+        plan = FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, bf, path='wgmma', bn=bn)
+        assert [ln['bn'] for ln in plan['launches']] == [bn] * 3
+        _k2_launches_ok(plan, 16, 152, 768, 384, 7, bn)
+    plan = FB.bytenet_block_plan(16, 152, 1024, 1024, 7, 1, bf, path='wgmma')
+    assert [ln['cluster'][0] for ln in plan['launches']] == [8, 8, 1]
+    with pytest.raises(ValueError):   # 16 column tiles of 64: a cluster past 8
+        FB.bytenet_block_plan(16, 152, 1024, 1024, 7, 1, bf, path='wgmma', bn=64)
+    # the 128-row design: 256 columns for F1 where N is a multiple of 256, on request
+    # for any launch whose N is
+    plan = FB.bytenet_block_plan(512, 152, 512, 256, 7, 1, bf, path='wgmma128')
+    assert [ln['bn'] for ln in plan['launches']] == [256, 128, 128]
+    assert [ln['cluster'][0] for ln in plan['launches']] == [1, 2, 1]
+    plan = FB.bytenet_block_plan(512, 152, 512, 256, 7, 1, bf, path='wgmma128', bn=256)
+    assert [ln['bn'] for ln in plan['launches']] == [256, 256, 256]
+    _k2_launches_ok(plan, 512, 152, 512, 256, 7, 256)
+    plan = FB.bytenet_block_plan(128, 152, 768, 384, 7, 1, bf, path='wgmma128')
+    assert [ln['bn'] for ln in plan['launches']] == [128, 128, 128]
+    plan = FB.bytenet_block_plan(512, 152, 512, 256, 7, 1, bf, path='wgmma128', bn=128)
+    assert [ln['bn'] for ln in plan['launches']] == [128] * 3
+    _k2_launches_ok(plan, 512, 152, 512, 256, 7, 128)
+    with pytest.raises(ValueError):   # 384 columns are no 256-column tiles
+        FB.bytenet_block_plan(128, 152, 768, 384, 7, 1, bf, path='wgmma128', bn=256)
+    plan = FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, bf, pdl=False)
+    assert [ln['pdl'] for ln in plan['launches']] == [False] * 3
+    assert [ln['array'][9] for ln in plan['launches']] == [0, 0, 0]
+    assert [ln['array'][9] for ln in FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, bf)[
+        'launches']] == [0, 1, 1]
+    for bad in ((64, 64), (64, 32, 64)):
+        with pytest.raises(ValueError):
+            FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, bf, path='wgmma', bn=bad)
 
 
 def test_k2_paths_on_the_main_shapes():
-    """The 768/384 and 512/256 towers take the Hopper path at the
-    sampler's, the service's and the bench's batches (B = 1-64; 512/256
-    also at 128); larger batches, the 256/128 tower and the demos' widths
-    the mma.sync design (where each read faster on an H100)."""
-    path = lambda *a: FB.bytenet_block_plan(*a)['path']  # noqa: E731
+    """The design each path shape takes, where it read fastest on an H100
+    (bytenet_fwd_sweep --shapes paths): the 64-row design at B = 1 and 16
+    (the sampler's, the service's) and on the 256/128 tower at B = 32, the
+    128-row one past them (the fine-tune, the bench's sampler, pretraining:
+    768/384 at B = 128, 512/256 at B = 512); mma.sync for the demos' widths
+    and on request, FMA for f32."""
+    path = lambda *a, **k: FB.bytenet_block_plan(*a, **k)['path']  # noqa: E731
     bf = torch.bfloat16
-    for B in (1, 16, 32, 64):
-        assert path(B, 152, 768, 384, 7, 1, bf) == 'wgmma'
-        assert path(B, 139, 768, 384, 7, 32, bf) == 'wgmma'
-        assert path(B, 152, 512, 256, 7, 2, bf) == 'wgmma'
-        assert path(B, 152, 256, 128, 7, 1, bf) == 'mma_sync'
-    assert path(128, 152, 768, 384, 7, 1, bf) == 'mma_sync'
-    assert path(128, 152, 512, 256, 7, 1, bf) == 'wgmma'
-    assert path(512, 152, 512, 256, 7, 1, bf) == 'mma_sync'
-    assert FB.bytenet_block_plan(16, 152, 256, 128, 7, 1, bf, path='wgmma')['path'] == 'wgmma'
+    for B, L in ((1, 152), (16, 152), (1, 139), (16, 139)):
+        for D in (768, 512, 256):
+            assert path(B, L, D, D // 2, 7, 4, bf) == 'wgmma'
+    for B, L in ((32, 152), (32, 139), (64, 152), (64, 139), (128, 152), (128, 139),
+                 (512, 152)):
+        for D in (768, 512):
+            assert path(B, L, D, D // 2, 7, 32, bf) == 'wgmma128'
+        assert path(B, L, 256, 128, 7, 1, bf) == ('wgmma' if B == 32 else 'wgmma128')
     for D in (64, 192, 128):
         assert path(512, 152, D, D // 2, 13, 1, bf) == 'mma_sync'
     assert path(64, 152, 768, 384, 7, 1, torch.float32) == 'fma'
+    for B in (16, 128, 512):
+        for p in ('wgmma', 'wgmma128', 'mma_sync'):
+            assert path(B, 152, 768, 384, 7, 1, bf, path=p) == p
     # the mma.sync design's tiles: 64 x 64 (clusters of 6) at B = 64, 128 x 128 (of 3) at 128
     for B, c in ((64, 6), (128, 3)):
         pr5 = FB.bytenet_block_plan(B, 152, 768, 384, 7, 1, bf, path='mma_sync')
@@ -272,6 +360,12 @@ def test_k2_paths_on_the_main_shapes():
 
 
 def test_k2_refusals():
+    """What no kernel takes raises: an even K, widths past 1024 or not
+    multiples of 32, an empty shape, another dtype; a Hopper design at
+    widths that are not multiples of 128 or in f32, mma.sync in f32, FMA in
+    bf16, an unknown design; column tiles other than 64 and 128 (128 alone
+    in the 128-row design); tiles or a launch mode for a design that picks
+    its own."""
     bf = torch.bfloat16
     for args in [(16, 152, 768, 384, 6, 1, bf), (16, 152, 770, 385, 7, 1, bf),
                  (16, 152, 2048, 1024, 7, 1, bf), (0, 152, 768, 384, 7, 1, bf),
@@ -280,12 +374,37 @@ def test_k2_refusals():
             FB.bytenet_block_plan(*args)
     with pytest.raises(TypeError):
         FB.bytenet_block_plan(16, 152, 768, 384, 7, 1, torch.float16)
-    for args, path in [((16, 152, 128, 64, 13, 1, bf), 'wgmma'),
-                       ((64, 152, 192, 96, 13, 1, bf), 'wgmma'),
-                       ((64, 152, 768, 384, 7, 1, torch.float32), 'mma_sync'),
-                       ((64, 152, 768, 384, 7, 1, bf), 'fma')]:
+    for args, kw in [((16, 152, 128, 64, 13, 1, bf), dict(path='wgmma')),
+                     ((16, 152, 128, 64, 13, 1, bf), dict(path='wgmma128')),
+                     ((64, 152, 192, 96, 13, 1, bf), dict(path='wgmma')),
+                     ((64, 152, 768, 384, 7, 1, torch.float32), dict(path='wgmma128')),
+                     ((64, 152, 768, 384, 7, 1, torch.float32), dict(path='mma_sync')),
+                     ((64, 152, 768, 384, 7, 1, bf), dict(path='fma')),
+                     ((64, 152, 768, 384, 7, 1, bf), dict(path='tiles')),
+                     ((64, 152, 768, 384, 7, 1, bf), dict(path='wgmma', bn=32)),
+                     ((64, 152, 768, 384, 7, 1, bf), dict(path='wgmma128', bn=64)),
+                     ((64, 152, 768, 384, 7, 1, bf), dict(path='mma_sync', bn=64)),
+                     ((64, 152, 768, 384, 7, 1, bf), dict(path='mma_sync', pdl=False)),
+                     ((64, 152, 768, 384, 7, 1, torch.float32), dict(bn=128))]:
         with pytest.raises(ValueError):
-            FB.bytenet_block_plan(*args, path=path)
+            FB.bytenet_block_plan(*args, **kw)
+
+
+def test_k2_cpu_tensors_take_the_plain_version():
+    """On the CPU the forward runs its plain version, whatever the plan, and
+    launches nothing."""
+    g = torch.Generator().manual_seed(19)
+    B, L, D, H, K = 2, 19, 256, 128, 3
+    x = torch.randn(B, L, D, generator=g).bfloat16()
+    params = [torch.randn(s, generator=g) * 0.1 + (1.0 if i in (0, 4, 8) else 0.0)
+              for i, s in enumerate(((D,), (D,), (H, D), (H,), (H,), (H,), (H, K, H), (H,),
+                                     (H,), (H,), (D, H), (D,)))]
+    want = FB.bytenet_block_reference(x, *params, dilation=2, activation_name='gelu')
+    before = FB.launches
+    for path in FB.K2_PATHS[:3]:
+        plan = FB.bytenet_block_plan(B, L, D, H, K, 2, torch.bfloat16, path=path)
+        assert torch.equal(FB._forward(x, params, 2, 'gelu', keep=False, plan=plan)[0], want)
+    assert FB.launches == before
 
 
 # -- K3 and K6 -----------------------------------------------------------------
@@ -543,12 +662,18 @@ def test_plans_mirror_the_sources():
     assert num('MAX_SMEM', src['attention_tiles.cuh']) == FA.MAX_SMEM == FB.MAX_SMEM
     assert num('TMA_MAX_TILES', src['rope_attention.cu']) == FA.K1_MAX_KV_TILES
     assert num('TMA_GROUPS', src['rope_attention.cu']) == 2
-    assert num('TMA_BM', src['bytenet_block.cu']) == FB.K2_TMA_BM
-    assert num('TMA_BN', src['bytenet_block.cu']) == FB.K2_TMA_BN
-    assert num('TMA_MAX_SMEM', src['bytenet_block.cu']) == FB.MAX_SMEM
-    assert num('MAX_CLUSTER', src['bytenet_block.cu']) == FB.MAX_CLUSTER
-    assert 'constexpr int TMA_STAGES[2] = {4, 8};' in src['bytenet_block.cu']
-    assert num('PLAN_LEN', src['bytenet_block.cu']) == 18
+    k2 = src['bytenet_block.cu']
+    assert num('TMA_BM', k2) == FB.K2_TMA_BM and num('WIDE_BM', k2) == FB.K2_WIDE_BM
+    assert num('TMA_BN', k2) == FB.K2_TMA_BN
+    assert num('TMA_MAX_SMEM', k2) == FB.MAX_SMEM
+    assert num('MAX_CLUSTER', k2) == FB.MAX_CLUSTER
+    assert 'constexpr int TMA_STAGES[2] = {%d, %d};' % FB.K2_TMA_STAGES in k2
+    assert 'constexpr int WIDE_STAGES[2] = {%d, %d};' % FB.K2_WIDE_STAGES in k2
+    assert num('PLAN_LEN', k2) == FB.K2_PLAN_LEN == 20
+    for name in ('wgmma_bytenet_fwd_gemm_kernel', 'wgmma_wide_bytenet_fwd_gemm_kernel',
+                 'hd_bytenet_block_fwd_tma', 'hd_bytenet_block_fwd_occupancy',
+                 'cudaLaunchAttributeProgrammaticStreamSerialization'):
+        assert name in k2, name
     bwd = src['rope_attention_bwd.cu']
     assert num('TMA_MAX_TILES', bwd) == FA.K3_MAX_TILES
     assert num('BT', bwd) == 64
@@ -779,16 +904,35 @@ def test_hopper_entries_from_a_fresh_thread(dev):
     assert all(torch.equal(a, b) for a, b in zip(got['k4'], want_k4))
 
 
+def _row_stats(z):
+    """f32 (mean, 1/sigma) of z's rows, the fast variance clamped at 0."""
+    zf = z.float()
+    mu = zf.mean(-1)
+    return torch.stack((mu, torch.rsqrt(((zf * zf).mean(-1) - mu * mu).clamp_min(0) + 1e-6)), -1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES, ids=str)
 @pytest.mark.parametrize('D,K', TOWERS)
 def test_k2_on_the_card(dev, D, K, dtype):
+    """K2 on every design that takes the shape against the plain version
+    (the K2 limits) at L = 152 and 139, dilations 1, 32 and 2, B*L a
+    multiple of 128 and not (16 x 139, 64 x 139), clusters of 3 on the
+    768/384 tower. On each bf16 design: with keep on and off the same y, a
+    repeat the same bits, the LayerNorm statistics of x the same bits on
+    both Hopper designs (they sum x's rows in one order) and those of p and
+    q within f32 rounding of the statistics of the design's own p and q
+    (the designs accumulate the products in other orders, so p and q
+    themselves may differ in their last bits); and the plan's call
+    captured in a CUDA graph (F2 and F3 launched to start under the launch
+    before them) replays to the eager call's bits."""
     from hudiff_tpu_torch.ops.bytenet import ByteNetBlock
     H = D // 2
     g = torch.Generator().manual_seed(D + K)
-    for B, L, dil in ((16, 152, 1), (64, 139, 32), (128, 152, 2)):
+    act = 'gelu' if D != 768 else 'relu'
+    for B, L, dil in ((16, 152, 1), (16, 139, 32), (64, 139, 32), (128, 152, 2)):
         torch.manual_seed(D + dil)   # the module's own initialisation, as chip_smoke.py's
-        blk = ByteNetBlock(D, H, K, dilation=dil, activation='gelu' if D != 768 else 'relu')
+        blk = ByteNetBlock(D, H, K, dilation=dil, activation=act)
         with torch.no_grad():
             for ln in (blk.ln1, blk.ln2, blk.ln3):
                 ln.weight.add_(0.1 * torch.randn(ln.weight.shape, generator=g))
@@ -799,16 +943,45 @@ def test_k2_on_the_card(dev, D, K, dtype):
                                        blk.ln3.bias, blk.fc2.weight, blk.fc2.bias)]
         args = [t.to(dev, dtype) if t.dim() >= 2 else t.to(dev) for t in params]
         x = torch.randn(B, L, D, generator=g).to(dev, dtype)
-        act = 'gelu' if D != 768 else 'relu'
         ref = FB.bytenet_block_reference(x, *args, dilation=dil, activation_name=act)
         y = FB.bytenet_block(x, *args, dilation=dil, activation_name=act)
         assert _held('K2', y, ref)
-        if dtype is torch.bfloat16 and D % 128 == 0:   # the Hopper path, also where not chosen
-            plan = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path='wgmma')
+        if dtype is not torch.bfloat16:
+            continue
+        chosen = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype)['path']
+        x_stats = {}
+        for path in FB.K2_PATHS[:3]:
+            try:
+                plan = FB.bytenet_block_plan(B, L, D, H, K, dil, dtype, path=path)
+            except ValueError:   # the Hopper designs take widths that are multiples of 128
+                continue
             y2, p, q, st = FB._forward(x, args, dil, act, keep=True, plan=plan)
-            assert _held('K2', y2, ref) and torch.equal(
-                y2, FB._forward(x, args, dil, act, keep=False, plan=plan)[0])
-            assert st.shape == (3, B, L, 2) and bool(torch.isfinite(st).all())
+            assert _held('K2', y2, ref), path
+            assert torch.equal(y2, FB._forward(x, args, dil, act, keep=False, plan=plan)[0])
+            assert torch.equal(y2, FB._forward(x, args, dil, act, keep=True, plan=plan)[0])
+            assert st.shape == (3, B, L, 2) and bool(torch.isfinite(st).all()), path
+            for k, z in enumerate((x, p, q)):
+                want = _row_stats(z)
+                assert ((st[k] - want).abs() <= 1e-5 + 1e-4 * want.abs()).all(), (path, k)
+            if path == chosen:
+                assert torch.equal(y2, y)
+            if path in FB.K2_HOPPER:
+                x_stats[path] = st[0]
+        if len(x_stats) == 2:
+            assert torch.equal(x_stats['wgmma'], x_stats['wgmma128'])
+        # the plan's call as the graph sampler runs it: captured, then replayed
+        call = lambda: FB.bytenet_block(x, *args, dilation=dil, activation_name=act)  # noqa: E731
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            yg = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y)
 
 
 @pytest.mark.cuda
@@ -966,6 +1139,75 @@ def test_k4_sweep_time_designs_on_the_cpu(monkeypatch):
     off[3] = off[3] * 1.01
     with pytest.raises(RuntimeError, match='wgmma design'):
         S.time_designs(call, off, (2, 19, 256, 128, 2), launches=False)
+    assert not timed
+
+
+def test_k2_sweep_shapes_and_refusal_without_a_card(monkeypatch):
+    """K2's timing tool covers the shapes the paths give it (the Ab towers
+    at B = 1, 16, 32, 64 and 128, L = 152 and 139; the Nb towers at B = 1,
+    16, 64, 128 and 512, L = 152), every design the plan has, the K2 limit,
+    and, without a card, refuses with exit code 2."""
+    from hudiff_tpu_torch.tools import bytenet_fwd_sweep as S
+    ab = {(B, L, D, act) for B in (1, 16, 32, 64, 128) for L in (152, 139)
+          for D, act in ((768, 'relu'), (256, 'gelu'))}
+    nb = {(B, 152, D, 'gelu') for B in (1, 16, 64, 128, 512) for D in (512, 256)}
+    assert set(S.PATH_SHAPES) == ab | nb and len(S.PATH_SHAPES) == len(ab | nb)
+    assert set(S.MAIN_SHAPES) <= set(S.PATH_SHAPES) and S.DILATIONS == DILATIONS
+    assert S.DESIGNS == FB.K2_PATHS[:3] and S.BF16_ATOL == TOL['K2'][torch.bfloat16]
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert S.main(['--shapes', 'main']) == 2
+
+
+def test_k2_sweep_time_designs_on_the_cpu(monkeypatch):
+    """The timing that the tool and chip_smoke.py's K2 records share: each
+    design is held before it is timed and checked to repeat to the same
+    bits, ``device_ms`` is the plan's design's, a tuning variant whose plan
+    is its design's own is not timed twice, the composition is timed; an
+    output off the limit stops it before its design is timed (graph_ms
+    stubbed, CPU tensors take the plain version: no card)."""
+    from hudiff_tpu_torch.tools import bytenet_fwd_sweep as S
+    timed = []
+
+    def graph_ms(fn):
+        fn()
+        timed.append(fn)
+        return float(len(timed))
+
+    monkeypatch.setattr(S, 'graph_ms', graph_ms)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    g = torch.Generator().manual_seed(7)
+    params = [t.bfloat16() if t.dim() >= 2 else t
+              for t in S.block_params(256, 'gelu', 2, torch.device('cpu'), g)]
+    x = torch.randn(2, 19, 256, generator=g).bfloat16()
+    ref = FB.bytenet_block_reference(x, *params, dilation=2, activation_name='gelu')
+    seen = []
+
+    def held(name, y):
+        seen.append(name)
+        assert S.excess(y, ref) <= S.BF16_ATOL
+
+    call = lambda plan: FB._forward(x, params, 2, 'gelu', keep=False, plan=plan)[0]  # noqa: E731
+    lib = S.composition_params(params, torch.bfloat16)
+    comp = lambda: S.block_composition(x, lib, 2, 'gelu')  # noqa: E731
+    assert S.excess(comp(), ref) <= S.BF16_ATOL   # the yardstick computes the same function
+    rec = S.time_designs(call, held, (2, 19, 256, 128, 7, 2), tuning=True, composition=comp)
+    # 38 rows: the 64-row design, with 64-column tiles on every launch (few tiles)
+    assert rec['path'] == 'wgmma' and rec['device_ms'] == rec['device_ms_wgmma'] == 1.0
+    # (wgmma_bn64 is the design's own plan here, wgmma128_bn128 the 128-row one's:
+    # each plan timed once; 128 columns are no 256-column tiles)
+    assert seen == ['wgmma', 'wgmma128', 'mma_sync', 'wgmma_bn128', 'wgmma_nopdl',
+                    'wgmma128_nopdl']
+    assert rec['library_device_ms'] == len(timed) == 7
+    rec = S.time_designs(call, held, (2, 19, 256, 128, 7, 2))
+    assert set(rec) == {'path', 'device_ms', 'device_ms_wgmma', 'device_ms_wgmma128',
+                        'device_ms_mma_sync'}
+    timed.clear()
+
+    def off(name, y):
+        raise RuntimeError(f'{name} off')
+
+    with pytest.raises(RuntimeError, match='wgmma off'):
+        S.time_designs(call, off, (2, 19, 256, 128, 7, 2))
     assert not timed
 
 

@@ -89,3 +89,17 @@ def test_kernel_groups():
     assert TB.kernel_group('bytenet_bwd_dgrad_kernel') == 'K4'
     assert TB.kernel_group('sm90_xmma_gemm_bf16bf16_bf16f32') == 'cublas'
     assert TB.kernel_group('void at::native::vectorized_elementwise_kernel') == 'other'
+
+
+def test_added_ms_charges_overlapped_kernels_once():
+    """A kernel that starts under the previous one's tail (programmatic
+    dependent launch) is charged from that kernel's end; one that overlaps
+    none, its duration; one inside another, nothing; the values sum to the
+    time at least one kernel ran (µs in, ms out)."""
+    from types import SimpleNamespace
+    from hudiff_tpu_torch.tools import added_ms
+    ev = lambda s, e: SimpleNamespace(time_range=SimpleNamespace(start=s, end=e))  # noqa: E731
+    kernels = [ev(0, 100), ev(60, 250), ev(240, 400), ev(500, 520), ev(505, 510)]
+    assert added_ms(kernels) == [0.1, 0.15, 0.15, 0.02, 0.0]
+    assert added_ms(kernels[::-1]) == [0.0, 0.02, 0.15, 0.15, 0.1]   # in the order given
+    assert added_ms([]) == []
