@@ -17,7 +17,9 @@ The loss builders close over the infilling model and the frozen scorers
 (``abnativ.frozen``: no parameter gradient; gradients reach the scorers'
 inputs, through the codebook too where the scorer has ``straight_through``).
 The denoiser's logits are f32 (its decoder), and so are the Gumbel and
-straight-through tensors and the scorers.
+straight-through tensors and the scorers. In the Nb loss each scorer
+forward is a device span ``scorer`` and the scorers' backward one
+``scorer.backward`` (``utils.tracing``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from .. import constants as C
 from ..ops import scheme_transfer as ST
+from ..utils import tracing
 from . import abnativ as AB
 
 
@@ -66,6 +69,12 @@ def _infilled_aho(logits, batch, u, temperature, imgt_cand, aho_cand, valid_max)
     return ST.apply_transfer(infilled, aho, tmap), ST.transfer_mask(mask, tmap)
 
 
+def _scored(scorer, aho: torch.Tensor) -> torch.Tensor:
+    """``scorer(aho)``, one AbNatiV forward, as the device span ``scorer``."""
+    with tracing.span('scorer', device=True):
+        return scorer(aho)
+
+
 @dataclasses.dataclass(frozen=True)
 class NanoFinetuneConfig:
     """Mirrors configs/nano_finetune.yml's model section."""
@@ -97,16 +106,16 @@ def make_nano_finetune_loss(infill_model, vh_model, cfg: NanoFinetuneConfig,
         logits = infill_model(batch['src'], batch['region'])
         infilled_aho, infill_aho_mask = _infilled_aho(
             logits, batch, u, cfg.temperature, ST.NANO_IMGT_CAND, ST.NANO_AHO_CAND, C.IDX_X)
-        humanness = AB.nativeness_scores(vh_model(infilled_aho), infill_aho_mask, 'VH',
+        humanness = AB.nativeness_scores(_scored(vh_model, infilled_aho), infill_aho_mask, 'VH',
                                          all_seq=cfg.human_all_seq)
         vh_loss = _score_loss(humanness, cfg.human_threshold, cfg.loss_type)
         metrics = {'vh_loss': vh_loss, 'humanness_mean': humanness.mean()}
         loss = vh_loss
         if cfg.vhh_nativeness:
-            old_s = AB.nativeness_scores(vhh_model(batch['aho'].detach()), infill_aho_mask,
+            old_s = AB.nativeness_scores(_scored(vhh_model, batch['aho'].detach()),
+                                         infill_aho_mask, 'VHH', all_seq=cfg.vhh_all_seq)
+            new_s = AB.nativeness_scores(_scored(vhh_model, infilled_aho), infill_aho_mask,
                                          'VHH', all_seq=cfg.vhh_all_seq)
-            new_s = AB.nativeness_scores(vhh_model(infilled_aho), infill_aho_mask, 'VHH',
-                                         all_seq=cfg.vhh_all_seq)
             delta = torch.mean((new_s - old_s.detach()) ** 2)
             loss = vh_loss + delta
             if cfg.equal_weight:
@@ -118,6 +127,7 @@ def make_nano_finetune_loss(infill_model, vh_model, cfg: NanoFinetuneConfig,
             metrics['delta_vhh'] = delta
             metrics['vhh_new_mean'] = new_s.mean()
         metrics['loss'] = loss
+        tracing.backward_span('scorer.backward', loss, infilled_aho)
         return loss, (metrics, logits)
 
     return loss_fn

@@ -53,6 +53,7 @@ from ..tokenizer import Tokenizer
 from ..training import checkpoints as CKPT
 from ..training import orbax as ORBAX
 from ..training.logger import get_logger, get_new_log_dir, seed_all
+from ..utils import tracing
 from ..utils.device import resolve_device
 from . import sampler as S
 
@@ -63,6 +64,7 @@ _TOK = Tokenizer()
 # Input construction (copied from hudiff_tpu/sampling/humanize.py:50-99)
 # ---------------------------------------------------------------------------
 
+@tracing.span('pair_input')
 def pair_input(h_seq: str, l_seq: str, finetune: bool = False
                ) -> Optional[Dict[str, np.ndarray]]:
     """Build the 291-grid input for one antibody
@@ -188,6 +190,7 @@ def _is_heavy_type(seq) -> bool:
     return group == 'H' and score >= AL.MIN_CHAIN_SCORE
 
 
+@tracing.span('nano_input')
 def nano_input(vhh_seq: str, finetune: bool = False, inpaint: bool = False
                ) -> Optional[Dict[str, np.ndarray]]:
     """152-grid input for one nanobody
@@ -356,6 +359,7 @@ def iter_packed_chunks(humanizer, stream, pad_to: int):
         used.add((B, pad_to))
 
 
+@tracing.span('result')
 def _result(inp: Dict, out: np.ndarray) -> Dict:
     h_seqs = [_TOK.idx2seq(row[: C.HEAVY_LEN]) for row in out]
     l_seqs = [_TOK.idx2seq(row[C.HEAVY_LEN:]) for row in out]
@@ -396,7 +400,10 @@ class _Humanizer:
         self.run = S.make_model_sampler(model.to(self.device),
                                         positions_per_step=positions_per_step)
 
-    def _sample(self, rows: List[Dict], pad_to: int) -> np.ndarray:
+    @tracing.span('round.prep')
+    def _round_args(self, rows: List[Dict], pad_to: int):
+        """A round's host prep, up to the sampler's call: (the sampler's
+        arguments, this rank's rows or None)."""
         put = lambda key: torch.as_tensor(  # noqa: E731
             np.stack([r[key] for r in rows]), dtype=torch.long, device=self.device)
         order = S.build_order_rows([r['positions'] for r in rows],
@@ -410,6 +417,12 @@ class _Humanizer:
                 raise ValueError(f'--shard: a round of {B} rows does not split over {W} ranks')
             args = [a[self.mesh.rank * (B // W):(self.mesh.rank + 1) * (B // W)] for a in args]
             mine = (self.mesh.rank * (B // W), B)
+        return args, mine
+
+    def _sample(self, rows: List[Dict], pad_to: int) -> np.ndarray:
+        """One round; each adds 1 to the counter ``rounds``."""
+        tracing.count('rounds')
+        args, mine = self._round_args(rows, pad_to)
         out = self.run(args[0], args[1], self.generator, *args[2:], rows=mine)
         return M.gather_rows(out, self.mesh).cpu().numpy().astype(np.int32)
 
@@ -481,14 +494,17 @@ class NanoHumanizer(_Humanizer):
     """Humanizes nanobodies with one ``NanoAntiTFNet`` on ``device``.
 
     A candidate is returned only if it still aligns as a heavy chain; the
-    filter runs the pure-Python aligner on the host, and ``filter_s``
-    accumulates the seconds it took."""
+    filter runs the port's native batched aligner (``numbering.align.
+    align_to_aho_batch``) on the host, as the span ``filter``, and
+    ``filter_s`` accumulates the seconds it took. Each ``__call__`` is one
+    ``humanize`` span, the unit of its spans and ``rounds``."""
     COND = ('region',)
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.filter_s = 0.0
 
+    @tracing.span('filter')
     def _filtered(self, inp: Dict, out: np.ndarray) -> Optional[Dict]:
         t0 = time.perf_counter()
         try:
@@ -504,6 +520,7 @@ class NanoHumanizer(_Humanizer):
         return [None if inp is None or i not in grids else self._filtered(inp, grids[i])
                 for i, inp in enumerate(inputs)]
 
+    @tracing.span('humanize')
     def __call__(self, vhh_seq: str, finetune: bool = False, inpaint: bool = False,
                  max_retry: int = 3) -> Optional[Dict[str, object]]:
         """``batch_size`` candidates for one nanobody, resampled up to

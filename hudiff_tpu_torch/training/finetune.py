@@ -21,9 +21,10 @@ trains in ``train()``, as the JAX step runs with ``deterministic=False``,
 and the eval step, like the JAX one, computes the step's loss (dropout and
 Gumbel noise included) without an update. Gradients are clipped to
 ``clip_norm`` on the Nb path only (configs/nano_finetune.yml), as the JAX
-CLI does. Each validation drives the plateau LR; the best one saves a
-checkpoint with ``finetuned: True`` and its ``kind``, which
-``humanize ab|nano --ckpt`` loads.
+CLI does. Each step is one device span ``step`` (``utils.tracing``).
+Each validation drives the plateau LR; the best one saves a checkpoint
+with ``finetuned: True`` and its ``kind``, which ``humanize ab|nano
+--ckpt`` loads.
 
 Usage:
   python -m hudiff_tpu_torch.training.finetune nano --config configs/nano_finetune.yml \\
@@ -52,6 +53,7 @@ from ..models import finetune as FT
 from ..ops import losses, masking
 from ..sampling.humanize import load_denoiser
 from ..tokenizer import Tokenizer
+from ..utils import tracing
 from ..utils.config import Namespace, load_yaml
 from ..utils.device import resolve_device
 from . import checkpoints as CKPT
@@ -101,6 +103,7 @@ def save_abnativ(path: str, model: AB.AbNatiVModel) -> str:
 # Steps
 # ---------------------------------------------------------------------------
 
+@tracing.span('step', device=True)
 def _apply(state: T.TrainState, total_loss, gen, args, corrupted, u):
     loss, metrics = total_loss(*args, gen, corrupted, u)
     loss.backward()

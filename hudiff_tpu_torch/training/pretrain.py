@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 from typing import Dict, Iterator, Optional
@@ -69,6 +70,7 @@ from ..data import oas, pipeline
 from ..models.denoiser import DenoiserConfig, nano_config
 from ..parallel import mesh as M
 from ..tokenizer import Tokenizer
+from ..utils import tracing
 from ..utils.config import Namespace, load_yaml
 from ..utils.device import resolve_device
 from . import checkpoints, schedules, train_step as T
@@ -325,7 +327,9 @@ def main(argv=None):
     p.add_argument('--fp32', action='store_true')
     p.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     p.add_argument('--profile', action='store_true',
-                   help='trace the run with torch.profiler into <logdir>/profile')
+                   help="trace the run with torch.profiler into <logdir>/profile/trace.json "
+                        "and write the port's own spans beside it (spans.json: each step's "
+                        'host and device time, garbage collections; utils/tracing.py)')
     p.add_argument('--tp', type=int, default=1,
                    help='tensor-parallel size: each attention split by head group, the '
                         'FFN by unit, over tp contiguous ranks (the world must divide by it)')
@@ -375,10 +379,11 @@ def _main_run(args, cfg, kind, kw):
         os.makedirs(trace_dir, exist_ok=True)
         with profile(activities=activities) as prof:
             out = run(cfg, kind, args.data, args.logdir, **kw)
-        name = ('trace.json' if M.world_size() == 1
-                else f'trace_rank{torch.distributed.get_rank()}.json')
-        prof.export_chrome_trace(os.path.join(trace_dir, name))
-        print(f'profiler trace written to {trace_dir}')
+        rank = '' if M.world_size() == 1 else f'_rank{torch.distributed.get_rank()}'
+        prof.export_chrome_trace(os.path.join(trace_dir, f'trace{rank}.json'))
+        with open(os.path.join(trace_dir, f'spans{rank}.json'), 'w') as f:
+            json.dump(tracing.records(), f)
+        print(f'profiler trace and spans written to {trace_dir}')
         return out
     return run(cfg, kind, args.data, args.logdir, **kw)
 

@@ -15,7 +15,8 @@ device seeded from ``(seed, state.step)``, as ``fold_in(rng, state.step)``
 keys the JAX step (train_step.py:79); torch's draws are not JAX's. A step
 may instead be handed a fixed ``Corrupted``, which the parity tests use.
 The pair step trains ``AntiTFNet`` on [B, 291] grids, the heavy step
-``NanoAntiTFNet`` on [B, 152] ones.
+``NanoAntiTFNet`` on [B, 152] ones. Each step is one device span ``step``
+(``utils.tracing``): its host issue time and its device time.
 
 Under a ``parallel.mesh.Mesh`` (``mesh=``) a step is handed its node's
 whole batch and corrupts all of it, so that one node draws what one
@@ -37,6 +38,7 @@ import torch
 from .. import constants as C
 from ..ops import losses, masking
 from ..parallel import mesh as M
+from ..utils import tracing
 from . import schedules
 
 
@@ -125,6 +127,7 @@ def make_pair_train_step(model, loss_type: str = 'merge', l_weight: float = 1.0,
     the module's docstring)."""
     rows = {}
 
+    @tracing.span('step', device=True)
     def step(state: TrainState, tokens: torch.Tensor, chain_type: torch.Tensor, seed: int,
              corrupted: Optional[masking.Corrupted] = None) -> Dict[str, torch.Tensor]:
         dev = tokens.device
@@ -156,6 +159,7 @@ def make_heavy_train_step(model, mesh: Optional[M.Mesh] = None) -> Callable:
     ``mesh``: as ``make_pair_train_step``."""
     rows = {}
 
+    @tracing.span('step', device=True)
     def step(state: TrainState, tokens: torch.Tensor, seed: int,
              corrupted: Optional[masking.Corrupted] = None) -> Dict[str, torch.Tensor]:
         dev = tokens.device
